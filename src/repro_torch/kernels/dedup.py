@@ -1,0 +1,113 @@
+"""Dedup pre-pass for the batch-parallel CS-Adam step.
+
+Counterpart of ``repro.kernels.dedup``.  Duplicate occurrences of an id
+are occurrences of the same gradient row, so they are summed first; the
+batch is then collision-free in id space and the whole-batch step
+applies.  Every output keeps the input length ``k`` (padding past
+``n_unique`` holds ``fill_id`` and zero rows), and ``n_unique`` stays a
+tensor on the device, so the pass never waits for the device.
+
+    d = dedup_rows(ids, rows)
+    ... any collision-free batch step on (d.unique_ids, d.rows) ...
+    upd = scatter_back(d, upd_unique)
+
+Order of the segment sum: ``index_add_`` on the CPU adds each segment's
+rows one after another in sorted order, as ``jax.ops.segment_sum`` does,
+so the sums match the reference to the bit.  On CUDA ``index_add_`` adds
+duplicates with atomics; the port does NOT make that order
+deterministic, so a sum of duplicates may differ in its last bit from
+run to run.  The integer outputs are exact on every device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class DedupBatch(NamedTuple):
+    """A collision-free (in id space) view of an (ids, rows) batch."""
+
+    unique_ids: torch.Tensor   # (k,) int32: sorted unique ids, then fill_id
+    rows: torch.Tensor         # (k, d): segment-summed gradient rows
+    inv: torch.Tensor          # (k,) int32: input position -> unique slot
+    first_pos: torch.Tensor    # (k,) int32: unique slot -> first input
+                               #   position of its id (k for padding)
+    n_unique: torch.Tensor     # () int32: number of live unique slots
+
+    @property
+    def mask(self) -> torch.Tensor:
+        """(k,) float32: 1 for live unique slots, 0 for padding."""
+        k = self.unique_ids.shape[0]
+        pos = torch.arange(k, device=self.unique_ids.device)
+        return (pos < self.n_unique).to(torch.float32)
+
+
+def dedup_rows(ids: torch.Tensor, rows: torch.Tensor,
+               fill_id: int = -1) -> DedupBatch:
+    """Sort ``ids`` stably and merge duplicates by summing their rows.
+
+    ids: (k,) integer ids, duplicates allowed; rows: (k, d)."""
+    k = ids.shape[0]
+    dev = ids.device
+    if k == 0:
+        z = torch.zeros((0,), dtype=torch.int32, device=dev)
+        return DedupBatch(unique_ids=z, rows=rows, inv=z, first_pos=z,
+                          n_unique=torch.zeros((), dtype=torch.int32,
+                                               device=dev))
+    ids = ids.to(torch.int32)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    is_start = torch.ones((k,), dtype=torch.int64, device=dev)
+    is_start[1:] = (sorted_ids[1:] != sorted_ids[:-1]).to(torch.int64)
+    seg = torch.cumsum(is_start, 0) - 1                    # (k,) segment index
+    n_unique = (seg[-1] + 1).to(torch.int32)
+    unique_ids = torch.full((k,), fill_id, dtype=torch.int32, device=dev)
+    unique_ids.scatter_(0, seg, sorted_ids)
+    summed = torch.zeros_like(rows).index_add_(0, seg, rows[order])
+    inv = torch.empty((k,), dtype=torch.int64, device=dev)
+    inv.scatter_(0, order, seg)
+    # stable sort: within a segment `order` ascends, so the min is the
+    # id's first input position; padding slots keep the sentinel k
+    first_pos = torch.full((k,), k, dtype=torch.int64, device=dev)
+    first_pos.scatter_reduce_(0, seg, order, reduce="amin")
+    return DedupBatch(unique_ids=unique_ids, rows=summed,
+                      inv=inv.to(torch.int32),
+                      first_pos=first_pos.to(torch.int32),
+                      n_unique=n_unique)
+
+
+def scatter_back(batch: DedupBatch, unique_out: torch.Tensor) -> torch.Tensor:
+    """(k, d) results over unique slots -> (k, d) results at the input
+    positions: the whole result at each id's first occurrence, zeros at
+    later duplicates, so ``table.index_add_(0, ids, out)`` applies each
+    unique update once.  Padding slots land nowhere, whatever they hold:
+    the caller need not zero them."""
+    k = batch.inv.shape[0]
+    # one spare row takes the padding slots' sentinel position k
+    out = torch.zeros((k + 1,) + tuple(unique_out.shape[1:]),
+                      dtype=unique_out.dtype, device=unique_out.device)
+    out.index_copy_(0, batch.first_pos.long(), unique_out)
+    return out[:k]
+
+
+def gather_back(batch: DedupBatch, unique_out: torch.Tensor) -> torch.Tensor:
+    """Every occurrence, duplicates included, receives its slot's row."""
+    return unique_out[batch.inv.long()]
+
+
+def pad_to_multiple(batch: DedupBatch, multiple: int,
+                    fill_id: int = -1) -> DedupBatch:
+    """Pad every slot-indexed array to a multiple of ``multiple``; the new
+    slots look like dedup padding."""
+    k = batch.unique_ids.shape[0]
+    if multiple <= 1 or k % multiple == 0 and k > 0:
+        return batch
+    k_pad = max(-(-k // multiple) * multiple, multiple)
+    pad = k_pad - k
+    F = torch.nn.functional
+    return DedupBatch(
+        unique_ids=F.pad(batch.unique_ids, (0, pad), value=fill_id),
+        rows=F.pad(batch.rows, (0, 0, 0, pad)),
+        inv=batch.inv,
+        first_pos=F.pad(batch.first_pos, (0, pad), value=k),
+        n_unique=batch.n_unique)

@@ -14,6 +14,11 @@ own line; any failure raises and the exit code is not 0:
      B1 ``cs_adam_tiled`` bit-equal on a collision-free batch and within
      atol 2e-5 under heavy collisions, B2 ``cs_adam_fused`` bit-equal to
      ``ref.adam_fused_ref``, each with and without a first moment;
+     B3 ``cs_ema_tiled`` (signed and unsigned, the three ``ema_delta``
+     forms, with and without a mask) and B5 ``cs_update`` bit-equal on a
+     collision-free batch, within atol 2e-5 under heavy collisions and
+     then bit-equal to the plain version on a CPU copy; B4 ``cs_query``
+     bit-equal;
   3. the main path at full width: 20 steps of
      ``make_sparse_embedding_step`` on the tied embedding/softmax table of
      qwen2-0.5b (vocab 151,936 x d_model 896, from
@@ -25,13 +30,32 @@ own line; any failure raises and the exit code is not 0:
      near its start.  Its witness: the same 20 batches from the same
      table through the plain ``xla`` backend must give the same per-batch
      losses and table.  Five more steps under ``torch.profiler`` give the
-     device's busy time a step, set against the unprofiled step time;
-  4. the serve entry ``make_online_adapt_step`` (β₁=0) for 10 steps, and
-     3 steps of the main path on backend ``stream`` (B2);
+     device's busy time a step, set against the unprofiled step time.
+     The same 20 batches as dense gradients (``zeros.index_add_(0, ids,
+     rows)``) through ``adam_from_stores`` with the same stores on
+     ``auto`` (B3) must give phase 3's table (3d), and through dense Adam
+     (``optimizers.adam``) show what sketching costs the loss (3e);
+  4. the serve entry ``make_online_adapt_step`` (β₁=0) for 10 steps, 3
+     steps of the main path on backend ``stream`` (B2), and the batch
+     sketch ops ``ops.sketch_update``/``sketch_query`` (B5, B4) on one
+     main-path batch;
   5. each kernel's time, its plain version's time and its byte bound at
-     the phase-3 shapes.
+     the shapes its path gives it;
+  6. the dense path at full width: the softmax layer of qwen2-0.5b
+     (``tok_embed/table`` 151,936 x 896 and ``final_norm/scale``),
+     cross-entropy of ``rmsnorm(h)*scale @ table^T`` on 1,024 zipf(1.1)
+     targets a step with ``h = teacher[y] + noise``, full softmax so
+     every row has a gradient, ``countsketch_adam(SketchPolicy(),
+     backend auto)`` at lr 3e-5: 20 steps; the loss on batch 0's tokens
+     must fall, B3 must launch twice a step, and the same batches
+     through plain ``xla`` must give the same losses and table; five
+     steps under the profiler.  At the main path's lr 3e-4 the sketched
+     first moment makes some rows' directions reach the thousands and
+     the loss rises; 6d prints that run beside the dense-first-moment
+     (CS-V) and all-dense Adam runs on the same batches.
 
-It prints the kernels' JSON line and, last, ``{"ok": true, "device":
+Each phase prints its wall time.  It prints the kernels' JSON line, the
+card's name and power limit and, last, ``{"ok": true, "device":
 {...}}``.  With no card it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -52,6 +76,8 @@ sys.path.insert(0, str(ROOT / "src"))
 VOCAB, D_MODEL = 151_936, 896      # src/repro/configs/qwen2_0_5b.py:10-12
 BATCH, SEQ = 8, 2_048              # ids per step: 16,384
 STEPS, SERVE_STEPS, STREAM_STEPS = 20, 10, 3
+TOKENS = 1_024                     # phase 6: targets a step
+DENSE_LR = 3e-5                    # phase 6: at LR the loss rises (6d)
 ZIPF_A = 1.1
 LR = 3e-4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -115,7 +141,12 @@ def zipf_ids(rng: np.random.RandomState, steps: int) -> list:
 def kernel_counts():
     from repro_torch.kernels.cs_adam import cs_adam_fused
     from repro_torch.kernels.cs_adam_tiled import cs_adam_tiled
-    return {"cs_adam_tiled": cs_adam_tiled, "cs_adam_fused": cs_adam_fused}
+    from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled
+    from repro_torch.kernels.cs_query import cs_query
+    from repro_torch.kernels.cs_update import cs_update
+    return {"cs_adam_tiled": cs_adam_tiled, "cs_adam_fused": cs_adam_fused,
+            "cs_ema_tiled": cs_ema_tiled, "cs_query": cs_query,
+            "cs_update": cs_update}
 
 
 def reset_counts() -> None:
@@ -204,6 +235,95 @@ def phase_kernels(dev, seed: int) -> None:
             raise AssertionError("B2 is not bit-equal to adam_fused_ref")
 
 
+EMA_FORMS = {"adam": (0.999, 1.0 - 0.999), "adagrad": (1.0, 1.0),
+             "momentum": (0.9, 1.0)}
+
+
+def on_cpu(xs):
+    return [None if x is None else x.cpu() for x in xs]
+
+
+def phase_sketch_kernels(dev, seed: int) -> None:
+    """B3, B4 and B5 against their plain versions at d_model width."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cs_ema_tiled import (cs_ema_tiled,
+                                                  cs_ema_tiled_plain)
+    from repro_torch.kernels.cs_query import cs_query
+    from repro_torch.kernels.cs_update import cs_update
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    k = 2_048
+
+    def case(signed, width, collision_free):
+        S = torch.randn((3, width, D_MODEL), generator=gen, device=dev)
+        if collision_free:
+            b = torch.randperm(width, generator=gen, device=dev)[:k].to(
+                torch.int32)[None].expand(3, k).contiguous()
+        else:
+            b = torch.randint(0, width, (3, k), generator=gen, device=dev,
+                              dtype=torch.int32)
+        s = (torch.randint(0, 2, (3, k), generator=gen, device=dev).float()
+             * 2 - 1) if signed else None
+        x = torch.randn((k, D_MODEL), generator=gen, device=dev)
+        mask = (torch.rand((k, 1), generator=gen, device=dev) > 0.3).float()
+        return (S if signed else S.abs()), b, s, x, mask
+
+    worst = 0.0
+    for signed in (True, False):
+        for form, (beta, scale) in EMA_FORMS.items():
+            for masked in (False, True):
+                for width, free in ((4_096, True), (64, False)):
+                    S, b, s, x, mask = case(signed, width, free)
+                    m = mask if masked else None
+                    want = cs_ema_tiled_plain(S.clone(), b, s, x, m,
+                                              beta=beta, scale=scale)
+                    got = cs_ema_tiled(S.clone(), b, s, x, m, beta=beta,
+                                       scale=scale)
+                    torch.cuda.synchronize()
+                    tag = (f"signed={signed} {form} mask={masked} "
+                           f"width={width}")
+                    if free:
+                        if not all(torch.equal(a, c)
+                                   for a, c in zip(want, got)):
+                            raise AssertionError(f"B3 not bit-equal on a "
+                                                 f"collision-free batch, {tag}")
+                        continue
+                    err = max_err(want, got)
+                    worst = max(worst, err)
+                    host = cs_ema_tiled_plain(*on_cpu([S, b, s, x, m]),
+                                              beta=beta, scale=scale)
+                    if not (err <= COLLISION_ATOL and all(
+                            torch.equal(a, c.cpu())
+                            for a, c in zip(host, got))):
+                        raise AssertionError(f"B3 under collisions, {tag}: "
+                                             f"max_abs_err {err}")
+    log(f"phase 2: B3 cs_ema_tiled k={k} d={D_MODEL}, signed and unsigned x "
+        f"3 ema_delta forms x mask on/off: bit-equal on collision-free "
+        f"batches (width 4096); width 64 (32 rows a bucket): max_abs_err "
+        f"(S, est) {worst} vs the plain version on the card (atol "
+        f"{COLLISION_ATOL}), bit-equal to it on a CPU copy")
+    for signed in (True, False):
+        S, b, s, _, _ = case(signed, 512, False)
+        if not torch.equal(cs_query(S, b, s), ref.cs_query_ref(S, b, s)):
+            raise AssertionError(f"B4 not bit-equal, signed={signed}")
+        for width, free in ((4_096, True), (64, False)):
+            S, b, s, x, _ = case(signed, width, free)
+            want = ref.cs_update_ref(S.clone(), b, s, x)
+            got = cs_update(S.clone(), b, s, x)
+            torch.cuda.synchronize()
+            err = float((want - got).abs().max())
+            host = ref.cs_update_ref(*on_cpu([S, b, s, x]))
+            ok = err == 0.0 if free else (err <= COLLISION_ATOL and
+                                          torch.equal(host, got.cpu()))
+            if not ok:
+                raise AssertionError(f"B5 signed={signed} width={width}: "
+                                     f"max_abs_err {err}")
+    log(f"phase 2: B4 cs_query k={k} width 512 bit-equal; B5 cs_update "
+        f"bit-equal collision-free, within atol {COLLISION_ATOL} at width 64 "
+        f"and bit-equal to the plain version on a CPU copy (signed and "
+        f"unsigned)")
+
+
 # ---------------------------------------------------------------- phase 3
 def run_steps(step_fn, table, target, state, batches, dev):
     """Drive ``step_fn`` over ``batches``; returns (table, state, losses,
@@ -229,7 +349,7 @@ def run_steps(step_fn, table, target, state, batches, dev):
 def phase_main(dev, seed: int):
     import torch
     from repro_torch import kernels
-    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.core.optimizers import SketchHParams, adam
     from repro_torch.train.steps import make_sparse_embedding_step
     hp = SketchHParams()
     backend = kernels.resolve_backend(hp.backend, dev)
@@ -249,8 +369,8 @@ def phase_main(dev, seed: int):
     fresh = torch.from_numpy(zipf_ids(np.random.RandomState(seed + 99), 1)[0]
                              ).to(dev).long()
 
-    def loss_on(idx) -> float:
-        rows = table[idx] - target[idx]
+    def loss_on(idx, tab=None) -> float:
+        rows = (table if tab is None else tab)[idx] - target[idx]
         return float(torch.mean(rows * rows))
 
     held_before, fresh_before = loss_on(held), loss_on(fresh)
@@ -278,9 +398,19 @@ def phase_main(dev, seed: int):
             and torch.isfinite(state["v"]).all()):
         raise AssertionError("non-finite table or sketch")
     phase_witness(dev, table0, target, batches, table, losses)
-    del table0
-    table, state = phase_profile(dev, step_fn, table, target, state, seed,
-                                 statistics.median(ms[1:]))
+    phase_dense_vs_sparse(dev, table0, target, batches, table, losses)
+    dense_table = run_dense(adam(LR), table0, target, batches, dev)[0]
+    log(f"phase 3e: dense Adam (optimizers.adam, lr {LR}) on the same "
+        f"{STEPS} batches: loss on the first batch's ids {held_before} -> "
+        f"{loss_on(held, dense_table)}, on a fresh zipf batch "
+        f"{fresh_before} -> {loss_on(fresh, dense_table)}; CS-Adam (phase "
+        f"3): {held_before} -> {held_after}, {fresh_before} -> "
+        f"{fresh_after}")
+    del table0, dense_table
+    more = zipf_ids(np.random.RandomState(seed + 30), 5)
+    table, state, _, _ = profile_steps(
+        "phase 3c", lambda: run_steps(step_fn, table, target, state, more,
+                                      dev), statistics.median(ms[1:]))
     return table, target, state, batches[-1], counts
 
 
@@ -294,7 +424,7 @@ def phase_witness(dev, table0, target, batches, tiled_table, tiled_losses):
     _init, step_fn, opt = make_sparse_embedding_step(
         VOCAB, D_MODEL, lr=LR, device=dev,
         hparams=SketchHParams(backend="xla"))
-    table, _state, losses, ms = run_steps(step_fn, table0, target,
+    table, _state, losses, ms = run_steps(step_fn, table0.clone(), target,
                                           opt.init(), batches, dev)
     rel = max(abs(a - b) / abs(b) for a, b in zip(tiled_losses, losses))
     err = float((table - tiled_table).abs().max())
@@ -310,21 +440,69 @@ def phase_witness(dev, table0, target, batches, tiled_table, tiled_losses):
     torch.testing.assert_close(tiled_table, table, **WITNESS_TOL)
 
 
-def phase_profile(dev, step_fn, table, target, state, seed: int,
-                  step_ms: float):
-    """Five more main-path steps under ``torch.profiler``: the device's
-    busy time a step and the kernels that take it.  The idle share is
-    taken against ``step_ms``, the unprofiled step time, since the
-    profiler slows the host."""
+def run_dense(opt, table0, target, batches, dev):
+    """The main path's batches from ``table0`` as dense gradients: each
+    step's rows ``table[ids] - target[ids]`` summed into a zero table.
+    Returns (table, per-batch losses)."""
+    import torch
+    from repro_torch.core.optimizers import apply_updates
+    params = {"table": table0.clone()}
+    state = opt.init(params)
+    losses = []
+    for ids_np in batches:
+        idx = torch.from_numpy(ids_np).to(dev).long()
+        rows = params["table"][idx] - target[idx]
+        losses.append(torch.mean(rows * rows))
+        grad = torch.zeros_like(params["table"]).index_add_(0, idx, rows)
+        updates, state = opt.update({"table": grad}, state)
+        apply_updates(params, updates)
+    torch.cuda.synchronize()
+    return params["table"], [float(x) for x in losses]
+
+
+def phase_dense_vs_sparse(dev, table0, target, batches, tiled_table,
+                          tiled_losses):
+    """The main path's batches as dense gradients through
+    ``adam_from_stores`` with the main path's stores pinned to ``auto``
+    (B3): the same step as the sparse-rows path, so the same table."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams, adam_from_stores
+    from repro_torch.core.stores import StoreTree
+    from repro_torch.train.steps import sparse_embedding_stores
+    m_store, v_store = sparse_embedding_stores(VOCAB, D_MODEL,
+                                               hparams=SketchHParams())
+    tree = StoreTree(rules=(("table", m_store, v_store),)).with_backend(
+        "auto")
+    before = read_counts()["cs_ema_tiled"]
+    table, losses = run_dense(adam_from_stores(LR, tree), table0, target,
+                              batches, dev)
+    launches = read_counts()["cs_ema_tiled"] - before
+    rel = max(abs(a - b) / abs(b) for a, b in zip(tiled_losses, losses))
+    err = float((table - tiled_table).abs().max())
+    log(f"phase 3d: the same {len(batches)} batches as dense gradients "
+        f"through adam_from_stores (B3 x{launches}): per-batch loss max rel "
+        f"diff {rel}, table max_abs_err {err} vs the sparse-rows tiled run")
+    if launches != 2 * len(batches):
+        raise AssertionError(f"the dense check launched B3 {launches} times")
+    torch.testing.assert_close(torch.tensor(losses),
+                               torch.tensor(tiled_losses),
+                               rtol=WITNESS_TOL["rtol"], atol=0.0)
+    torch.testing.assert_close(table, tiled_table, **WITNESS_TOL)
+
+
+def profile_steps(tag: str, run, step_ms: float, n: int = 5):
+    """``run()``, which drives ``n`` steps and synchronises, under
+    ``torch.profiler``: the device's busy time a step and the kernels that
+    take it.  The idle share is taken against ``step_ms``, the unprofiled
+    step time, since the profiler slows the host.  Returns ``run()``'s
+    result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    batches = zipf_ids(np.random.RandomState(seed + 30), 5)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        table, state, _, _ = run_steps(step_fn, table, target, state,
-                                       batches, dev)
+        out = run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
     for evt in prof.key_averages():
@@ -336,16 +514,16 @@ def phase_profile(dev, step_fn, table, target, state, seed: int,
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     if busy_ms <= 0.0:
-        log("phase 3c: device busy time not measured (the profiler saw no "
-            "CUDA kernels)")
-        return table, state
-    log(f"phase 3c: 5 steps under torch.profiler: wall {wall_ms} ms, "
-        f"device busy {busy_ms} ms ({busy_ms / 5} ms a step); idle share "
-        f"{1.0 - busy_ms / 5 / step_ms} against the unprofiled step of "
+        log(f"{tag}: device busy time not measured (the profiler saw no "
+            f"CUDA kernels)")
+        return out
+    log(f"{tag}: {n} steps under torch.profiler: wall {wall_ms} ms, "
+        f"device busy {busy_ms} ms ({busy_ms / n} ms a step); idle share "
+        f"{1.0 - busy_ms / n / step_ms} against the unprofiled step of "
         f"{step_ms} ms ({1.0 - busy_ms / wall_ms} with the profiler on)")
     for ms, count, name in kernels[:10]:
-        log(f"phase 3c:   {ms} ms  x{count}  {name[:90]}")
-    return table, state
+        log(f"{tag}:   {ms} ms  x{count}  {name[:90]}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -388,6 +566,59 @@ def phase_serve_and_stream(dev, table, target, seed: int):
     return stream_counts
 
 
+def phase_sketch_ops(dev, ids_np, seed: int):
+    """The batch sketch ops on one main-path batch: ``ops.sketch_update``
+    (B5) adds its rows into a zero (3, 10,240, 896) Count-Sketch and
+    ``ops.sketch_query`` (B4) reads the batch back.  Both are held to
+    their plain versions to the bit, and the most frequent ids must come
+    back close to the sum of their rows (heavy hitters survive the
+    sketch).
+    Returns (spec, sketch, ids, rows, counts)."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.kernels import ops, ref
+    spec = SketchHParams().spec("sparse_embedding", (VOCAB, D_MODEL),
+                                signed=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    ids = torch.from_numpy(ids_np).to(dev)
+    rows = torch.randn((ids.numel(), D_MODEL), generator=gen, device=dev)
+    S = torch.zeros(spec.shape, device=dev)
+    reset_counts()
+    ops.sketch_update(spec, S, ids, rows)
+    est = ops.sketch_query(spec, S, ids)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    b, sg = spec.family.bucket(ids), spec.family.sign(ids)
+    # the zipf head sums ~1,500 rows into one cell: atomics in the card's
+    # index_add_ drift there by many ulps, so B5 is held to its plain
+    # version on a CPU copy, which adds in the kernel's order
+    plain = ref.cs_update_ref(torch.zeros_like(S), b, sg, rows)
+    upd_err = float((plain - S).abs().max())
+    host = ref.cs_update_ref(torch.zeros(spec.shape), *on_cpu([b, sg, rows]))
+    if not torch.equal(host, S.cpu()):
+        raise AssertionError("B5 on the sketch-ops path is not bit-equal to "
+                             "its plain version on a CPU copy")
+    if not torch.equal(est, ref.cs_query_ref(S, b, sg)):
+        raise AssertionError("B4 on the sketch-ops path is not bit-equal")
+    uniq, freq = np.unique(ids_np, return_counts=True)
+    top = torch.from_numpy(uniq[np.argsort(-freq)[:5]]).to(dev)
+    truth = torch.zeros((VOCAB, D_MODEL), device=dev).index_add_(
+        0, ids.long(), rows)[top.long()]
+    rel = ((ops.sketch_query(spec, S, top) - truth).norm(dim=1)
+           / truth.norm(dim=1)).tolist()
+    log(f"phase 4: sketch ops on {ids.numel()} ids into {spec.shape}: "
+        f"launches {counts}; B5 bit-equal to its plain version on a CPU "
+        f"copy (max_abs_err {upd_err} vs it on the card), B4 bit-equal; "
+        f"the 5 most frequent ids "
+        f"({[int(f) for f in sorted(freq)[-5:][::-1]]} "
+        f"times) read back with relative error {rel}")
+    if counts["cs_update"] != 1 or counts["cs_query"] != 1:
+        raise AssertionError("the sketch ops did not launch B5 and B4")
+    if not max(rel) < 0.5:
+        raise AssertionError(f"heavy hitters lost in the sketch: {rel}")
+    return spec, S, ids, rows, counts
+
+
 # ---------------------------------------------------------------- phase 5
 def unique_rows(buckets, n_valid: int, width: int) -> int:
     """Distinct (hash row, bucket) pairs among the first n_valid items:
@@ -398,7 +629,8 @@ def unique_rows(buckets, n_valid: int, width: int) -> int:
     return int((b + width * rows).unique().numel())
 
 
-def phase_times(dev, table, target, state, ids_np, seed: int) -> list:
+def phase_times(dev, table, target, state, ids_np, seed: int,
+                sketch_ops) -> list:
     import torch
     from repro_torch.core.optimizers import SketchHParams
     from repro_torch.kernels import dedup as dd, ops, ref
@@ -475,7 +707,263 @@ def phase_times(dev, table, target, state, ids_np, seed: int) -> list:
     log(f"phase 5: B2 k={k}: {ms} ms, plain {plain_ms} ms (one run), bound "
         f"{out[-1]['bound_ms']} ms ({nbytes} B at 3.35 TB/s); vs plain "
         f"bit-equal")
+    out.append(time_ema(dev, seed))
+    out.extend(time_sketch_ops(dev, sketch_ops))
     return out
+
+
+def time_ema(dev, seed: int) -> dict:
+    """B3 as the dense path runs it: all 151,936 rows of the table, the
+    Adam first moment (signed, mask all ones), cached addressing."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cs_ema_tiled import (cs_ema_tiled,
+                                                  cs_ema_tiled_plain)
+    spec = SketchHParams().spec("tok_embed/table", (VOCAB, D_MODEL),
+                                signed=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 60)
+    S = torch.randn(spec.shape, generator=gen, device=dev)
+    x = torch.randn((VOCAB, D_MODEL), generator=gen, device=dev)
+    mask = torch.ones((VOCAB, 1), device=dev)
+    b, s = ops._cached_addressing(spec, VOCAB, dev)
+    csr = ops._cached_csr(spec, VOCAB, dev)
+    kw = dict(beta=0.9, scale=1.0 - 0.9)
+    want = cs_ema_tiled_plain(S.clone(), b, s, x, mask, **kw)
+    got = cs_ema_tiled(S.clone(), b, s, x, mask, csr=csr, **kw)
+    card_err = max_err(want, got)
+    host = cs_ema_tiled_plain(*on_cpu([S, b, s, x, mask]), **kw)
+    err = max_err(host, on_cpu(got))
+    if err != 0.0 or card_err > COLLISION_ATOL:
+        raise AssertionError(f"B3 at the dense path's shapes: {err} vs a "
+                             f"CPU copy, {card_err} on the card")
+    del want, got, host
+    work = S.clone()
+    ms = cuda_ms(lambda: cs_ema_tiled(work, b, s, x, mask, csr=csr, **kw),
+                 reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: cs_ema_tiled_plain(work, b, s, x, mask, **kw),
+                       reps=5)
+    depth, width, d = spec.shape
+    nbytes = 4 * (2 * VOCAB * d + 2 * depth * width * d + 2 * depth * VOCAB
+                  + VOCAB)
+    row = dict(name="cs_ema_tiled", route="cuda",
+               source="src/repro_torch/kernels/csrc/cs_ema_tiled.cu",
+               replaces="src/repro/kernels/cs_ema_tiled.py:140",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=None, k=VOCAB, bytes=nbytes)
+    log(f"phase 5: B3 k={VOCAB} (every row, signed, mask on): {ms} ms, "
+        f"plain {plain_ms} ms, bound {row['bound_ms']} ms ({nbytes} B at "
+        f"3.35 TB/s); bit-equal to the plain version on a CPU copy, "
+        f"max_abs_err {card_err} vs it on the card")
+    return row
+
+
+def time_sketch_ops(dev, sketch_ops) -> list:
+    """B4 and B5 at the sketch-ops phase's shapes: 16,384 zipf ids into
+    the (3, 10,240, 896) Count-Sketch.  B5's library yardstick is one
+    ``index_add_`` on the flattened (depth*width, dim) sketch with the
+    signed rows already formed."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cs_query import cs_query
+    from repro_torch.kernels.cs_update import bucket_csr, cs_update
+    spec, S, ids, rows, counts = sketch_ops
+    depth, width, d = spec.shape
+    k = ids.numel()
+    b, s = spec.family.bucket(ids), spec.family.sign(ids)
+    touched = unique_rows(b, k, width)
+    out = []
+    ms = cuda_ms(lambda: cs_query(S, b, s), reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: ref.cs_query_ref(S, b, s), reps=10)
+    nbytes = 4 * (k * d + touched * d + 2 * depth * k)
+    out.append(dict(name="cs_query", route="cuda",
+                    source="src/repro_torch/kernels/csrc/cs_query.cu",
+                    replaces="src/repro/kernels/cs_query.py:58",
+                    launches=counts["cs_query"], max_abs_err=0.0, ms=ms,
+                    plain_ms=plain_ms,
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bound_by="bytes", library_ms=None, k=k,
+                    touched_rows=touched, bytes=nbytes))
+    log(f"phase 5: B4 k={k} ({touched} sketch rows): {ms} ms, plain "
+        f"{plain_ms} ms, bound {out[-1]['bound_ms']} ms ({nbytes} B)")
+    csr = bucket_csr(b, width)
+    work = S.clone()
+    ms = cuda_ms(lambda: cs_update(work, b, s, rows, csr=csr), reps=20,
+                 warmup=3)
+    sort_ms = cuda_ms(lambda: bucket_csr(b, width), reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: ref.cs_update_ref(work, b, s, rows), reps=10)
+    flat = work.view(depth * width, d)
+    idx = (b.long() + width * torch.arange(depth, device=dev)[:, None]
+           ).reshape(-1)
+    signed_rows = (s[:, :, None] * rows[None]).reshape(depth * k, d)
+    library_ms = cuda_ms(lambda: flat.index_add_(0, idx, signed_rows),
+                         reps=20, warmup=3)
+    got = cs_update(S.clone(), b, s, rows, csr=csr)
+    card_err = float((ref.cs_update_ref(S.clone(), b, s, rows) - got).abs()
+                     .max())
+    err = float((ref.cs_update_ref(*on_cpu([S, b, s, rows])) - got.cpu())
+                .abs().max())
+    if err != 0.0:
+        raise AssertionError(f"B5 at the sketch ops' shapes: {err} vs a "
+                             f"CPU copy")
+    nbytes = 4 * (k * d + 2 * touched * d + 2 * depth * k)
+    out.append(dict(name="cs_update", route="cuda",
+                    source="src/repro_torch/kernels/csrc/cs_update.cu",
+                    replaces="src/repro/kernels/cs_update.py:58",
+                    launches=counts["cs_update"], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms,
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bound_by="bytes", library_ms=library_ms, k=k,
+                    touched_rows=touched, bytes=nbytes, sort_ms=sort_ms))
+    log(f"phase 5: B5 k={k}: {ms} ms (+ {sort_ms} ms for bucket_csr's "
+        f"sort), plain {plain_ms} ms, index_add_ {library_ms} ms, bound "
+        f"{out[-1]['bound_ms']} ms ({nbytes} B); bit-equal to the plain "
+        f"version on a CPU copy, max_abs_err {card_err} vs it on the card")
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
+def softmax_batches(rng: np.random.RandomState, steps: int) -> list:
+    return [((rng.zipf(ZIPF_A, TOKENS) - 1) % VOCAB).astype(np.int64)
+            for _ in range(steps)]
+
+
+def phase_dense(dev, seed: int):
+    """The dense-gradient path at full width (see the module docstring).
+    Returns the kernel launch counts of its 20 checked steps."""
+    import torch
+    from repro_torch.core.optimizers import (SketchHParams, adam,
+                                             apply_updates, countsketch_adam)
+    from repro_torch.core.partition import SketchPolicy
+    gen = torch.Generator(device=dev).manual_seed(seed + 50)
+    teacher = torch.randn((VOCAB, D_MODEL), generator=gen, device=dev)
+    table0 = torch.randn((VOCAB, D_MODEL), generator=gen, device=dev) \
+        / D_MODEL ** 0.5
+    batches = softmax_batches(np.random.RandomState(seed), STEPS)
+    noise = [torch.randn((TOKENS, D_MODEL), generator=gen, device=dev)
+             for _ in batches]
+    fresh_y = softmax_batches(np.random.RandomState(seed + 99), 1)[0]
+    fresh_noise = torch.randn((TOKENS, D_MODEL), generator=gen, device=dev)
+
+    def loss_fn(params, y_np, eps_h):
+        y = torch.from_numpy(y_np).to(dev)
+        h = teacher[y] + eps_h
+        hn = h * torch.rsqrt((h * h).mean(-1, keepdim=True) + 1e-6) \
+            * params["final_norm"]["scale"]
+        return torch.nn.functional.cross_entropy(
+            hn @ params["tok_embed"]["table"].t(), y)
+
+    def run(opt, lr):
+        """20 steps from table0; returns (params, state, per-step losses,
+        per-step ms, the step function, per-step max |direction|)."""
+        params = {"tok_embed": {"table": table0.clone().requires_grad_()},
+                  "final_norm": {"scale": torch.ones(
+                      D_MODEL, device=dev).requires_grad_()}}
+        state = opt.init(params)
+        leaves = (params["tok_embed"]["table"], params["final_norm"]["scale"])
+        directions = []
+
+        def step(y_np, eps_h):
+            nonlocal state
+            loss = loss_fn(params, y_np, eps_h)
+            g_table, g_scale = torch.autograd.grad(loss, leaves)
+            updates, state = opt.update(
+                {"tok_embed": {"table": g_table},
+                 "final_norm": {"scale": g_scale}}, state)
+            directions.append(updates["tok_embed"]["table"].abs().max()
+                              / lr)
+            apply_updates(params, updates)
+            return loss.detach()
+
+        losses, events = [], []
+        for y_np, eps_h in zip(batches, noise):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(step(y_np, eps_h))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        return (params, state, [float(x) for x in losses],
+                [a.elapsed_time(b) for a, b in events], step,
+                [float(x) for x in directions])
+
+    def held_fresh(params):
+        with torch.no_grad():
+            return (float(loss_fn(params, batches[0], noise[0])),
+                    float(loss_fn(params, fresh_y, fresh_noise)))
+
+    held0, fresh0 = held_fresh({"tok_embed": {"table": table0},
+                                "final_norm": {"scale": torch.ones(
+                                    D_MODEL, device=dev)}})
+    policy = SketchPolicy()
+    reset_counts()
+    params, state, losses, ms, step, dirs = run(
+        countsketch_adam(DENSE_LR, policy=policy,
+                         hparams=SketchHParams(backend="auto")), DENSE_LR)
+    counts = read_counts()
+    held, fresh = held_fresh(params)
+    m = state["m"]["tok_embed"]["table"]
+    log(f"phase 6: softmax layer tok_embed/table {VOCAB} x {D_MODEL}, "
+        f"{TOKENS} zipf({ZIPF_A}) targets a step; sketches m "
+        f"{tuple(m.shape)} v {tuple(state['v']['tok_embed']['table'].shape)}"
+        f" ({m.numel() * 4} B each), final_norm/scale dense Adam; "
+        f"countsketch_adam lr {DENSE_LR}")
+    log(f"phase 6: ms/step median of steps 2..{STEPS}: "
+        f"{statistics.median(ms[1:])} (first step {ms[0]}); all {ms}")
+    log(f"phase 6: loss on batch 0's tokens {held0} -> {held}; on a fresh "
+        f"batch {fresh0} -> {fresh}; per-step {losses}; max |direction| "
+        f"per step {dirs}; launches {counts}")
+    if counts["cs_ema_tiled"] != 2 * STEPS:
+        raise AssertionError(f"B3 launched {counts['cs_ema_tiled']} times, "
+                             f"not {2 * STEPS}")
+    if not held < held0:
+        raise AssertionError("the dense path's loss did not fall")
+    if not all(torch.isfinite(t).all() for t in (
+            params["tok_embed"]["table"], m,
+            state["v"]["tok_embed"]["table"])):
+        raise AssertionError("non-finite table or sketch")
+    w_params, _, w_losses, w_ms, _, _ = run(
+        countsketch_adam(DENSE_LR, policy=policy,
+                         hparams=SketchHParams(backend="xla")), DENSE_LR)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, w_losses))
+    table, w_table = (params["tok_embed"]["table"].detach(),
+                      w_params["tok_embed"]["table"].detach())
+    err = float((table - w_table).abs().max())
+    log(f"phase 6b: plain xla, same batches: ms/step median "
+        f"{statistics.median(w_ms[1:])}; per-step loss max rel diff {rel}, "
+        f"table max_abs_err {err} (rtol {WITNESS_TOL['rtol']}, atol "
+        f"{WITNESS_TOL['atol']})")
+    torch.testing.assert_close(torch.tensor(losses), torch.tensor(w_losses),
+                               rtol=WITNESS_TOL["rtol"], atol=0.0)
+    torch.testing.assert_close(table, w_table, **WITNESS_TOL)
+    del w_params, w_table
+    more = softmax_batches(np.random.RandomState(seed + 30), 5)
+
+    def five():
+        out = [step(y, eps) for y, eps in zip(more, noise)]
+        torch.cuda.synchronize()
+        return out
+    profile_steps("phase 6c", five, statistics.median(ms[1:]))
+    del params, state
+    # at the main path's lr the sketched first moment diverges here; the
+    # same batches with it dense (CS-V) and all-dense Adam show which part
+    # of the sketch does it (printed, not required)
+    for name, opt in (
+            ("countsketch_adam", countsketch_adam(
+                LR, policy=policy, hparams=SketchHParams(backend="auto"))),
+            ("countsketch_adam sketch_first_moment=False", countsketch_adam(
+                LR, policy=policy, hparams=SketchHParams(backend="auto"),
+                sketch_first_moment=False)),
+            ("adam (dense)", adam(LR))):
+        p, _, l, _, _, d = run(opt, LR)
+        h, f = held_fresh(p)
+        log(f"phase 6d: {name} lr {LR}: loss on batch 0's tokens {held0} "
+            f"-> {h}, fresh {fresh0} -> {f}; per-step {l}; max |direction| "
+            f"per step {d}")
+        del p
+    return counts
 
 
 def main(argv=None) -> int:
@@ -499,12 +987,28 @@ def main(argv=None) -> int:
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"phase 1:   {line.strip()}")
-    phase_kernels(dev, args.seed)
-    table, target, state, last_ids, main_counts = phase_main(dev, args.seed)
-    stream_counts = phase_serve_and_stream(dev, table, target, args.seed)
-    kernels = phase_times(dev, table, target, state, last_ids, args.seed)
-    kernels[0]["launches"] = main_counts["cs_adam_tiled"]
-    kernels[1]["launches"] = stream_counts["cs_adam_fused"]
+    phases = [
+        ("2", lambda: (phase_kernels(dev, args.seed),
+                       phase_sketch_kernels(dev, args.seed))),
+        ("3", lambda: phase_main(dev, args.seed)),
+        ("4", lambda: phase_serve_and_stream(dev, *out["3"][:2], args.seed)),
+        ("4 (sketch ops)", lambda: phase_sketch_ops(dev, out["3"][3],
+                                                    args.seed)),
+        ("5", lambda: phase_times(dev, *out["3"][:4], args.seed,
+                                  out["4 (sketch ops)"])),
+        ("6", lambda: phase_dense(dev, args.seed)),
+    ]
+    out = {}
+    for name, run in phases:
+        t0 = time.perf_counter()
+        out[name] = run()
+        log(f"phase {name}: wall {time.perf_counter() - t0:.1f} s")
+    kernels = out["5"]
+    launches = {"cs_adam_tiled": out["3"][4]["cs_adam_tiled"],
+                "cs_adam_fused": out["4"]["cs_adam_fused"],
+                "cs_ema_tiled": out["6"]["cs_ema_tiled"]}
+    for row in kernels:
+        row.setdefault("launches", launches.get(row["name"]))
     log(f"peak device memory {torch.cuda.max_memory_allocated()} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

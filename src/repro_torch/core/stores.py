@@ -1,19 +1,34 @@
-"""Sketch-backed AuxStore codecs and the StoreTree resolver, f32 cells.
+"""AuxStore codecs and the StoreTree resolver, f32 cells.
 
-Counterpart of the sparse-rows part of ``repro.core.stores``:
+Counterpart of ``repro.core.stores``.  A store is how one optimizer moment
+is kept; the protocol is
 
-  * ``CountSketchStore`` — signed Count-Sketch, median read (Adam's 1st
-    moment);
-  * ``CountMinStore``    — unsigned Count-Min, min read, with the paper's
-    §4 cleaning as its ``clean`` hook (Adam's 2nd moment);
-  * ``StoreTree``        — path -> (m_store, v_store).
+    store.init(device)              -> state            (zeroed)
+    store.accumulate(state, delta, rows=None, scale=1.0)
+    store.decay(state, beta)
+    store.read(state, rows=None)    -> values           (estimate rows)
+    store.update_read(state, delta, beta, ...) -> (state, est)
+    store.clean(state, step)        -> state            (cleaning hook)
+
+``update_read`` is the dense path's op: it moves row content to
+``beta*content + scale*delta`` and returns the post-step estimate.  The
+base default composes decay, accumulate and read; sketch stores use the
+paper's linear-estimate form, and with ``backend`` set they run it as one
+fused kernel through ``repro_torch.kernels.update_read``.
+
+  * ``DenseStore``       - the uncompressed same-shape buffer (exact);
+  * ``CountSketchStore`` - signed Count-Sketch, median read (momentum,
+    Adam's 1st moment);
+  * ``CountMinStore``    - unsigned Count-Min, min read, with the paper's
+    §4 cleaning as its ``clean`` hook (Adagrad, Adam's 2nd moment);
+  * ``StoreTree``        - path -> (m_store, v_store).
 
 Stores are frozen dataclasses that double as factories: ``bind(path,
-shape, dtype)`` sizes the sketch for one table with the same per-leaf
-seed (``leaf_seed``) as the reference, so both packages address the same
-buckets.  ``accumulate``/``decay`` write the state IN PLACE.  The dense
-and rank-1 stores, the fused ``update_read`` and the JSON round-trip
-arrive with ROADMAP A6 and A9.
+shape, dtype)`` sizes one leaf's state with the same per-leaf seed
+(``leaf_seed``) as the reference, so both packages address the same
+buckets.  Every state is updated IN PLACE and returned.  ``Rank1Store``
+waits for the planner (ROADMAP A9), ``stats`` for telemetry (A11), the
+JSON round-trip for A9.
 """
 from __future__ import annotations
 
@@ -23,6 +38,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import sketch as cs
 from repro_torch.core.cleaning import CleaningSchedule, maybe_clean
 from repro_torch.core.sketch import SketchSpec
@@ -34,11 +50,94 @@ def leaf_seed(path: str, base_seed: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class _SketchStoreBase:
+class AuxStore:
+    """Base codec.  ``accepts(shape)`` is the pre-check ``StoreTree.select``
+    uses to leave leaves a store cannot hold on the defaults."""
+
+    kind = "abstract"
+
+    def accepts(self, shape) -> bool:
+        return True
+
+    def bind(self, path: str, shape, dtype=None) -> "AuxStore":
+        return self
+
+    def update_read(self, state, delta, beta: float = 1.0, *,
+                    scale: Optional[float] = None, rows=None, mask=None,
+                    read_state=None, strict: bool = False):
+        """Move row content to ``beta*content + scale*delta`` (``scale``
+        defaults to ``1-beta``) and return ``(state, estimate)``.  This
+        default composes decay, accumulate and read, exact for a dense
+        buffer; ``mask`` (rows x 1, 0/1) gates the increment, and
+        ``read_state``/``strict`` only mean something to sketch stores."""
+        if scale is None:
+            scale = 1.0 - beta
+        if mask is not None:
+            delta = delta * mask
+        if beta != 1.0:
+            state = self.decay(state, beta)
+        state = self.accumulate(state, delta, rows, scale=scale)
+        return state, self.read(state, rows)
+
+    def clean(self, state, step):
+        """Cleaning hook (paper §4): identity except on ``CountMinStore``."""
+        return state
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseStore(AuxStore):
+    """The uncompressed baseline: a zero buffer of the leaf's shape and
+    (unless ``dtype`` names another) its dtype.  ``rows`` reads and adds
+    single rows."""
+
+    dtype: Optional[str] = None                 # None: the leaf's own dtype
+    shape: Optional[Tuple[int, ...]] = None     # set by bind()
+
+    kind = "dense"
+
+    def bind(self, path, shape, dtype=None):
+        name = self.dtype or str(dtype or torch.float32).replace("torch.", "")
+        return dataclasses.replace(self, shape=tuple(int(s) for s in shape),
+                                   dtype=name)
+
+    def init(self, device="cuda") -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=getattr(torch, self.dtype),
+                           device=device)
+
+    def accumulate(self, state, delta, rows=None, *, scale: float = 1.0):
+        if scale != 1.0:
+            delta = scale * delta
+        if rows is None:
+            return state.add_(delta)
+        return state.index_add_(0, rows.long(), delta.to(state.dtype))
+
+    def decay(self, state, beta):
+        return state.mul_(beta)
+
+    def read(self, state, rows=None):
+        return state if rows is None else state[rows.long()]
+
+
+@dataclasses.dataclass(frozen=True)
+class Rank1Store(AuxStore):
+    """The rank-1 (row x col) 2nd moment of the LR-NMF-V baseline: not
+    ported yet."""
+
+    kind = "rank1"
+
+    def __post_init__(self):
+        raise NotImplementedError(
+            "Rank1Store (core/lowrank.py, LR-NMF-V) is not ported yet: it "
+            "arrives with the planner, ROADMAP A9")
+
+
+@dataclasses.dataclass(frozen=True)
+class _SketchStoreBase(AuxStore):
     """Shared machinery of the two sketch codecs.  ``compression`` sizes
     the sketch like ``sketch.for_param``; an explicit ``width`` pins it;
     an explicit ``spec`` bypasses sizing.  ``backend`` names the kernel
-    backend of the sparse-rows step (see ``repro_torch.kernels``)."""
+    backend ('ref' | 'xla' | 'tiled' | 'auto') that runs ``update_read``
+    as one fused op; None keeps the composed form."""
 
     compression: float = 5.0
     depth: int = 3
@@ -53,7 +152,6 @@ class _SketchStoreBase:
     shape: Optional[Tuple[int, int]] = None
     backend: Optional[str] = None
 
-    kind = "abstract"
     _signed = True
 
     def accepts(self, shape) -> bool:
@@ -105,12 +203,41 @@ class _SketchStoreBase:
     def read(self, state, rows=None):
         return cs.query(self.spec, state, self._rows(rows, state.device))
 
+    def update_read(self, state, delta, beta: float = 1.0, *,
+                    scale: Optional[float] = None, rows=None, mask=None,
+                    read_state=None, strict: bool = False):
+        """The paper's linear-estimate EMA step:
+
+            est_old = query(read_state or state, rows)
+            d       = ema_delta(est_old, delta, beta, scale) * mask
+            state   = update(state, rows, d)           (in place)
+            est     = est_old + d       (strict: query(state) again)
+
+        With ``backend`` set, and neither ``read_state`` nor ``strict``
+        asking for the composed form, the step runs as one fused op,
+        ``repro_torch.kernels.update_read``.  ``rows=None`` is the whole
+        table, ``arange(n)``.  ``read_state`` lets the transforms' chunked
+        loop read the pre-step sketch while adding into ``state``; it must
+        not be ``state`` itself, which the update changes in place."""
+        if scale is None:
+            scale = 1.0 - beta
+        if self.backend is not None and read_state is None and not strict:
+            return kernels.update_read(self.spec, state, rows, delta,
+                                       beta=beta, scale=scale, mask=mask,
+                                       backend=self.backend)
+        ids = self._rows(rows, state.device)
+        src = state if read_state is None else read_state
+        est_old = cs.query(self.spec, src, ids)
+        d = cs.ema_delta(est_old, delta, beta, scale)
+        if mask is not None:
+            d = d * mask
+        state = cs.update(self.spec, state, ids, d)
+        if strict:
+            return state, cs.query(self.spec, state, ids)
+        return state, est_old + d
+
     def bytes(self, state=None) -> int:
         return self.spec.nbytes()
-
-    def clean(self, state, step):
-        """Cleaning hook (paper §4): identity except on ``CountMinStore``."""
-        return state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,17 +263,19 @@ class CountMinStore(_SketchStoreBase):
 StoreResolver = Callable[[str, Tuple[int, ...]],
                          Optional[Tuple[Optional[Any], Optional[Any]]]]
 
+_DENSE = DenseStore()
+
 
 @dataclasses.dataclass(frozen=True)
 class StoreTree:
     """path -> (m_store, v_store).  Resolution order: ``resolver`` >
-    exact-path ``rules`` > defaults.  ``None`` in the m slot means no
-    first moment (β₁=0).  The reference's default ``DenseStore`` is not
-    ported yet, so the defaults here are None."""
+    exact-path ``rules`` > defaults (``DenseStore``, as in the
+    reference).  ``None`` in the m slot means no first moment (β₁=0); in
+    the v slot, a rule without a second moment (momentum)."""
 
     rules: Tuple[Tuple[str, Optional[Any], Optional[Any]], ...] = ()
-    default_m: Optional[Any] = None
-    default_v: Optional[Any] = None
+    default_m: Optional[Any] = _DENSE
+    default_v: Optional[Any] = _DENSE
     resolver: Optional[StoreResolver] = None
 
     def resolve(self, path: str, shape, dtype=None):
@@ -162,3 +291,59 @@ class StoreTree:
         m, v = pair
         return (None if m is None else m.bind(path, shape, dtype),
                 None if v is None else v.bind(path, shape, dtype))
+
+    @classmethod
+    def select(cls, *, m: Optional[Any] = _DENSE, v: Optional[Any] = _DENSE,
+               where: Optional[Callable[[str, Tuple[int, ...]], bool]] = None,
+               default_m: Optional[Any] = _DENSE,
+               default_v: Optional[Any] = _DENSE) -> "StoreTree":
+        """``where``-selected leaves (every leaf the stores accept, when
+        ``where`` is None) get ``(m, v)``; the rest get the defaults."""
+        def resolver(path, shape):
+            if where is not None and not where(path, shape):
+                return None
+            if m is not None and not m.accepts(shape):
+                return None
+            if v is not None and not v.accepts(shape):
+                return None
+            return (m, v)
+        return cls(default_m=default_m, default_v=default_v,
+                   resolver=resolver)
+
+    def with_backend(self, backend: Optional[str]) -> "StoreTree":
+        """Every sketch-backed store (rules, defaults, resolver output)
+        pinned to kernel ``backend``; specs, seeds and widths untouched,
+        so states stay interchangeable."""
+        def conv(s):
+            if isinstance(s, _SketchStoreBase):
+                return dataclasses.replace(s, backend=backend)
+            return s
+
+        rules = tuple((p, conv(m), conv(v)) for p, m, v in self.rules)
+        out = dataclasses.replace(self, rules=rules,
+                                  default_m=conv(self.default_m),
+                                  default_v=conv(self.default_v))
+        if self.resolver is None:
+            return out
+        base = self.resolver
+
+        def resolver(path, shape):
+            pair = base(path, shape)
+            return None if pair is None else (conv(pair[0]), conv(pair[1]))
+
+        return dataclasses.replace(out, resolver=resolver)
+
+    def without_first_moment(self) -> "StoreTree":
+        """The β₁=0 projection: every m slot forced to None (the layout of
+        ``scale_by_rmsprop``)."""
+        rules = tuple((p, None, v) for p, _m, v in self.rules)
+        out = dataclasses.replace(self, rules=rules, default_m=None)
+        if self.resolver is None:
+            return out
+        base = self.resolver
+
+        def resolver(path, shape):
+            pair = base(path, shape)
+            return None if pair is None else (None, pair[1])
+
+        return dataclasses.replace(out, resolver=resolver)

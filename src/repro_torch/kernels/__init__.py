@@ -1,9 +1,13 @@
-"""Hopper kernels and the backends of the sparse-rows CS-Adam step.
+"""Hopper kernels and the backends of the port's kernel ops.
 
   cs_adam_tiled.py — B1, batch-parallel CS-Adam over deduplicated rows
                      (CUDA, ``csrc/cs_adam_tiled.cu``)
   cs_adam.py       — B2, streaming CS-Adam in exact per-item order
                      (CUDA, ``csrc/cs_adam.cu``)
+  cs_ema_tiled.py  — B3, one moment's fused update_read, the dense path
+                     (CUDA, ``csrc/cs_ema_tiled.cu``)
+  cs_query.py      — B4, batch QUERY (CUDA, ``csrc/cs_query.cu``)
+  cs_update.py     — B5, batch UPDATE (CUDA, ``csrc/cs_update.cu``)
   build.py         — nvcc build at first use, ctypes loading
   dedup.py         — sort + segment-sum pre-pass
   ops.py           — the backends; ref.py — plain PyTorch forms
@@ -17,6 +21,14 @@
   stream  B2 on CUDA tensors (exact per-item order); plain on the CPU
   tiled   dedup + B1 on CUDA tensors, whole-batch semantics; plain on the
           CPU; the ``auto`` choice for CUDA tensors
+
+('sketch' | 'countmin', 'update_read') backends, the dense path:
+
+  ref     query -> ema_delta -> update, plain PyTorch on any device
+  xla     one gather/delta/scatter pass, addressing hashed once; the
+          ``auto`` choice for CPU tensors
+  tiled   B3 on CUDA tensors, whole-batch semantics; plain on the CPU;
+          the ``auto`` choice for CUDA tensors
 """
 from __future__ import annotations
 
@@ -52,7 +64,25 @@ def adam_rows(spec_m, spec_v, M, V, ids, g, step, *,
               eps=eps)
 
 
+def update_read(spec, S, ids, delta, *, beta: float, scale: float,
+                mask=None, backend: Optional[str] = None):
+    """One fused EMA step on one sketch: ``(S', est)`` with row content
+    moved to ``beta*content + scale*delta`` at ``ids`` (None: every row)
+    and ``est`` the post-step estimate, S updated in place.  Dispatches on
+    the store kind ('sketch' for signed specs, 'countmin' otherwise)."""
+    kind = "sketch" if spec.signed else "countmin"
+    fn = registry.lookup(kind, "update_read", backend, S.device)
+    return fn(spec, S, ids, delta, beta=beta, scale=scale, mask=mask)
+
+
 register_backend("ref", ops.adam_rows_ref)
 register_backend("xla", ops.adam_rows_xla)
 register_backend("stream", ops.adam_rows_stream)
 register_backend("tiled", ops.adam_rows_tiled)
+
+for _kind in ("sketch", "countmin"):
+    registry.register(_kind, "update_read", "ref", ops.ema_update_read_ref)
+    registry.register(_kind, "update_read", "xla", ops.ema_update_read_xla)
+    registry.register(_kind, "update_read", "tiled",
+                      ops.ema_update_read_tiled)
+del _kind

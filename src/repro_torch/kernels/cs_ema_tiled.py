@@ -1,0 +1,105 @@
+"""B3 · one moment's fused ``update_read`` over one sketch (the dense path).
+
+Replaces the TPU kernel ``repro/kernels/cs_ema_tiled.py::cs_ema_tiled``:
+
+    est_old = median (signed) or min of the item's depth cells
+    d       = ema_delta(est_old, x, beta, scale) * mask
+    S      += d scattered at the item's buckets (signed)
+    est     = est_old + d
+
+The TPU kernel streams across tiles of 8 rows: a tile reads the sketch
+after the tiles before it wrote.  CUDA blocks run in no order, so the
+CUDA kernel (``csrc/cs_ema_tiled.cu``) has the whole-batch semantics of
+the reference's ``xla`` backend: every estimate reads the pre-step
+sketch.  The two agree where no two rows share a bucket and differ by
+estimator noise where they do, which on the dense path at full width is
+always (about 15 rows a bucket).  It runs as two launches: a read launch
+writes ``est`` and ``d`` (a (k, d) scratch), and a scatter launch adds
+``sign*d`` into each sketch cell from a per-hash-row CSR of the items
+sorted by bucket (``cs_update.bucket_csr``), in item order, starting from
+the old cell.  That scatter is deterministic, uses no atomics and adds in
+the CPU ``index_add_``'s order.  No padding: the mask carries which rows
+take part.  Only f32 cells are ported; bf16 waits for ROADMAP A7.
+
+The ``ema_delta`` form is chosen on the host with the comparisons of
+``core.sketch.ema_delta``, and ``scale`` and ``beta - 1`` are formed in
+float64 there and rounded to float32 once, as JAX rounds its weakly
+typed Python floats.  ``cs_ema_tiled_plain`` is the plain PyTorch version
+(the reference's ``ema_update_read_xla`` on bucket/sign arrays); the
+wrapper runs it only for CPU tensors, and for CUDA tensors launches the
+kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.sketch import ema_delta
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.cs_update import bucket_csr, scatter_shapes
+
+# ema_delta forms, in the order core.sketch.ema_delta tests them
+ADAM, ADAGRAD, MOMENTUM = 0, 1, 2
+
+
+def ema_form(beta: float, scale: float) -> Tuple[int, bool]:
+    """(form, unit_scale) of ``ema_delta(., ., beta, scale)``."""
+    if scale == 1.0 - beta:
+        return ADAM, scale == 1.0
+    if beta == 1.0:
+        return ADAGRAD, scale == 1.0
+    return MOMENTUM, scale == 1.0
+
+
+def cs_ema_tiled_plain(S: torch.Tensor, b: torch.Tensor,
+                       s: Optional[torch.Tensor], x: torch.Tensor,
+                       mask: Optional[torch.Tensor], *, beta: float,
+                       scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B3 on any device; updates S in place."""
+    est_old = ref.cs_query_ref(S, b, s)
+    d = ema_delta(est_old, x, beta, scale)
+    if mask is not None:
+        d = d * mask
+    ref.cs_update_ref(S, b, s, d)
+    return S, est_old + d
+
+
+def cs_ema_tiled(S: torch.Tensor, b: torch.Tensor, s: Optional[torch.Tensor],
+                 x: torch.Tensor, mask: Optional[torch.Tensor], *,
+                 beta: float, scale: float, csr=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused EMA ``update_read`` over ``k`` rows of one sketch.
+
+    S (depth, w, dim) f32, updated IN PLACE; b (depth, k) int32 buckets in
+    range; s (depth, k) f32 signs or None (Count-Min); x (k, dim) f32;
+    mask (k, 1) f32 or None.  ``csr`` is ``bucket_csr(b, w)`` when the
+    caller has it (the dense path caches it).  Returns ``(S, est)``."""
+    if S.device.type == "cpu":
+        return cs_ema_tiled_plain(S, b, s, x, mask, beta=beta, scale=scale)
+    dev = S.device
+    if dev.type != "cuda":
+        raise ValueError(f"cs_ema_tiled: no kernel for device {dev}")
+    depth, width, d, k = scatter_shapes("cs_ema_tiled", S, b, s, x)
+    m = None if mask is None else mask.reshape(k)
+    order, starts = csr if csr is not None else bucket_csr(b, width)
+    build.check_cuda_inputs("cs_ema_tiled", dev, S=S, b=b, s=s, x=x, mask=m,
+                            order=order, starts=starts)
+    form, unit = ema_form(beta, scale)
+    est = torch.empty((k, d), dtype=torch.float32, device=dev)
+    scratch = torch.empty_like(est)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        rc = lib.cs_ema_tiled_launch(
+            build.ptr(S), build.ptr(b), build.ptr(s), build.ptr(x),
+            build.ptr(m), build.ptr(order), build.ptr(starts),
+            build.ptr(est), build.ptr(scratch), depth, width, d, k, form,
+            int(unit), float(np.float32(scale)),
+            float(np.float32(beta - 1.0)), build.stream_handle(dev))
+    build.check_launch(rc, "cs_ema_tiled")
+    cs_ema_tiled.launches += 1
+    return S, est
+
+
+cs_ema_tiled.launches = 0

@@ -1,8 +1,10 @@
-// Shared device helpers of the CS-Adam kernels: the depth-way estimators.
+// Shared device helpers of the sketch kernels: the depth-way estimators,
+// the gathered estimate of one cell and the bucket-ordered scatter.
 //
 // Built with --fmad=false, so each add and multiply rounds on its own, in
 // the order written, exactly as the plain PyTorch versions
-// (repro_torch/core/sketch.py::median_rows, min_rows) round them.
+// (repro_torch/core/sketch.py::median_rows, min_rows,
+// repro_torch/kernels/ref.py) round them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +47,59 @@ __device__ __forceinline__ float min_of(const float* v, int depth) {
 // Offset of cell (row j, bucket b, column c) in a (depth, width, d) sketch.
 __device__ __forceinline__ size_t cell(int j, int b, int c, int width, int d) {
   return ((size_t)j * width + (size_t)b) * d + c;
+}
+
+// Estimate of item r at column c from a (depth, width, d) sketch: the
+// depth cells at buckets b[j*k + r], times the signs s[j*k + r] and then
+// the median when s is given, else the min (ref.cs_query_ref).
+__device__ __forceinline__ float estimate(const float* __restrict__ S,
+                                          const int* __restrict__ b,
+                                          const float* __restrict__ s,
+                                          int r, int c, int depth, int width,
+                                          int d, int k) {
+  float v[kMaxDepth];
+  for (int j = 0; j < depth; ++j) {
+    const float x = S[cell(j, b[j * k + r], c, width, d)];
+    v[j] = s != nullptr ? x * s[j * k + r] : x;
+  }
+  return s != nullptr ? median(v, depth) : min_of(v, depth);
+}
+
+// Bucket-ordered scatter, one thread per (hash row j, bucket w, column c)
+// over a grid of (column blocks, y): the cell starts from its old value
+// and adds s[j*k + r] * x[r, c] for the items r of bucket w one after
+// another, in the order order[j*k + starts[j*(width+1) + w] ...] lists
+// them (ascending r: bucket_csr sorts stably).  The CPU index_add_ of
+// ref.cs_update_ref adds in that order, so no atomics and the same bits.
+__device__ __forceinline__ void bucket_scatter(
+    float* __restrict__ S, const int* __restrict__ order,
+    const int* __restrict__ starts, const float* __restrict__ s,
+    const float* __restrict__ x, int depth, int width, int d, int k) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  const int n_cells = depth * width;
+  for (int jw = blockIdx.y; jw < n_cells; jw += gridDim.y) {
+    const int j = jw / width;
+    const int* st = starts + (size_t)j * (width + 1) + (jw - j * width);
+    const int lo = st[0], hi = st[1];
+    if (lo == hi) continue;
+    const size_t at = (size_t)jw * d + c;
+    float acc = S[at];
+    for (int p = lo; p < hi; ++p) {
+      const int r = order[(size_t)j * k + p];
+      const float u = x[(size_t)r * d + c];
+      acc = acc + (s != nullptr ? s[(size_t)j * k + r] * u : u);
+    }
+    S[at] = acc;
+  }
+}
+
+constexpr int kThreads = 128;
+constexpr int kMaxGridY = 65535;
+
+// Grid of (column blocks, min(n, kMaxGridY)) for n rows of d columns.
+inline dim3 grid_for(int n, int d) {
+  return dim3((d + kThreads - 1) / kThreads, n < kMaxGridY ? n : kMaxGridY);
 }
 
 }  // namespace cs

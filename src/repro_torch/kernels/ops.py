@@ -1,10 +1,18 @@
-"""The sparse-rows CS-Adam backends: ``ref | xla | stream | tiled``.
+"""The backends of the port's kernel ops, counterpart of
+``repro.kernels.ops``.  Sketches are updated IN PLACE.
 
-Counterpart of the sparse-rows half of ``repro.kernels.ops``.  Each
-backend takes ``(spec_m, spec_v, M, V, ids, g, step)`` and returns
-``(M', V', row_updates)`` with ``row_updates`` aligned to ``ids`` such
-that ``table.index_add_(0, ids, row_updates)`` applies the step.  The
-sketches are updated IN PLACE.
+Sparse-rows CS-Adam, ``ref | xla | stream | tiled``: each backend takes
+``(spec_m, spec_v, M, V, ids, g, step)`` and returns ``(M', V',
+row_updates)`` with ``row_updates`` aligned to ``ids`` such that
+``table.index_add_(0, ids, row_updates)`` applies the step.
+
+The dense path's fused ``update_read``, ``ref | xla | tiled``: each takes
+``(spec, S, ids, x, beta=, scale=, mask=)`` and returns ``(S', est)``;
+``ids=None`` is the whole table, ``arange(x.shape[0])``, whose addressing
+is hashed once per (spec, n, device) and kept on the device.
+
+``sketch_query``/``sketch_update``: B4/B5 for CUDA tensors, the plain
+``ref`` forms for CPU tensors.
 
 Scalars: the step counter is read on the host, and the learning rate and
 bias corrections are float32 values held in Python floats.  The bias
@@ -15,6 +23,7 @@ held to the reference to a tolerance and integers to the bit.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -26,6 +35,9 @@ from repro_torch.kernels import dedup as dd
 from repro_torch.kernels import ref
 from repro_torch.kernels.cs_adam import cs_adam_fused
 from repro_torch.kernels.cs_adam_tiled import cs_adam_tiled
+from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled, cs_ema_tiled_plain
+from repro_torch.kernels.cs_query import cs_query
+from repro_torch.kernels.cs_update import bucket_csr, cs_update
 
 Result = Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]
 
@@ -35,13 +47,33 @@ def _addressing(spec: SketchSpec, ids: torch.Tensor):
     return fam.bucket(ids), (fam.sign(ids) if spec.signed else None)
 
 
+def sketch_query(spec: SketchSpec, S: torch.Tensor,
+                 ids: torch.Tensor) -> torch.Tensor:
+    """QUERY rows ``ids``: B4 for CUDA tensors, ``ref`` on the CPU."""
+    b, s = _addressing(spec, ids)
+    return cs_query(S, b, s)
+
+
+def sketch_update(spec: SketchSpec, S: torch.Tensor, ids: torch.Tensor,
+                  delta: torch.Tensor) -> torch.Tensor:
+    """UPDATE rows ``ids`` with ``delta``, IN PLACE: B5 for CUDA tensors,
+    ``ref`` on the CPU."""
+    b, s = _addressing(spec, ids)
+    return cs_update(S, b, s, delta.contiguous())
+
+
+def bias_correction(b: float, t: int) -> float:
+    """``1 - b**t`` as a float32 value in a Python float, the power taken
+    in float64 and rounded once."""
+    return float(np.float32(1.0) - np.float32(b ** t))
+
+
 def _adam_hypers(step, lr, b1: float, b2: float):
     """(eta, bc1, bc2) at ``step`` as float32 values in Python floats."""
     t = int(step)
     eta = float(lr(step)) if callable(lr) else float(lr)
-    one = np.float32(1.0)
-    return (float(np.float32(eta)), float(one - np.float32(b1 ** t)),
-            float(one - np.float32(b2 ** t)))
+    return (float(np.float32(eta)), bias_correction(b1, t),
+            bias_correction(b2, t))
 
 
 def _adam_addressing(spec_m: Optional[SketchSpec], spec_v: SketchSpec,
@@ -119,3 +151,66 @@ def adam_rows_tiled(spec_m, spec_v, M, V, ids, g, step, *, lr,
                                 b2=b2, eps=eps, bc1=bc1, bc2=bc2,
                                 n_valid=batch.n_unique)
     return M, V, dd.scatter_back(batch, upd_u)
+
+
+# ---------------------------------------------------------------------------
+# The dense path's fused update_read
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _cached_addressing(spec: SketchSpec, n: int, device: torch.device):
+    """Buckets and signs of the dense row set ``arange(n)``, hashed once
+    per (spec, n, device) and kept on the device.  The caller knows the
+    row set is dense (``ids is None``), so the ids are never looked at on
+    the host."""
+    return _addressing(spec, torch.arange(n, dtype=torch.int32,
+                                          device=device))
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_csr(spec: SketchSpec, n: int, device: torch.device):
+    """``bucket_csr`` of the dense row set, for B3's scatter."""
+    return bucket_csr(_cached_addressing(spec, n, device)[0], spec.width)
+
+
+def _ema_addressing(spec: SketchSpec, ids: Optional[torch.Tensor], n: int,
+                    device: torch.device):
+    if ids is None:
+        return _cached_addressing(spec, n, device)
+    return _addressing(spec, ids)
+
+
+def ema_update_read_ref(spec: SketchSpec, S: torch.Tensor, ids, x, *,
+                        beta: float, scale: float, mask=None):
+    """'ref': the composed primitives one-shot: query, the shared
+    ``ema_delta`` form, update."""
+    if ids is None:
+        ids = torch.arange(x.shape[0], dtype=torch.int32, device=S.device)
+    est_old = cs.query(spec, S, ids)
+    d = cs.ema_delta(est_old, x, beta, scale)
+    if mask is not None:
+        d = d * mask
+    S = cs.update(spec, S, ids, d)
+    return S, est_old + d
+
+
+def ema_update_read_xla(spec: SketchSpec, S: torch.Tensor, ids, x, *,
+                        beta: float, scale: float, mask=None):
+    """'xla': one gather -> ema_delta -> scatter pass in plain PyTorch,
+    the addressing hashed once (cached for the dense row set); the same
+    operations as 'ref', and the CPU default."""
+    b, s = _ema_addressing(spec, ids, x.shape[0], S.device)
+    return cs_ema_tiled_plain(S, b, s, x, mask, beta=beta, scale=scale)
+
+
+def ema_update_read_tiled(spec: SketchSpec, S: torch.Tensor, ids, x, *,
+                          beta: float, scale: float, mask=None):
+    """'tiled': the CUDA kernel ``cs_ema_tiled`` (B3), with the whole-batch
+    semantics of 'xla'; its plain version on the CPU.  The dense row set's
+    bucket CSR is cached with its addressing."""
+    n = x.shape[0]
+    b, s = _ema_addressing(spec, ids, n, S.device)
+    csr = _cached_csr(spec, n, S.device) \
+        if ids is None and S.device.type == "cuda" else None
+    return cs_ema_tiled(S, b, s, x.contiguous(), mask, beta=beta,
+                        scale=scale, csr=csr)

@@ -152,4 +152,8 @@ def test_store_tree_resolves_rules_then_defaults():
     rm, rv = tree.resolve("emb", (256, 8))
     assert rm.spec.signed and not rv.spec.signed and rm.shape == (256, 8)
     dm, dv = tree.resolve("other", (256, 8))
-    assert dm is None and dv.spec.seed == tstores.leaf_seed("other", 0)
+    # the reference's default m store is dense, bound to the leaf
+    jdm, _ = jstores.StoreTree(default_v=None).resolve("other", (256, 8),
+                                                      jnp.float32)
+    assert dm.kind == jdm.kind == "dense" and dm.shape == jdm.shape
+    assert dv.spec.seed == tstores.leaf_seed("other", 0)

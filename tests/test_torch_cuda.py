@@ -9,7 +9,9 @@ Nothing here imports ``jax``, so the file also runs where only PyTorch is
 installed.  Kernels are built with ``--fmad=false``, so on batches where
 every sketch cell is written at most once they must match the plain
 versions to the bit; B1's atomics reorder colliding adds, held to the
-reference's collision envelope atol=2e-5.
+reference's collision envelope atol=2e-5.  B3's and B5's scatters add in
+the order of the CPU ``index_add_``, so under collisions they are also
+bit-equal to their plain versions run on a CPU copy.
 """
 import pytest
 import torch
@@ -19,6 +21,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.cs_adam import cs_adam_fused
 from repro_torch.kernels.cs_adam_tiled import (cs_adam_tiled,
                                                cs_adam_tiled_plain)
+from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled, cs_ema_tiled_plain
+from repro_torch.kernels.cs_query import cs_query
+from repro_torch.kernels.cs_update import cs_update
 from repro_torch.train.steps import make_sparse_embedding_step
 
 pytestmark = pytest.mark.cuda
@@ -122,3 +127,109 @@ def test_main_path_launches_tiled_kernel(cuda_device):
     torch.cuda.synchronize()
     assert cs_adam_tiled.launches == before + 1
     assert torch.isfinite(table).all()
+
+
+# ------------------------------------------------------------ B3, B4, B5
+FORMS = {"adam": (0.999, 1.0 - 0.999), "adagrad": (1.0, 1.0),
+         "momentum": (0.9, 1.0)}
+
+
+def _ema_case(dev, signed, depth, width, k, d, seed, identity=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    S = torch.randn((depth, width, d), generator=gen, device=dev)
+    if identity:
+        b = torch.randperm(width, generator=gen, device=dev)[:k].to(
+            torch.int32)[None].expand(depth, k).contiguous()
+    else:
+        b = torch.randint(0, width, (depth, k), generator=gen, device=dev,
+                          dtype=torch.int32)
+    s = (torch.randint(0, 2, (depth, k), generator=gen, device=dev).float()
+         * 2 - 1) if signed else None
+    if not signed:
+        S = S.abs()
+    x = torch.randn((k, d), generator=gen, device=dev)
+    mask = (torch.rand((k, 1), generator=gen, device=dev) > 0.3).float()
+    return S, b, s, x, mask
+
+
+def _cpu(xs):
+    return [None if x is None else x.cpu() for x in xs]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("signed", [True, False])
+def test_ema_tiled_against_plain(cuda_device, signed, form, masked):
+    """Bit-equal where every cell is written once; under heavy collisions
+    within the envelope of the plain version on the card (its
+    index_add_ uses atomics) and bit-equal to it on a CPU copy (the
+    kernel adds in index_add_'s CPU order)."""
+    beta, scale = FORMS[form]
+    for identity, width in ((True, 1024), (False, 16)):
+        S, b, s, x, mask = _ema_case(cuda_device, signed, 3, width, 512, 96,
+                                     len(form), identity)
+        m = mask if masked else None
+        want = cs_ema_tiled_plain(S.clone(), b, s, x, m, beta=beta,
+                                  scale=scale)
+        got = cs_ema_tiled(S.clone(), b, s, x, m, beta=beta, scale=scale)
+        torch.cuda.synchronize()
+        if identity:
+            assert all(torch.equal(a, c) for a, c in zip(want, got))
+        else:
+            for a, c in zip(want, got):
+                torch.testing.assert_close(c, a, rtol=0, atol=2e-5)
+            host = cs_ema_tiled_plain(*_cpu([S, b, s, x, m]), beta=beta,
+                                      scale=scale)
+            assert all(torch.equal(a, c.cpu()) for a, c in zip(host, got))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("signed", [True, False])
+def test_query_bit_equal(cuda_device, signed, depth):
+    S, b, s, _, _ = _ema_case(cuda_device, signed, depth, 64, 300, 160, depth)
+    torch.testing.assert_close(cs_query(S, b, s), ref.cs_query_ref(S, b, s),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_update_against_plain(cuda_device, signed):
+    for identity, width in ((True, 1024), (False, 16)):
+        S, b, s, x, _ = _ema_case(cuda_device, signed, 3, width, 512, 96, 5,
+                                  identity)
+        want = ref.cs_update_ref(S.clone(), b, s, x)
+        got = cs_update(S.clone(), b, s, x)
+        torch.cuda.synchronize()
+        if identity:
+            assert torch.equal(want, got)
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+            host = ref.cs_update_ref(*_cpu([S, b, s, x]))
+            assert torch.equal(host, got.cpu())
+
+
+def test_sketch_wrappers_reject_bad_inputs(cuda_device):
+    S, b, s, x, mask = _ema_case(cuda_device, True, 3, 16, 8, 32, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        cs_query(S, b.long(), s)
+    with pytest.raises(ValueError, match="disagree"):
+        cs_update(S, b, s, x[:, :16].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        cs_ema_tiled(S, b, s, x.t().contiguous().t(), mask, beta=0.9,
+                     scale=0.1)
+
+
+def test_dense_path_launches_ema_kernel(cuda_device):
+    from repro_torch.core.optimizers import SketchHParams, countsketch_adam
+    from repro_torch.core.partition import SketchPolicy
+    opt = countsketch_adam(1e-3, policy=SketchPolicy(),
+                           hparams=SketchHParams(backend="auto"))
+    params = {"tok_embed": {"table": torch.randn(4096, 128,
+                                                 device=cuda_device)}}
+    state = opt.init(params)
+    before = cs_ema_tiled.launches
+    grads = {"tok_embed": {"table": torch.randn(4096, 128,
+                                                device=cuda_device)}}
+    updates, state = opt.update(grads, state)
+    torch.cuda.synchronize()
+    assert cs_ema_tiled.launches == before + 2
+    assert torch.isfinite(updates["tok_embed"]["table"]).all()

@@ -52,9 +52,26 @@ own line; any failure raises and the exit code is not 0:
      steps under the profiler.  At the main path's lr 3e-4 the sketched
      first moment makes some rows' directions reach the thousands and
      the loss rises; 6d prints that run beside the dense-first-moment
-     (CS-V) and all-dense Adam runs on the same batches.
+     (CS-V) and all-dense Adam runs on the same batches;
+  7. phase 6's task with bf16 sketch cells (``SketchHParams(dtype=
+     "bfloat16")``, 55,050,240 B a moment against 110,100,480 in f32):
+     20 steps on ``auto``, B3's bf16 kernel must launch twice a step (its
+     launches are counted apart, ``cs_ema_tiled_bf16``), the loss on
+     batch 0's tokens must fall, and the plain ``xla`` witness must give
+     the per-step losses within rtol 1e-4; printed beside phase 6's f32
+     run.  7b: int8 cells on the same layer, 5 steps through the plain
+     route (no B3), the loss must fall and the table stay finite.  7c:
+     bf16 cells on phase 3's sparse-rows batches, backend ``tiled``: no
+     B1 launch (low-precision cells run ``xla``, as in the reference),
+     the held loss must fall.  7d: the bf16 dense path with a Count-Min
+     cleaned every 5 steps, 10 steps sync against ``AsyncCleaner``: the
+     table and sketches must be equal to the bit.
 
-Each phase prints its wall time.  It prints the kernels' JSON line, the
+Phase 2 also holds B3's bf16 branch to its plain version (bit-equal on a
+CPU copy; within one bf16 ulp plus the f32 collision envelope of the
+plain version on the card, whose index_add_ sums in atomic order), and
+phase 5 times it at the dense path's shapes.  Each phase prints its wall
+time.  It prints the kernels' JSON line, the
 card's name and power limit and, last, ``{"ok": true, "device":
 {...}}``.  With no card it prints no result and exits 2.
 """
@@ -141,11 +158,13 @@ def zipf_ids(rng: np.random.RandomState, steps: int) -> list:
 def kernel_counts():
     from repro_torch.kernels.cs_adam import cs_adam_fused
     from repro_torch.kernels.cs_adam_tiled import cs_adam_tiled
-    from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled
+    from repro_torch.kernels.cs_ema_tiled import (cs_ema_tiled,
+                                                  cs_ema_tiled_bf16)
     from repro_torch.kernels.cs_query import cs_query
     from repro_torch.kernels.cs_update import cs_update
     return {"cs_adam_tiled": cs_adam_tiled, "cs_adam_fused": cs_adam_fused,
-            "cs_ema_tiled": cs_ema_tiled, "cs_query": cs_query,
+            "cs_ema_tiled": cs_ema_tiled,
+            "cs_ema_tiled_bf16": cs_ema_tiled_bf16, "cs_query": cs_query,
             "cs_update": cs_update}
 
 
@@ -324,6 +343,70 @@ def phase_sketch_kernels(dev, seed: int) -> None:
         f"unsigned)")
 
 
+def bf16_within(got, want, atol: float) -> bool:
+    """Every bf16 cell within one bf16 ulp of ``want`` plus ``atol``."""
+    import torch
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w),
+                      torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8)
+    return bool(((g - w).abs() <= ulp + atol).all())
+
+
+def phase_bf16_kernel(dev, seed: int) -> None:
+    """B3's bf16 branch against its plain version: signed and unsigned,
+    collision-free (identity buckets) and colliding (width 16).  Bit-equal
+    to the plain version on a CPU copy (bf16 cells and ``est``); on the
+    card ``est`` is bit-equal and the cells within one bf16 ulp plus the
+    f32 collision envelope (the plain version's index_add_ sums each
+    cell's increments in atomic order, and a rounding may then flip)."""
+    import torch
+    from repro_torch.core import quantize as qz
+    from repro_torch.kernels.cs_ema_tiled import (cs_ema_tiled,
+                                                  cs_ema_tiled_plain)
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    k, sr = 2_048, qz.step_seed(seed, 7)
+    report = []
+    for signed in (True, False):
+        for width, free in ((4_096, True), (16, False)):
+            S = torch.randn((3, width, D_MODEL), generator=gen, device=dev)
+            S = (S if signed else S.abs()).to(torch.bfloat16)
+            if free:
+                b = torch.randperm(width, generator=gen, device=dev)[:k].to(
+                    torch.int32)[None].expand(3, k).contiguous()
+            else:
+                b = torch.randint(0, width, (3, k), generator=gen,
+                                  device=dev, dtype=torch.int32)
+            s = (torch.randint(0, 2, (3, k), generator=gen, device=dev
+                               ).float() * 2 - 1) if signed else None
+            x = torch.randn((k, D_MODEL), generator=gen, device=dev)
+            mask = (torch.rand((k, 1), generator=gen, device=dev) > 0.3
+                    ).float()
+            kw = dict(beta=0.999, scale=1.0 - 0.999, sr_seed=sr)
+            got = cs_ema_tiled(S.clone(), b, s, x, mask, **kw)
+            want = cs_ema_tiled_plain(S.clone(), b, s, x, mask, **kw)
+            torch.cuda.synchronize()
+            host = cs_ema_tiled_plain(*on_cpu([S, b, s, x, mask]), **kw)
+            tag = f"signed={signed} width={width}"
+            if not (torch.equal(host[0].view(torch.int16),
+                                got[0].cpu().view(torch.int16))
+                    and torch.equal(host[1], got[1].cpu())):
+                raise AssertionError(f"B3 bf16 not bit-equal to its plain "
+                                     f"version on a CPU copy, {tag}")
+            differ = int((want[0].view(torch.int16)
+                          != got[0].view(torch.int16)).sum())
+            if not torch.equal(want[1], got[1]) or (
+                    free and differ) or not bf16_within(got[0], want[0],
+                                                        COLLISION_ATOL):
+                raise AssertionError(f"B3 bf16 against the plain version "
+                                     f"on the card, {tag}: {differ} cells "
+                                     f"differ")
+            report.append(f"{tag}: {differ} of {S.numel()} cells differ")
+    log(f"phase 2: B3 cs_ema_tiled bf16 k={k} d={D_MODEL}, Adam form, mask "
+        f"on: bit-equal (cells and est) to the plain version on a CPU copy "
+        f"in all four cases; against it on the card est bit-equal, cells "
+        f"within one bf16 ulp + {COLLISION_ATOL}: {'; '.join(report)}")
+
+
 # ---------------------------------------------------------------- phase 3
 def run_steps(step_fn, table, target, state, batches, dev):
     """Drive ``step_fn`` over ``batches``; returns (table, state, losses,
@@ -411,7 +494,8 @@ def phase_main(dev, seed: int):
     table, state, _, _ = profile_steps(
         "phase 3c", lambda: run_steps(step_fn, table, target, state, more,
                                       dev), statistics.median(ms[1:]))
-    return table, target, state, batches[-1], counts
+    return (table, target, state, batches[-1], counts,
+            (held_before, held_after))
 
 
 def phase_witness(dev, table0, target, batches, tiled_table, tiled_losses):
@@ -708,6 +792,7 @@ def phase_times(dev, table, target, state, ids_np, seed: int,
         f"{out[-1]['bound_ms']} ms ({nbytes} B at 3.35 TB/s); vs plain "
         f"bit-equal")
     out.append(time_ema(dev, seed))
+    out.append(time_ema_bf16(dev, seed))
     out.extend(time_sketch_ops(dev, sketch_ops))
     return out
 
@@ -756,6 +841,65 @@ def time_ema(dev, seed: int) -> dict:
         f"plain {plain_ms} ms, bound {row['bound_ms']} ms ({nbytes} B at "
         f"3.35 TB/s); bit-equal to the plain version on a CPU copy, "
         f"max_abs_err {card_err} vs it on the card")
+    return row
+
+
+def time_ema_bf16(dev, seed: int) -> dict:
+    """B3's bf16 branch as the dense path runs it with bf16 cells: all
+    151,936 rows, the signed first moment, mask on, cached addressing.
+    Its bound counts x read and est written (4 B each), the bf16 sketch
+    read and written once (2 B a cell) and the addressing and mask."""
+    import torch
+    from repro_torch.core import quantize as qz
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cs_ema_tiled import (cs_ema_tiled,
+                                                  cs_ema_tiled_plain)
+    spec = SketchHParams(dtype="bfloat16").spec(
+        "tok_embed/table", (VOCAB, D_MODEL), signed=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 61)
+    S = torch.randn(spec.shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((VOCAB, D_MODEL), generator=gen, device=dev)
+    mask = torch.ones((VOCAB, 1), device=dev)
+    b, s = ops._cached_addressing(spec, VOCAB, dev)
+    csr = ops._cached_csr(spec, VOCAB, dev)
+    kw = dict(beta=0.9, scale=1.0 - 0.9, sr_seed=qz.step_seed(spec.seed, 3))
+    got = cs_ema_tiled(S.clone(), b, s, x, mask, csr=csr, **kw)
+    want = cs_ema_tiled_plain(S.clone(), b, s, x, mask, **kw)
+    card_differ = int((want[0].view(torch.int16)
+                       != got[0].view(torch.int16)).sum())
+    card_ok = torch.equal(want[1], got[1]) and bf16_within(
+        got[0], want[0], COLLISION_ATOL)
+    host = cs_ema_tiled_plain(*on_cpu([S, b, s, x, mask]), **kw)
+    bit = (torch.equal(host[0].view(torch.int16),
+                       got[0].cpu().view(torch.int16))
+           and torch.equal(host[1], got[1].cpu()))
+    err = max(float((host[0].float() - got[0].cpu().float()).abs().max()),
+              float((host[1] - got[1].cpu()).abs().max()))
+    if not (bit and card_ok):
+        raise AssertionError(f"B3 bf16 at the dense path's shapes: "
+                             f"bit-equal to a CPU copy {bit}; on the card "
+                             f"{card_differ} cells differ")
+    del want, got, host
+    work = S.clone()
+    ms = cuda_ms(lambda: cs_ema_tiled(work, b, s, x, mask, csr=csr, **kw),
+                 reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: cs_ema_tiled_plain(work, b, s, x, mask, **kw),
+                       reps=5)
+    depth, width, d = spec.shape
+    nbytes = (4 * 2 * VOCAB * d + 2 * 2 * depth * width * d
+              + 4 * (2 * depth * VOCAB + VOCAB))
+    row = dict(name="cs_ema_tiled_bf16", route="cuda",
+               source="src/repro_torch/kernels/csrc/cs_ema_tiled.cu",
+               replaces="src/repro/kernels/cs_ema_tiled.py:140",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=None, k=VOCAB, bytes=nbytes)
+    log(f"phase 5: B3 bf16 k={VOCAB} (every row, signed, mask on): {ms} ms, "
+        f"plain {plain_ms} ms, bound {row['bound_ms']} ms ({nbytes} B at "
+        f"3.35 TB/s); bit-equal to the plain version on a CPU copy; "
+        f"{card_differ} of {S.numel()} cells round apart from it on the "
+        f"card (atomic-order sums), est bit-equal")
     return row
 
 
@@ -829,35 +973,46 @@ def softmax_batches(rng: np.random.RandomState, steps: int) -> list:
             for _ in range(steps)]
 
 
-def phase_dense(dev, seed: int):
-    """The dense-gradient path at full width (see the module docstring).
-    Returns the kernel launch counts of its 20 checked steps."""
-    import torch
-    from repro_torch.core.optimizers import (SketchHParams, adam,
-                                             apply_updates, countsketch_adam)
-    from repro_torch.core.partition import SketchPolicy
-    gen = torch.Generator(device=dev).manual_seed(seed + 50)
-    teacher = torch.randn((VOCAB, D_MODEL), generator=gen, device=dev)
-    table0 = torch.randn((VOCAB, D_MODEL), generator=gen, device=dev) \
-        / D_MODEL ** 0.5
-    batches = softmax_batches(np.random.RandomState(seed), STEPS)
-    noise = [torch.randn((TOKENS, D_MODEL), generator=gen, device=dev)
-             for _ in batches]
-    fresh_y = softmax_batches(np.random.RandomState(seed + 99), 1)[0]
-    fresh_noise = torch.randn((TOKENS, D_MODEL), generator=gen, device=dev)
+class SoftmaxTask:
+    """The softmax layer of qwen2-0.5b on the dense path (phases 6 and 7):
+    ``{"tok_embed": {"table"}, "final_norm": {"scale"}}``, cross-entropy of
+    ``rmsnorm(h)*scale @ table^T`` over all 151,936 classes, ``h =
+    teacher[y] + noise``, 1,024 zipf(1.1) targets a step."""
 
-    def loss_fn(params, y_np, eps_h):
-        y = torch.from_numpy(y_np).to(dev)
-        h = teacher[y] + eps_h
+    def __init__(self, dev, seed: int):
+        import torch
+        self.dev = dev
+        gen = torch.Generator(device=dev).manual_seed(seed + 50)
+        self.teacher = torch.randn((VOCAB, D_MODEL), generator=gen,
+                                   device=dev)
+        self.table0 = torch.randn((VOCAB, D_MODEL), generator=gen,
+                                  device=dev) / D_MODEL ** 0.5
+        self.batches = softmax_batches(np.random.RandomState(seed), STEPS)
+        self.noise = [torch.randn((TOKENS, D_MODEL), generator=gen,
+                                  device=dev) for _ in self.batches]
+        self.fresh_y = softmax_batches(np.random.RandomState(seed + 99), 1)[0]
+        self.fresh_noise = torch.randn((TOKENS, D_MODEL), generator=gen,
+                                       device=dev)
+
+    def loss_fn(self, params, y_np, eps_h):
+        import torch
+        y = torch.from_numpy(y_np).to(self.dev)
+        h = self.teacher[y] + eps_h
         hn = h * torch.rsqrt((h * h).mean(-1, keepdim=True) + 1e-6) \
             * params["final_norm"]["scale"]
         return torch.nn.functional.cross_entropy(
             hn @ params["tok_embed"]["table"].t(), y)
 
-    def run(opt, lr):
-        """20 steps from table0; returns (params, state, per-step losses,
-        per-step ms, the step function, per-step max |direction|)."""
-        params = {"tok_embed": {"table": table0.clone().requires_grad_()},
+    def run(self, opt, lr, steps: int = STEPS, before=None):
+        """``steps`` steps from table0; returns (params, state, per-step
+        losses, per-step ms, the step function, per-step max
+        |direction|).  ``before(state, step)`` runs ahead of each step
+        and returns the state (the async cleaner's hook)."""
+        import torch
+        from repro_torch.core.optimizers import apply_updates
+        dev = self.dev
+        params = {"tok_embed": {"table": self.table0.clone()
+                                .requires_grad_()},
                   "final_norm": {"scale": torch.ones(
                       D_MODEL, device=dev).requires_grad_()}}
         state = opt.init(params)
@@ -866,7 +1021,7 @@ def phase_dense(dev, seed: int):
 
         def step(y_np, eps_h):
             nonlocal state
-            loss = loss_fn(params, y_np, eps_h)
+            loss = self.loss_fn(params, y_np, eps_h)
             g_table, g_scale = torch.autograd.grad(loss, leaves)
             updates, state = opt.update(
                 {"tok_embed": {"table": g_table},
@@ -877,7 +1032,10 @@ def phase_dense(dev, seed: int):
             return loss.detach()
 
         losses, events = [], []
-        for y_np, eps_h in zip(batches, noise):
+        for i, (y_np, eps_h) in enumerate(zip(self.batches[:steps],
+                                              self.noise)):
+            if before is not None:
+                state = before(state, i + 1)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -889,20 +1047,39 @@ def phase_dense(dev, seed: int):
                 [a.elapsed_time(b) for a, b in events], step,
                 [float(x) for x in directions])
 
-    def held_fresh(params):
+    def held_fresh(self, params=None):
+        """The loss on batch 0's tokens and on a fresh batch."""
+        import torch
+        if params is None:
+            params = {"tok_embed": {"table": self.table0},
+                      "final_norm": {"scale": torch.ones(D_MODEL,
+                                                         device=self.dev)}}
         with torch.no_grad():
-            return (float(loss_fn(params, batches[0], noise[0])),
-                    float(loss_fn(params, fresh_y, fresh_noise)))
+            return (float(self.loss_fn(params, self.batches[0],
+                                       self.noise[0])),
+                    float(self.loss_fn(params, self.fresh_y,
+                                       self.fresh_noise)))
 
-    held0, fresh0 = held_fresh({"tok_embed": {"table": table0},
-                                "final_norm": {"scale": torch.ones(
-                                    D_MODEL, device=dev)}})
+
+def phase_dense(dev, seed: int):
+    """The dense-gradient path at full width (see the module docstring).
+    Returns (the kernel launch counts of its 20 checked steps, the task,
+    its per-step losses)."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams, adam, \
+        countsketch_adam
+    from repro_torch.core.partition import SketchPolicy
+    task = SoftmaxTask(dev, seed)
+    noise, run, held_fresh = task.noise, task.run, task.held_fresh
+    held0, fresh0 = held_fresh()
     policy = SketchPolicy()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     params, state, losses, ms, step, dirs = run(
         countsketch_adam(DENSE_LR, policy=policy,
                          hparams=SketchHParams(backend="auto")), DENSE_LR)
     counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
     held, fresh = held_fresh(params)
     m = state["m"]["tok_embed"]["table"]
     log(f"phase 6: softmax layer tok_embed/table {VOCAB} x {D_MODEL}, "
@@ -911,7 +1088,8 @@ def phase_dense(dev, seed: int):
         f" ({m.numel() * 4} B each), final_norm/scale dense Adam; "
         f"countsketch_adam lr {DENSE_LR}")
     log(f"phase 6: ms/step median of steps 2..{STEPS}: "
-        f"{statistics.median(ms[1:])} (first step {ms[0]}); all {ms}")
+        f"{statistics.median(ms[1:])} (first step {ms[0]}); all {ms}; "
+        f"peak device memory {peak} B")
     log(f"phase 6: loss on batch 0's tokens {held0} -> {held}; on a fresh "
         f"batch {fresh0} -> {fresh}; per-step {losses}; max |direction| "
         f"per step {dirs}; launches {counts}")
@@ -963,7 +1141,221 @@ def phase_dense(dev, seed: int):
             f"-> {h}, fresh {fresh0} -> {f}; per-step {l}; max |direction| "
             f"per step {d}")
         del p
+    return counts, task, losses, (held0, held), statistics.median(ms[1:])
+
+
+# ---------------------------------------------------------------- phase 7
+def sketch_bytes(state) -> int:
+    """Bytes of one sketch state: its cells, and an int8 state's scales."""
+    return sum(t.numel() * t.element_size()
+               for t in (state if isinstance(state, tuple) else (state,)))
+
+
+def phase_dense_bf16(dev, f32):
+    """Phase 6's task with bf16 sketch cells: 20 steps of
+    ``countsketch_adam(SketchHParams(dtype="bfloat16"))`` on ``auto``, B3's
+    bf16 kernel twice a step, the plain ``xla`` witness on the same
+    batches, and the losses beside phase 6's f32 run.  Returns the
+    launch counts."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams, countsketch_adam
+    from repro_torch.core.partition import SketchPolicy
+    _counts6, task, losses6, (held0, held6), ms6 = f32
+    hp = SketchHParams(backend="auto", dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    params, state, losses, ms, step, dirs = task.run(
+        countsketch_adam(DENSE_LR, policy=SketchPolicy(), hparams=hp),
+        DENSE_LR)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    held, fresh = task.held_fresh(params)
+    m, v = state["m"]["tok_embed"]["table"], state["v"]["tok_embed"]["table"]
+    nbytes = sketch_bytes(m)
+    spec = hp.spec("tok_embed/table", (VOCAB, D_MODEL), signed=True)
+    f32_bytes = SketchHParams().spec("tok_embed/table", (VOCAB, D_MODEL),
+                                     signed=True).nbytes()
+    log(f"phase 7: phase 6's softmax layer with bf16 sketch cells "
+        f"(SketchHParams(dtype='bfloat16'), backend auto): sketches m "
+        f"{tuple(m.shape)} {m.dtype} v {tuple(v.shape)} {v.dtype}, "
+        f"{nbytes} B per moment (f32: {f32_bytes} B)")
+    log(f"phase 7: ms/step median of steps 2..{STEPS}: "
+        f"{statistics.median(ms[1:])} (f32, phase 6: {ms6}; first step "
+        f"{ms[0]}); all {ms}; peak device memory {peak} B")
+    log(f"phase 7: loss on batch 0's tokens {held0} -> {held} (f32: "
+        f"{held0} -> {held6}); fresh batch {fresh}; per-step {losses}; f32 "
+        f"per-step {losses6}; max |direction| per step {dirs}; launches "
+        f"{counts}")
+    if counts["cs_ema_tiled_bf16"] != 2 * STEPS or counts["cs_ema_tiled"]:
+        raise AssertionError(f"bf16 dense path launches {counts}, not "
+                             f"{2 * STEPS} of B3 bf16 alone")
+    if nbytes != spec.nbytes() or 2 * nbytes != f32_bytes:
+        raise AssertionError(f"bf16 sketch bytes {nbytes}, spec "
+                             f"{spec.nbytes()}, f32 {f32_bytes}")
+    if not held < held0:
+        raise AssertionError("the bf16 dense path's loss did not fall")
+    if not all(torch.isfinite(t.float()).all() for t in (
+            params["tok_embed"]["table"], m, v)):
+        raise AssertionError("non-finite table or bf16 sketch")
+    w_params, _, w_losses, w_ms, _, _ = task.run(
+        countsketch_adam(DENSE_LR, policy=SketchPolicy(),
+                         hparams=SketchHParams(backend="xla",
+                                               dtype="bfloat16")), DENSE_LR)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, w_losses))
+    table, w_table = (params["tok_embed"]["table"].detach(),
+                      w_params["tok_embed"]["table"].detach())
+    diff = (table - w_table).abs()
+    outside = int((diff > WITNESS_TOL["atol"]
+                   + WITNESS_TOL["rtol"] * w_table.abs()).sum())
+    log(f"phase 7: plain xla witness with bf16 cells, same batches: ms/step "
+        f"median "
+        f"{statistics.median(w_ms[1:])}; per-step loss max rel diff {rel} "
+        f"(rtol {WITNESS_TOL['rtol']}); table max_abs_err "
+        f"{float(diff.max())}, {outside} of {diff.numel()} entries outside "
+        f"rtol {WITNESS_TOL['rtol']}/atol {WITNESS_TOL['atol']} (the plain "
+        f"version sums each cell's increments in atomic order, so some "
+        f"stochastic roundings go the other way; not asserted)")
+    torch.testing.assert_close(torch.tensor(losses), torch.tensor(w_losses),
+                               rtol=WITNESS_TOL["rtol"], atol=0.0)
+    del w_params, w_table, diff
+    more = softmax_batches(np.random.RandomState(31), 5)
+
+    def five():
+        out = [step(y, eps) for y, eps in zip(more, task.noise)]
+        torch.cuda.synchronize()
+        return out
+    profile_steps("phase 7 (profile)", five, statistics.median(ms[1:]))
     return counts
+
+
+def phase_dense_int8(dev, task):
+    """Phase 6's task with int8 sketch cells through the plain route: 5
+    steps; the table stays finite, the loss on batch 0's tokens falls,
+    and no B3 launches (int8 runs ``xla``, as in the reference)."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams, countsketch_adam
+    from repro_torch.core.partition import SketchPolicy
+    hp = SketchHParams(backend="auto", dtype="int8")
+    reset_counts()
+    params, state, losses, ms, _, dirs = task.run(
+        countsketch_adam(DENSE_LR, policy=SketchPolicy(), hparams=hp),
+        DENSE_LR, steps=5)
+    counts = read_counts()
+    held0, _ = task.held_fresh()
+    held, _ = task.held_fresh(params)
+    m, v = state["m"]["tok_embed"]["table"], state["v"]["tok_embed"]["table"]
+    log(f"phase 7b: int8 sketch cells (SketchHParams(dtype='int8'), backend "
+        f"auto -> xla): 5 steps, ms/step {ms}; loss on batch 0's tokens "
+        f"{held0} -> {held}; per-step {losses}; max |direction| {dirs}; "
+        f"state bytes per moment {sketch_bytes(m)} (cells "
+        f"{tuple(m.cells.shape)} int8 + scales {tuple(m.scales.shape)} f32); "
+        f"launches {counts}")
+    if counts["cs_ema_tiled"] or counts["cs_ema_tiled_bf16"]:
+        raise AssertionError(f"int8 cells launched B3: {counts}")
+    if not held < held0:
+        raise AssertionError("the int8 dense path's loss did not fall")
+    if not (torch.isfinite(params["tok_embed"]["table"]).all()
+            and torch.isfinite(m.scales).all()
+            and torch.isfinite(v.scales).all()):
+        raise AssertionError("non-finite table or int8 scales")
+    if sketch_bytes(m) != hp.spec("tok_embed/table", (VOCAB, D_MODEL),
+                                  signed=True).nbytes():
+        raise AssertionError("int8 state bytes disagree with the spec")
+
+
+def phase_sparse_bf16(dev, seed: int, held3):
+    """bf16 cells on phase 3's sparse-rows batches, backend ``tiled``:
+    low-precision cells run the whole-batch ``xla`` form as in the
+    reference, so no B1 launches.  Prints the held loss beside phase
+    3's."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.train.steps import make_sparse_embedding_step
+    init_fn, step_fn, opt = make_sparse_embedding_step(
+        VOCAB, D_MODEL, lr=LR, device=dev,
+        hparams=SketchHParams(backend="tiled", dtype="bfloat16"))
+    table = init_fn(torch.Generator(device=dev).manual_seed(seed))
+    target = init_fn(torch.Generator(device=dev).manual_seed(seed + 1))
+    batches = zipf_ids(np.random.RandomState(seed), STEPS)
+    held = torch.from_numpy(batches[0]).to(dev).long()
+
+    def loss_on(tab) -> float:
+        rows = tab[held] - target[held]
+        return float(torch.mean(rows * rows))
+
+    before = loss_on(table)
+    state = opt.init()
+    reset_counts()
+    table, state, losses, ms = run_steps(step_fn, table, target, state,
+                                         batches, dev)
+    counts = read_counts()
+    after = loss_on(table)
+    log(f"phase 7c: phase 3's {STEPS} sparse-rows batches with bf16 sketch "
+        f"cells ({state['v'].dtype}, {sketch_bytes(state['v'])} B per "
+        f"moment), backend tiled: ms/step median {statistics.median(ms[1:])}; "
+        f"loss on the first batch's ids {before} -> {after} (f32, phase 3: "
+        f"{held3[0]} -> {held3[1]}); launches {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"bf16 sparse rows launched kernels: {counts}")
+    if not after < before:
+        raise AssertionError("the bf16 sparse path's loss did not fall")
+    if not torch.isfinite(table).all():
+        raise AssertionError("non-finite table")
+
+
+def phase_async_clean(dev, task):
+    """The dense path with a Count-Min cleaned every 5 steps (bf16 cells),
+    10 steps, sync against ``AsyncCleaner``: the table and both sketches
+    must be equal to the bit."""
+    import torch
+    from repro_torch.core.cleaning import AsyncCleaner, CleaningSchedule
+    from repro_torch.core.optimizers import (SketchHParams, adam_from_stores,
+                                             stores_from_policy)
+    from repro_torch.core.partition import SketchPolicy
+    path = ("tok_embed", "table")
+
+    def run(mode):
+        sched = CleaningSchedule(alpha=0.5, every=5, mode=mode)
+        tree = stores_from_policy(SketchPolicy(), cleaning=sched,
+                                  hparams=SketchHParams(backend="auto",
+                                                        dtype="bfloat16"))
+        cleaner = None
+        before = None
+        if mode == "async":
+            cleaner = AsyncCleaner(
+                sched, getter=lambda st: st["v"][path[0]][path[1]])
+
+            def before(state, step):
+                return cleaner.maybe_dispatch(state, step)[0]
+        params, state, losses, ms, _, _ = task.run(
+            adam_from_stores(DENSE_LR, tree), DENSE_LR, steps=10,
+            before=before)
+        out = [params["tok_embed"]["table"].detach(),
+               state["m"][path[0]][path[1]], state["v"][path[0]][path[1]]]
+        return out, losses, ms, cleaner
+
+    sync, s_losses, s_ms, _ = run("sync")
+    asyn, a_losses, a_ms, cleaner = run("async")
+    equal = [torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                         else a, b.view(torch.int16)
+                         if b.dtype == torch.bfloat16 else b)
+             for a, b in zip(sync, asyn)]
+    log(f"phase 7d: bf16 dense path, CountMinStore cleaning alpha 0.5 every "
+        f"5, 10 steps: sync ms/step {s_ms}; async ms/step {a_ms}; "
+        f"{cleaner.dispatched} async decays, in flight after the run "
+        f"{cleaner.in_flight()}; equal to the bit (table, m, v) {equal}; "
+        f"losses sync {s_losses} async {a_losses}")
+    if cleaner.dispatched != 2:
+        raise AssertionError(f"{cleaner.dispatched} async decays, not 2")
+    if not all(equal):
+        again, _, _, _ = run("sync")
+        repeat = [torch.equal(a, b) for a, b in zip(sync, again)]
+        raise AssertionError(
+            f"async cleaning differs from sync {equal}; sync against a "
+            f"second sync run {repeat}: "
+            + ("the dense step itself is not deterministic (autograd's "
+               "matmul or cross-entropy backward)" if not all(repeat)
+               else "the side-stream decay is not ordered before the step"))
 
 
 def main(argv=None) -> int:
@@ -989,7 +1381,8 @@ def main(argv=None) -> int:
             log(f"phase 1:   {line.strip()}")
     phases = [
         ("2", lambda: (phase_kernels(dev, args.seed),
-                       phase_sketch_kernels(dev, args.seed))),
+                       phase_sketch_kernels(dev, args.seed),
+                       phase_bf16_kernel(dev, args.seed))),
         ("3", lambda: phase_main(dev, args.seed)),
         ("4", lambda: phase_serve_and_stream(dev, *out["3"][:2], args.seed)),
         ("4 (sketch ops)", lambda: phase_sketch_ops(dev, out["3"][3],
@@ -997,6 +1390,10 @@ def main(argv=None) -> int:
         ("5", lambda: phase_times(dev, *out["3"][:4], args.seed,
                                   out["4 (sketch ops)"])),
         ("6", lambda: phase_dense(dev, args.seed)),
+        ("7", lambda: phase_dense_bf16(dev, out["6"])),
+        ("7b", lambda: phase_dense_int8(dev, out["6"][1])),
+        ("7c", lambda: phase_sparse_bf16(dev, args.seed, out["3"][5])),
+        ("7d", lambda: phase_async_clean(dev, out["6"][1])),
     ]
     out = {}
     for name, run in phases:
@@ -1006,7 +1403,8 @@ def main(argv=None) -> int:
     kernels = out["5"]
     launches = {"cs_adam_tiled": out["3"][4]["cs_adam_tiled"],
                 "cs_adam_fused": out["4"]["cs_adam_fused"],
-                "cs_ema_tiled": out["6"]["cs_ema_tiled"]}
+                "cs_ema_tiled": out["6"][0]["cs_ema_tiled"],
+                "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"]}
     for row in kernels:
         row.setdefault("launches", launches.get(row["name"]))
     log(f"peak device memory {torch.cuda.max_memory_allocated()} B")

@@ -5,9 +5,12 @@ or the reference's ``{"step", "m", "v"}`` optimizer state with its
 per-path trees of None, dense arrays and sketches, e.g. ``jax.device_get``
 of them) into the port's tensors; ``tree_to_numpy`` goes the other way.  The
 step counter stays on the host as an int32 scalar, where the port keeps
-it.  Tests and the chip smoke script start both packages from one state
-this way, since the port draws its initial numbers from other
-generators than ``jax.random``.
+it.  Float leaves become float32 tensors, except bfloat16 ones (numpy
+arrays of ``ml_dtypes.bfloat16``), which stay bfloat16 bit for bit; an
+int8 sketch state (any ``(cells, scales)`` NamedTuple, as the reference's
+``QuantState``) becomes the port's ``QuantState``.  Tests and the chip
+smoke script start both packages from one state this way, since the port
+draws its initial numbers from other generators than ``jax.random``.
 """
 from __future__ import annotations
 
@@ -16,33 +19,67 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.quantize import QuantState
+
+
+def _is_quant(tree) -> bool:
+    return isinstance(tree, tuple) and getattr(tree, "_fields", None) == \
+        QuantState._fields
+
+
+def _leaf_from_numpy(a, device, exact: bool = False) -> torch.Tensor:
+    """One array as a tensor: bfloat16 bit for bit, else float32 (its own
+    dtype when ``exact``)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, dtype=None if exact
+                                     else np.float32)).to(device)
+
 
 def tree_from_numpy(tree, device="cuda"):
-    """Nested dicts/lists/tuples of arrays -> the same tree of float32
-    tensors on ``device``; None stays None, and a ``"step"`` entry
-    becomes a host int32 scalar."""
+    """Nested dicts/lists/tuples of arrays -> the same tree of tensors on
+    ``device`` (float32, or bfloat16 for bfloat16 arrays; int8 cells stay
+    int8); None stays None, a ``"step"`` entry becomes a host int32
+    scalar, and a ``(cells, scales)`` NamedTuple a ``QuantState``."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: (torch.tensor(int(np.asarray(v)), dtype=torch.int32)
                     if k == "step" else tree_from_numpy(v, device))
                 for k, v in tree.items()}
+    if _is_quant(tree):
+        return QuantState(*(_leaf_from_numpy(a, device, exact=True)
+                            for a in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_from_numpy(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+    return _leaf_from_numpy(tree, device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes        # JAX's numpy bfloat16, installed with it
+        return t.view(torch.int16).numpy().view(np.uint16).view(
+            ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def tree_to_numpy(tree):
     """The reverse of ``tree_from_numpy``: numpy copies in the reference's
-    layout, the step an int32 scalar."""
+    layout (bfloat16 leaves as ``ml_dtypes.bfloat16`` arrays), the step an
+    int32 scalar, a ``QuantState`` a ``QuantState`` of arrays."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: (np.asarray(int(v), np.int32) if k == "step"
                     else tree_to_numpy(v)) for k, v in tree.items()}
+    if isinstance(tree, QuantState):
+        return QuantState(*(_leaf_to_numpy(t) for t in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_to_numpy(v) for v in tree)
-    return tree.detach().cpu().numpy()
+    return _leaf_to_numpy(tree)
 
 
 def from_jax_state(table_np: np.ndarray, opt_state_np: Dict, device="cuda"

@@ -1,4 +1,4 @@
-"""The Count-Sketch tensor (paper §2, §4) on PyTorch tensors, f32 cells.
+"""The Count-Sketch tensor (paper §2, §4) on PyTorch tensors.
 
 Counterpart of ``repro.core.sketch``.  State is one tensor ``S`` of shape
 ``(depth, width, dim)``: ``depth`` hash rows, ``width`` buckets and the
@@ -10,12 +10,21 @@ The batched step reads the pre-step sketch, then scatter-adds:
 
     est_old = query(S, ids);  update(S, ids, Δ);  est_new = est_old + Δ
 
-``update`` adds into ``S`` IN PLACE and returns it.  On the CPU
+``update`` writes ``S`` IN PLACE and returns it.  On the CPU
 ``index_add_`` adds colliding rows one after another in batch order, as
 XLA does, so the result is the reference's to the bit.  On CUDA it adds
 them with atomics, whose order varies from run to run.
 
-Only float32 cells are ported; bfloat16 and int8 cells raise.
+Cells are float32, bfloat16 or int8 (``core.quantize``).  Low-precision
+cells are read in f32 (bf16 widened, int8 times its block's scale, an
+unsigned int8 read floored at half a scale step) and written through
+stochastic rounding keyed by ``sr_seed``, the per-step seed of
+``quantize.step_seed``: bf16 sums the increments from zero in f32, adds
+them to the widened sketch and re-rounds every cell (a representable
+value rounds to itself); int8 adds into the dequantized sketch, grows
+the block scales (they never shrink between cleanings) and re-rounds the
+touched and regrown blocks only.  An int8 state is a ``QuantState``,
+whose two tensors are written in place.
 """
 from __future__ import annotations
 
@@ -24,26 +33,19 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch.core import quantize as qz
 from repro_torch.core.hashing import HashFamily
+from repro_torch.core.quantize import QuantState
 
 F32 = "float32"
 
 
-def cell_dtype_name(dtype) -> str:
-    """Canonical name of a cell dtype; only float32 is ported."""
-    name = str(dtype).replace("torch.", "")
-    if name != F32:
-        raise NotImplementedError(
-            f"sketch cells of dtype {name!r} are not ported yet (ROADMAP "
-            f"A7); the port stores float32 cells only")
-    return name
-
-
 @dataclasses.dataclass(frozen=True)
 class SketchSpec:
-    """Static description of a sketch tensor.  ``dtype`` is a name
-    ('float32') or ``torch.float32``; see ``repro.core.sketch.SketchSpec``
-    for ``shards``/``layout``."""
+    """Static description of a sketch tensor.  ``dtype`` is a cell dtype
+    name ('float32' | 'bfloat16' | 'int8') or its ``torch.dtype``;
+    ``scale_block`` is the buckets per f32 scale of int8 cells.  See
+    ``repro.core.sketch.SketchSpec`` for ``shards``/``layout``."""
 
     depth: int
     width: int
@@ -54,6 +56,7 @@ class SketchSpec:
     identity: bool = False
     shards: int = 1
     layout: str = "width"
+    scale_block: int = qz.SCALE_BLOCK
 
     def __post_init__(self):
         if self.layout not in ("width", "hash"):
@@ -62,7 +65,29 @@ class SketchSpec:
         if self.shards < 1 or self.width % self.shards != 0:
             raise ValueError(f"sketch width {self.width} must divide into "
                              f"{self.shards} shards")
-        cell_dtype_name(self.dtype)
+        qz.cell_dtype_name(self.dtype)
+        if self.quantized and self.shards > 1:
+            raise ValueError("int8 sketch cells do not compose with "
+                             "model-parallel sharding: a width slab would "
+                             "split scale blocks; use bfloat16 or float32 "
+                             "cells, or shards=1")
+        if self.scale_block < 1:
+            raise ValueError(f"scale_block must be >= 1, "
+                             f"got {self.scale_block}")
+
+    @property
+    def cell_dtype_name(self) -> str:
+        return qz.cell_dtype_name(self.dtype)
+
+    @property
+    def quantized(self) -> bool:
+        """True when cells are int8 (the state is a ``QuantState``)."""
+        return self.cell_dtype_name == "int8"
+
+    @property
+    def lowp(self) -> bool:
+        """True when cells are stored below f32 (bf16 or int8)."""
+        return self.cell_dtype_name != F32
 
     @property
     def family(self) -> HashFamily:
@@ -75,7 +100,14 @@ class SketchSpec:
         return (self.depth, self.width, self.dim)
 
     def nbytes(self) -> int:
-        return self.depth * self.width * self.dim * 4
+        """Bytes of ``init(self)``: the cells at their dtype's size, plus
+        the f32 block scales of int8 cells."""
+        cells = self.depth * self.width * self.dim \
+            * qz.torch_dtype(self.dtype).itemsize
+        if self.quantized:
+            return cells + self.depth * qz.n_blocks(self.width,
+                                                    self.scale_block) * 4
+        return cells
 
 
 def for_param(shape: Tuple[int, ...], *, compression: float = 5.0,
@@ -87,7 +119,7 @@ def for_param(shape: Tuple[int, ...], *, compression: float = 5.0,
     if len(shape) != 2:
         raise ValueError(f"sketched params must be rank-2 (rows, dim), got {shape}")
     n, d = shape
-    dtype = cell_dtype_name(dtype)
+    dtype = qz.cell_dtype_name(dtype)
     if identity:
         w = -(-n // width_multiple) * width_multiple
         return SketchSpec(depth=depth, width=w, dim=d, signed=signed,
@@ -99,9 +131,34 @@ def for_param(shape: Tuple[int, ...], *, compression: float = 5.0,
                       dtype=dtype, identity=identity)
 
 
-def init(spec: SketchSpec, device="cuda") -> torch.Tensor:
-    """Zero state on ``device``."""
-    return torch.zeros(spec.shape, dtype=torch.float32, device=device)
+def init(spec: SketchSpec, device="cuda"):
+    """Zero state on ``device``: a tensor of the cell dtype, or a
+    ``QuantState`` (int8 cells, f32 block scales) for int8 cells."""
+    if spec.quantized:
+        return QuantState(
+            cells=torch.zeros(spec.shape, dtype=torch.int8, device=device),
+            scales=torch.zeros((spec.depth, qz.n_blocks(spec.width,
+                                                        spec.scale_block)),
+                               dtype=torch.float32, device=device))
+    return torch.zeros(spec.shape, dtype=qz.torch_dtype(spec.dtype),
+                       device=device)
+
+
+def clone(S):
+    """A copy of a sketch state (tensor or ``QuantState``)."""
+    if isinstance(S, QuantState):
+        return QuantState(S.cells.clone(), S.scales.clone())
+    return S.clone()
+
+
+def device_of(S) -> torch.device:
+    """The device of a sketch state (tensor or ``QuantState``)."""
+    return S.cells.device if isinstance(S, QuantState) else S.device
+
+
+def sr_seed_or_default(spec: SketchSpec, sr_seed) -> int:
+    """The caller's per-step rounding seed, else the spec's step-0 one."""
+    return sr_seed if sr_seed is not None else qz.step_seed(spec.seed)
 
 
 def median_rows(rows: List[torch.Tensor]) -> torch.Tensor:
@@ -128,43 +185,122 @@ def min_rows(rows: List[torch.Tensor]) -> torch.Tensor:
     return out
 
 
-def query(spec: SketchSpec, S: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """QUERY (paper Alg. 1): estimates of rows ``ids`` -> (k, dim)."""
-    fam = spec.family
-    b = fam.bucket(ids).long()                       # (depth, k)
-    rows = [S[j].index_select(0, b[j]) for j in range(spec.depth)]
-    if spec.signed:
-        s = fam.sign(ids)
-        return median_rows([r * s[j][:, None] for j, r in enumerate(rows)])
-    return min_rows(rows)
-
-
-def update(spec: SketchSpec, S: torch.Tensor, ids: torch.Tensor,
-           delta: torch.Tensor) -> torch.Tensor:
-    """UPDATE (paper Alg. 1): add ``delta`` (k, dim) at rows ``ids``,
-    IN PLACE; colliding ids accumulate.  Returns ``S``."""
-    fam = spec.family
-    b = fam.bucket(ids).long()
-    s = fam.sign(ids) if spec.signed else None
-    delta = delta.to(S.dtype)
+def gather_rows(spec: SketchSpec, S, b: torch.Tensor,
+                s=None) -> List[torch.Tensor]:
+    """Per hash row, the (k, dim) f32 rows at buckets ``b`` (depth, k),
+    times the signs ``s`` (depth, k) when given.  Low-precision cells are
+    read in f32: bf16 widened, int8 times its block's scale, and an
+    unsigned int8 read floored at half a scale step (a cell resolves
+    values only to ±scale/2, and an Adam denominator built on a lower
+    read would collapse); never-written blocks keep scale 0 and read
+    exact zeros."""
+    b = b.long()
+    sc = qz.bucket_scales(S.scales, b, spec.scale_block) \
+        if spec.quantized else None
+    rows = []
     for j in range(spec.depth):
-        u = s[j][:, None] * delta if spec.signed else delta
-        S[j].index_add_(0, b[j], u)
+        if spec.quantized:
+            r = S.cells[j].index_select(0, b[j]).to(torch.float32) \
+                * sc[j][:, None]
+            if not spec.signed:
+                r = torch.maximum(r, 0.5 * sc[j][:, None])
+        else:
+            r = S[j].index_select(0, b[j]).to(torch.float32)
+        rows.append(r if s is None else r * s[j][:, None])
+    return rows
+
+
+def query(spec: SketchSpec, S, ids: torch.Tensor) -> torch.Tensor:
+    """QUERY (paper Alg. 1): f32 estimates of rows ``ids`` -> (k, dim)."""
+    fam = spec.family
+    if spec.signed:
+        return median_rows(gather_rows(spec, S, fam.bucket(ids),
+                                       fam.sign(ids)))
+    return min_rows(gather_rows(spec, S, fam.bucket(ids)))
+
+
+def _signed_rows(spec: SketchSpec, ids: torch.Tensor, delta: torch.Tensor,
+                 dtype) -> List[torch.Tensor]:
+    """Per hash row, the rows the update adds: ``s_j·delta`` or ``delta``."""
+    delta = delta.to(dtype)
+    if not spec.signed:
+        return [delta] * spec.depth
+    s = spec.family.sign(ids).to(dtype)
+    return [s[j][:, None] * delta for j in range(spec.depth)]
+
+
+def _update_quant(spec: SketchSpec, S: QuantState, b: torch.Tensor,
+                  upd: List[torch.Tensor], sr_seed: int) -> QuantState:
+    """int8 UPDATE, in place: dequantize, add in f32, grow the block
+    scales, re-round the touched buckets and every bucket of a block whose
+    scale grew; the other cells keep their exact int8 values."""
+    w = spec.width
+    new = qz.dequantize(S, spec.scale_block)
+    touched = torch.zeros((spec.depth, w), dtype=torch.bool, device=b.device)
+    for j in range(spec.depth):
+        new[j].index_add_(0, b[j], upd[j])
+        touched[j, b[j]] = True
+    scales = qz.grown_scales(S.scales, new, spec.scale_block)
+    grew = qz.expand_scales(scales > S.scales, w, spec.scale_block)
+    need = (touched | grew)[:, :, None]
+    q = qz.quantize(new, sr_seed, scale_block=spec.scale_block,
+                    scales=scales).cells
+    S.cells.copy_(torch.where(need, q, S.cells))
+    S.scales.copy_(scales)
     return S
 
 
-def update_and_query(spec: SketchSpec, S: torch.Tensor, ids: torch.Tensor,
-                     delta: torch.Tensor):
+def update(spec: SketchSpec, S, ids: torch.Tensor, delta: torch.Tensor,
+           sr_seed=None):
+    """UPDATE (paper Alg. 1): add ``delta`` (k, dim) at rows ``ids``,
+    IN PLACE; colliding ids accumulate.  Low-precision writes round
+    stochastically with ``sr_seed`` (None: the step-0 seed).  Returns
+    ``S``."""
+    b = spec.family.bucket(ids).long()
+    if spec.quantized:
+        upd = _signed_rows(spec, ids, delta, torch.float32)
+        return _update_quant(spec, S, b, upd,
+                             sr_seed_or_default(spec, sr_seed))
+    if spec.lowp:
+        upd = _signed_rows(spec, ids, delta, torch.float32)
+        inc = torch.zeros(spec.shape, dtype=torch.float32, device=S.device)
+        for j in range(spec.depth):
+            inc[j].index_add_(0, b[j], upd[j])
+        bits = qz.cell_bits(sr_seed_or_default(spec, sr_seed),
+                            qz._lin_index(spec.shape, device=S.device))
+        return S.copy_(qz.sr_bfloat16(S.to(torch.float32) + inc, bits))
+    upd = _signed_rows(spec, ids, delta, S.dtype)
+    for j in range(spec.depth):
+        S[j].index_add_(0, b[j], upd[j])
+    return S
+
+
+def update_and_query(spec: SketchSpec, S, ids: torch.Tensor,
+                     delta: torch.Tensor, sr_seed=None):
     """Canonical batched step: ``(S', est_old + delta)``, ``S`` updated in
     place."""
     est_old = query(spec, S, ids)
-    S = update(spec, S, ids, delta)
+    S = update(spec, S, ids, delta, sr_seed=sr_seed)
     return S, est_old + delta
 
 
-def decay(S: torch.Tensor, alpha: float) -> torch.Tensor:
-    """Cleaning heuristic (paper §4): multiply ``S`` by ``alpha`` IN
-    PLACE."""
+def query_after_update(spec: SketchSpec, S, ids: torch.Tensor,
+                       delta: torch.Tensor, sr_seed=None):
+    """Strict paper semantics (3 sketch passes): update, then query."""
+    S = update(spec, S, ids, delta, sr_seed=sr_seed)
+    return S, query(spec, S, ids)
+
+
+def decay(S, alpha: float):
+    """Cleaning heuristic (paper §4): multiply the sketch by ``alpha`` IN
+    PLACE.  int8 folds ``alpha`` into the block scales and touches no
+    cell; bf16 multiplies by ``alpha`` rounded to bf16, as the reference
+    does."""
+    if isinstance(S, QuantState):
+        S.scales.mul_(alpha)
+        return S
+    if S.dtype == torch.bfloat16:
+        return S.mul_(float(torch.tensor(alpha, dtype=torch.bfloat16)))
     return S.mul_(alpha)
 
 

@@ -14,7 +14,9 @@ is kept; the protocol is
 ``beta*content + scale*delta`` and returns the post-step estimate.  The
 base default composes decay, accumulate and read; sketch stores use the
 paper's linear-estimate form, and with ``backend`` set they run it as one
-fused kernel through ``repro_torch.kernels.update_read``.
+fused kernel through ``repro_torch.kernels.update_read``.  Its ``step``
+keys the stochastic rounding of bf16 and int8 sketch cells
+(``quantize.step_seed``); a float32 sketch draws no seed.
 
   * ``DenseStore``       - the uncompressed same-shape buffer (exact);
   * ``CountSketchStore`` - signed Count-Sketch, median read (momentum,
@@ -26,9 +28,11 @@ fused kernel through ``repro_torch.kernels.update_read``.
 Stores are frozen dataclasses that double as factories: ``bind(path,
 shape, dtype)`` sizes one leaf's state with the same per-leaf seed
 (``leaf_seed``) as the reference, so both packages address the same
-buckets.  Every state is updated IN PLACE and returned.  ``Rank1Store``
-waits for the planner (ROADMAP A9), ``stats`` for telemetry (A11), the
-JSON round-trip for A9.
+buckets.  A sketch store's ``dtype`` names its cells ('float32' |
+'bfloat16' | 'int8'); an int8 state is a ``quantize.QuantState``.  Every
+state is updated IN PLACE and returned.  ``Rank1Store`` waits for the
+planner (ROADMAP A9), ``stats`` for telemetry (A11), the JSON round-trip
+for A9.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch import kernels
+from repro_torch.core import quantize as qz
 from repro_torch.core import sketch as cs
 from repro_torch.core.cleaning import CleaningSchedule, maybe_clean
 from repro_torch.core.sketch import SketchSpec
@@ -64,12 +69,13 @@ class AuxStore:
 
     def update_read(self, state, delta, beta: float = 1.0, *,
                     scale: Optional[float] = None, rows=None, mask=None,
-                    read_state=None, strict: bool = False):
+                    read_state=None, strict: bool = False, step=None):
         """Move row content to ``beta*content + scale*delta`` (``scale``
         defaults to ``1-beta``) and return ``(state, estimate)``.  This
         default composes decay, accumulate and read, exact for a dense
         buffer; ``mask`` (rows x 1, 0/1) gates the increment, and
-        ``read_state``/``strict`` only mean something to sketch stores."""
+        ``read_state``/``strict``/``step`` only mean something to sketch
+        stores."""
         if scale is None:
             scale = 1.0 - beta
         if mask is not None:
@@ -188,24 +194,46 @@ class _SketchStoreBase(AuxStore):
             raise ValueError("rows=None needs a store bound to a table shape")
         return torch.arange(self.shape[0], dtype=torch.int32, device=device)
 
-    def init(self, device="cuda") -> torch.Tensor:
+    @property
+    def cell_dtype_name(self) -> str:
+        """'float32' | 'bfloat16' | 'int8', from the bound spec when there
+        is one, else the ``dtype`` field."""
+        if self.spec is not None:
+            return self.spec.cell_dtype_name
+        return qz.cell_dtype_name(self.dtype)
+
+    @property
+    def scale_block(self) -> int:
+        """Buckets per f32 scale of int8 cells."""
+        return self.spec.scale_block if self.spec is not None \
+            else qz.SCALE_BLOCK
+
+    def init(self, device="cuda"):
         return cs.init(self.spec, device)
 
     def accumulate(self, state, delta, rows=None, *, scale: float = 1.0):
         if scale != 1.0:
             delta = scale * delta
-        return cs.update(self.spec, state, self._rows(rows, state.device),
-                         delta)
+        return cs.update(self.spec, state,
+                         self._rows(rows, cs.device_of(state)), delta)
 
     def decay(self, state, beta):
         return cs.decay(state, beta)
 
     def read(self, state, rows=None):
-        return cs.query(self.spec, state, self._rows(rows, state.device))
+        return cs.query(self.spec, state,
+                        self._rows(rows, cs.device_of(state)))
+
+    def _sr_seed(self, step):
+        """The step's stochastic-rounding seed for bf16/int8 cells; None
+        for float32.  A None ``step`` keeps the step-0 seed."""
+        if not self.spec.lowp:
+            return None
+        return qz.step_seed(self.spec.seed, step)
 
     def update_read(self, state, delta, beta: float = 1.0, *,
                     scale: Optional[float] = None, rows=None, mask=None,
-                    read_state=None, strict: bool = False):
+                    read_state=None, strict: bool = False, step=None):
         """The paper's linear-estimate EMA step:
 
             est_old = query(read_state or state, rows)
@@ -218,20 +246,22 @@ class _SketchStoreBase(AuxStore):
         ``repro_torch.kernels.update_read``.  ``rows=None`` is the whole
         table, ``arange(n)``.  ``read_state`` lets the transforms' chunked
         loop read the pre-step sketch while adding into ``state``; it must
-        not be ``state`` itself, which the update changes in place."""
+        not be ``state`` itself, which the update changes in place.
+        ``step`` keys the rounding of bf16/int8 cells (both forms)."""
         if scale is None:
             scale = 1.0 - beta
+        sr = self._sr_seed(step)
         if self.backend is not None and read_state is None and not strict:
             return kernels.update_read(self.spec, state, rows, delta,
                                        beta=beta, scale=scale, mask=mask,
-                                       backend=self.backend)
-        ids = self._rows(rows, state.device)
+                                       backend=self.backend, sr_seed=sr)
+        ids = self._rows(rows, delta.device)
         src = state if read_state is None else read_state
         est_old = cs.query(self.spec, src, ids)
         d = cs.ema_delta(est_old, delta, beta, scale)
         if mask is not None:
             d = d * mask
-        state = cs.update(self.spec, state, ids, d)
+        state = cs.update(self.spec, state, ids, d, sr_seed=sr)
         if strict:
             return state, cs.query(self.spec, state, ids)
         return state, est_old + d

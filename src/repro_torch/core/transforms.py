@@ -16,8 +16,9 @@ one fused ``update_read`` per moment (on a card, B3); an unpinned one
 runs the composed form over row chunks of ``dense_chunk``.
 
 The step counter is an int32 tensor on the host: it drives the
-host-side schedule (learning rate, bias corrections, cleaning) without
-waiting for the device.  Moment states live on their parameter's device
+host-side schedule (learning rate, bias corrections, cleaning, the
+rounding seed of bf16/int8 sketch cells) without waiting for the
+device.  Moment states live on their parameter's device
 and are updated in place.
 """
 from __future__ import annotations
@@ -27,7 +28,9 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 import torch
 
 from repro_torch import kernels
+from repro_torch.core import sketch as cs
 from repro_torch.core.partition import leaf_paths
+from repro_torch.core.quantize import QuantState
 from repro_torch.core.stores import DenseStore, StoreTree
 from repro_torch.kernels.ops import bias_correction
 from repro_torch.kernels.ref import true_div
@@ -53,7 +56,8 @@ def tree_map_with_path(fn, tree, *rest, prefix: str = ""):
     nested dict/list/tuple; the ``rest`` trees are indexed at the same
     keys (a None there is passed as the leaf).  Dict keys are visited
     sorted, as ``jax.tree_util`` visits them; None in ``tree`` is an
-    empty subtree and stays None."""
+    empty subtree and stays None, and a ``QuantState`` (one int8 sketch
+    state) is a leaf."""
     if tree is None:
         return None
     if isinstance(tree, dict):
@@ -61,7 +65,7 @@ def tree_map_with_path(fn, tree, *rest, prefix: str = ""):
                     fn, tree[k], *[None if r is None else r[k] for r in rest],
                     prefix=f"{prefix}/{k}" if prefix else str(k))
                 for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, QuantState):
         return type(tree)(tree_map_with_path(
             fn, v, *[None if r is None else r[i] for r in rest],
             prefix=f"{prefix}/{i}" if prefix else str(i))
@@ -227,22 +231,23 @@ def scale_by_momentum(gamma: float = 0.9, *,
             mask = act if lazy else None
             if _fused(ms) and not strict_paper:
                 M_out, m_est = ms.update_read(M, g, gamma, scale=1.0,
-                                              mask=mask)
+                                              mask=mask, step=step)
                 return M_out, act * m_est
             if dense_chunk and not strict_paper:
                 # estimates read the pre-step sketch while the chunks add
                 # into M in place: read them off a snapshot
-                pre = M.clone()
+                pre = cs.clone(M)
 
                 def chunk_step(carry, ids, gc):
                     a = _row_active(gc) if lazy else 1.0
                     carry, m_est = ms.update_read(
                         carry, gc, gamma, scale=1.0, rows=ids,
-                        mask=a if lazy else None, read_state=pre)
+                        mask=a if lazy else None, read_state=pre,
+                        step=step)
                     return carry, a * m_est
                 return _sketched_rows_scan(g, M, chunk_step, dense_chunk)
             M_out, m_est = ms.update_read(M, g, gamma, scale=1.0, mask=mask,
-                                          strict=strict_paper)
+                                          strict=strict_paper, step=step)
             return M_out, act * m_est
 
         m, updates = _unzip(grads, tree_map_with_path(leaf, grads,
@@ -290,21 +295,22 @@ def scale_by_adagrad(eps: float = 1e-10, *,
                 return v_new, g / (torch.sqrt(v_new) + eps)
             V_in = vs.clean(V, step)
             if _fused(vs) and not strict_paper:
-                V_out, v_est = vs.update_read(V_in, g * g, 1.0, scale=1.0)
+                V_out, v_est = vs.update_read(V_in, g * g, 1.0, scale=1.0,
+                                              step=step)
                 return V_out, g / (torch.sqrt(torch.clamp_min(v_est, 0.0))
                                    + eps)
             if dense_chunk and not strict_paper:
-                pre = V_in.clone()
+                pre = cs.clone(V_in)
 
                 def chunk_step(carry, ids, gc):
                     carry, v_est = vs.update_read(carry, gc * gc, 1.0,
                                                   scale=1.0, rows=ids,
-                                                  read_state=pre)
+                                                  read_state=pre, step=step)
                     v_new = torch.clamp_min(v_est, 0.0)
                     return carry, gc / (torch.sqrt(v_new) + eps)
                 return _sketched_rows_scan(g, V_in, chunk_step, dense_chunk)
             V_out, v_est = vs.update_read(V_in, g * g, 1.0, scale=1.0,
-                                          strict=strict_paper)
+                                          strict=strict_paper, step=step)
             return V_out, g / (torch.sqrt(torch.clamp_min(v_est, 0.0)) + eps)
 
         v, updates = _unzip(grads, tree_map_with_path(leaf, grads,
@@ -406,8 +412,8 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
                 # composed form over row chunks; every estimate reads the
                 # pre-step sketches, snapshotted because the chunks add
                 # into M and V in place
-                M_pre = M.clone() if sketched_m else None
-                V_pre = V_in.clone()
+                M_pre = cs.clone(M) if sketched_m else None
+                V_pre = cs.clone(V_in)
 
                 def chunk_step(carry, ids, gc, *mh_c):
                     a = _row_active(gc) if lazy else 1.0
@@ -415,7 +421,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
                     if sketched_m:
                         carry["M"], m_est = ms.update_read(
                             carry["M"], gc, b1, rows=ids, mask=mk,
-                            read_state=M_pre)
+                            read_state=M_pre, step=step)
                         mh = true_div(m_est, bc1)
                     elif ms is not None:
                         mh = mh_c[0]
@@ -423,7 +429,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
                         mh = gc
                     carry["V"], v_est = vs.update_read(
                         carry["V"], gc * gc, b2, rows=ids, mask=mk,
-                        read_state=V_pre)
+                        read_state=V_pre, step=step)
                     vh = true_div(torch.clamp_min(v_est, 0.0), bc2)
                     return carry, a * mh / (torch.sqrt(vh) + eps)
 
@@ -438,14 +444,14 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
             mask = act if lazy else None
             if sketched_m:
                 M_out, m_est = ms.update_read(M, g, b1, mask=mask,
-                                              strict=strict_paper)
+                                              strict=strict_paper, step=step)
                 mhat = true_div(m_est, bc1)
             elif ms is not None:
                 mhat = mhat_rows
             else:
                 mhat = g
             V_out, v_est = vs.update_read(V_in, g * g, b2, mask=mask,
-                                          strict=strict_paper)
+                                          strict=strict_paper, step=step)
             vh = true_div(torch.clamp_min(v_est, 0.0), bc2)
             return M_out, V_out, act * mhat / (torch.sqrt(vh) + eps)
 

@@ -29,6 +29,10 @@
           ``auto`` choice for CPU tensors
   tiled   B3 on CUDA tensors, whole-batch semantics; plain on the CPU;
           the ``auto`` choice for CUDA tensors
+
+Low-precision cells: bf16 and int8 sparse rows run ``xla`` under every
+backend; on the dense path ``ref`` and ``xla`` share one form, ``tiled``
+runs B3's bf16 kernel for bf16 cells and ``xla`` for int8 cells.
 """
 from __future__ import annotations
 
@@ -56,23 +60,26 @@ def adam_rows(spec_m, spec_v, M, V, ids, g, step, *,
               lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
               backend: Optional[str] = None):
     """Sparse-rows CS-Adam through the named backend (None/'auto' = best
-    for ``V``'s device).  Returns ``(M', V', row_updates)``, the sketches
+    for ``g``'s device).  Returns ``(M', V', row_updates)``, the sketches
     updated in place; ``table.index_add_(0, ids, row_updates)`` applies
     the step under every backend."""
-    fn = registry.lookup("pair", "adam_rows", backend, V.device)
+    fn = registry.lookup("pair", "adam_rows", backend, g.device)
     return fn(spec_m, spec_v, M, V, ids, g, step, lr=lr, b1=b1, b2=b2,
               eps=eps)
 
 
 def update_read(spec, S, ids, delta, *, beta: float, scale: float,
-                mask=None, backend: Optional[str] = None):
+                mask=None, backend: Optional[str] = None, sr_seed=None):
     """One fused EMA step on one sketch: ``(S', est)`` with row content
     moved to ``beta*content + scale*delta`` at ``ids`` (None: every row)
     and ``est`` the post-step estimate, S updated in place.  Dispatches on
-    the store kind ('sketch' for signed specs, 'countmin' otherwise)."""
+    the store kind ('sketch' for signed specs, 'countmin' otherwise) and
+    the device of ``delta``.  ``sr_seed``: the stochastic-rounding seed of
+    bf16 and int8 cells (``quantize.step_seed``; None: the step-0 seed)."""
     kind = "sketch" if spec.signed else "countmin"
-    fn = registry.lookup(kind, "update_read", backend, S.device)
-    return fn(spec, S, ids, delta, beta=beta, scale=scale, mask=mask)
+    fn = registry.lookup(kind, "update_read", backend, delta.device)
+    return fn(spec, S, ids, delta, beta=beta, scale=scale, mask=mask,
+              sr_seed=sr_seed)
 
 
 register_backend("ref", ops.adam_rows_ref)

@@ -51,6 +51,9 @@ SIGNATURES = {
     # S, b, s, x, mask, order, starts, est, scratch,
     # depth, width, d, k, form, unit_scale, scale, beta-1, stream
     "cs_ema_tiled_launch": [P] * 9 + [I] * 6 + [F] * 2 + [P],
+    # as cs_ema_tiled_launch with S bf16, then the uint32 rounding seed
+    "cs_ema_tiled_bf16_launch": [P] * 9 + [I] * 6 + [F] * 2
+    + [ctypes.c_uint32, P],
     # S, b, s, out, depth, width, d, k, stream
     "cs_query_launch": [P] * 4 + [I] * 4 + [P],
     # S, order, starts, s, delta, depth, width, d, k, stream
@@ -142,9 +145,11 @@ def check_launch(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
-def check_cuda_inputs(name: str, device: torch.device, **tensors) -> None:
+def check_cuda_inputs(name: str, device: torch.device,
+                      cells: torch.dtype = torch.float32, **tensors) -> None:
     """Every given tensor (None skipped) lies on ``device`` and is
-    contiguous; float ones are float32 and integer ones int32."""
+    contiguous; the sketch ``S`` holds ``cells``, other float tensors are
+    float32 and integer ones int32."""
     for key, t in tensors.items():
         if t is None:
             continue
@@ -153,7 +158,8 @@ def check_cuda_inputs(name: str, device: torch.device, **tensors) -> None:
                              f"{device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-        want = torch.float32 if t.is_floating_point() else torch.int32
+        want = (cells if key == "S" else torch.float32) \
+            if t.is_floating_point() else torch.int32
         if t.dtype != want:
             raise ValueError(f"{name}: {key} has dtype {t.dtype}, expected "
                              f"{want}")

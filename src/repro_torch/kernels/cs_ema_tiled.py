@@ -19,7 +19,18 @@ writes ``est`` and ``d`` (a (k, d) scratch), and a scatter launch adds
 sorted by bucket (``cs_update.bucket_csr``), in item order, starting from
 the old cell.  That scatter is deterministic, uses no atomics and adds in
 the CPU ``index_add_``'s order.  No padding: the mask carries which rows
-take part.  Only f32 cells are ported; bf16 waits for ROADMAP A7.
+take part.
+
+bf16 cells (the TPU kernel's bf16 branch) run the same two launches on a
+``__nv_bfloat16`` sketch: the read launch widens the gathered cells to
+f32, and the scatter launch visits EVERY cell, sums its bucket's
+increments from zero in item order, adds the sum to the widened cell and
+writes ``sr_bfloat16(cell + inc, cell_bits(seed, lin))`` with ``lin =
+(j·width + bucket)·dim + col``, the reference's
+``_ema_update_read_lowp`` form (``repro/kernels/ops.py:259``), which
+re-rounds the whole sketch.  The seed is ``quantize.step_seed`` of the
+step, a uint32 launch argument.  Its launches are counted apart, on
+``cs_ema_tiled_bf16``.
 
 The ``ema_delta`` form is chosen on the host with the comparisons of
 ``core.sketch.ema_delta``, and ``scale`` and ``beta - 1`` are formed in
@@ -36,6 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import quantize as qz
 from repro_torch.core.sketch import ema_delta
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.cs_update import bucket_csr, scatter_shapes
@@ -53,53 +65,93 @@ def ema_form(beta: float, scale: float) -> Tuple[int, bool]:
     return MOMENTUM, scale == 1.0
 
 
+def _bf16(S: torch.Tensor, sr_seed) -> bool:
+    if S.dtype != torch.bfloat16:
+        return False
+    if sr_seed is None:
+        raise ValueError("bf16 cs_ema_tiled needs an sr_seed "
+                         "(quantize.step_seed)")
+    return True
+
+
 def cs_ema_tiled_plain(S: torch.Tensor, b: torch.Tensor,
                        s: Optional[torch.Tensor], x: torch.Tensor,
                        mask: Optional[torch.Tensor], *, beta: float,
-                       scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of B3 on any device; updates S in place."""
+                       scale: float, sr_seed: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B3 on any device; updates S in place.  A bf16
+    ``S`` takes the reference's low-precision form: increments summed
+    from zero in f32, added to the widened sketch, every cell re-rounded
+    with ``sr_seed``."""
     est_old = ref.cs_query_ref(S, b, s)
     d = ema_delta(est_old, x, beta, scale)
     if mask is not None:
         d = d * mask
-    ref.cs_update_ref(S, b, s, d)
+    if not _bf16(S, sr_seed):
+        ref.cs_update_ref(S, b, s, d)
+        return S, est_old + d
+    inc = ref.cs_update_ref(torch.zeros(S.shape, dtype=torch.float32,
+                                        device=S.device), b, s, d)
+    bits = qz.cell_bits(sr_seed, qz._lin_index(tuple(S.shape),
+                                               device=S.device))
+    S.copy_(qz.sr_bfloat16(S.to(torch.float32) + inc, bits))
     return S, est_old + d
 
 
 def cs_ema_tiled(S: torch.Tensor, b: torch.Tensor, s: Optional[torch.Tensor],
                  x: torch.Tensor, mask: Optional[torch.Tensor], *,
-                 beta: float, scale: float, csr=None
+                 beta: float, scale: float, csr=None,
+                 sr_seed: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused EMA ``update_read`` over ``k`` rows of one sketch.
 
-    S (depth, w, dim) f32, updated IN PLACE; b (depth, k) int32 buckets in
-    range; s (depth, k) f32 signs or None (Count-Min); x (k, dim) f32;
-    mask (k, 1) f32 or None.  ``csr`` is ``bucket_csr(b, w)`` when the
-    caller has it (the dense path caches it).  Returns ``(S, est)``."""
+    S (depth, w, dim) f32 or bf16, updated IN PLACE; b (depth, k) int32
+    buckets in range; s (depth, k) f32 signs or None (Count-Min); x (k,
+    dim) f32; mask (k, 1) f32 or None; ``sr_seed`` the uint32 rounding
+    seed, needed for bf16 cells.  ``csr`` is ``bucket_csr(b, w)`` when
+    the caller has it (the dense path caches it).  Returns ``(S, est)``."""
+    bf16 = _bf16(S, sr_seed)
     if S.device.type == "cpu":
-        return cs_ema_tiled_plain(S, b, s, x, mask, beta=beta, scale=scale)
+        return cs_ema_tiled_plain(S, b, s, x, mask, beta=beta, scale=scale,
+                                  sr_seed=sr_seed)
     dev = S.device
     if dev.type != "cuda":
         raise ValueError(f"cs_ema_tiled: no kernel for device {dev}")
     depth, width, d, k = scatter_shapes("cs_ema_tiled", S, b, s, x)
     m = None if mask is None else mask.reshape(k)
     order, starts = csr if csr is not None else bucket_csr(b, width)
-    build.check_cuda_inputs("cs_ema_tiled", dev, S=S, b=b, s=s, x=x, mask=m,
-                            order=order, starts=starts)
+    build.check_cuda_inputs("cs_ema_tiled", dev,
+                            cells=torch.bfloat16 if bf16 else torch.float32,
+                            S=S, b=b, s=s, x=x, mask=m, order=order,
+                            starts=starts)
     form, unit = ema_form(beta, scale)
     est = torch.empty((k, d), dtype=torch.float32, device=dev)
     scratch = torch.empty_like(est)
     lib = build.library()
-    with torch.cuda.device(dev):
-        rc = lib.cs_ema_tiled_launch(
-            build.ptr(S), build.ptr(b), build.ptr(s), build.ptr(x),
+    args = (build.ptr(S), build.ptr(b), build.ptr(s), build.ptr(x),
             build.ptr(m), build.ptr(order), build.ptr(starts),
             build.ptr(est), build.ptr(scratch), depth, width, d, k, form,
             int(unit), float(np.float32(scale)),
-            float(np.float32(beta - 1.0)), build.stream_handle(dev))
-    build.check_launch(rc, "cs_ema_tiled")
-    cs_ema_tiled.launches += 1
+            float(np.float32(beta - 1.0)))
+    with torch.cuda.device(dev):
+        if bf16:
+            rc = lib.cs_ema_tiled_bf16_launch(*args, int(sr_seed) & 0xFFFFFFFF,
+                                              build.stream_handle(dev))
+        else:
+            rc = lib.cs_ema_tiled_launch(*args, build.stream_handle(dev))
+    counter = cs_ema_tiled_bf16 if bf16 else cs_ema_tiled
+    build.check_launch(rc, counter.__name__)
+    counter.launches += 1
     return S, est
 
 
+def cs_ema_tiled_bf16(S: torch.Tensor, *args, **kwargs):
+    """``cs_ema_tiled`` on a bf16 sketch; its ``launches`` count B3's bf16
+    launches, apart from the f32 ones."""
+    if S.dtype != torch.bfloat16:
+        raise ValueError(f"cs_ema_tiled_bf16: S is {S.dtype}, not bfloat16")
+    return cs_ema_tiled(S, *args, **kwargs)
+
+
 cs_ema_tiled.launches = 0
+cs_ema_tiled_bf16.launches = 0

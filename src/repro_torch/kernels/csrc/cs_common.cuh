@@ -1,5 +1,6 @@
 // Shared device helpers of the sketch kernels: the depth-way estimators,
-// the gathered estimate of one cell and the bucket-ordered scatter.
+// the gathered estimate of one cell, the bucket-ordered scatter, and the
+// stochastic rounding of bf16 cells (repro_torch/core/quantize.py).
 //
 // Built with --fmad=false, so each add and multiply rounds on its own, in
 // the order written, exactly as the plain PyTorch versions
@@ -7,6 +8,7 @@
 // repro_torch/kernels/ref.py) round them.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,17 +51,28 @@ __device__ __forceinline__ size_t cell(int j, int b, int c, int width, int d) {
   return ((size_t)j * width + (size_t)b) * d + c;
 }
 
-// Estimate of item r at column c from a (depth, width, d) sketch: the
-// depth cells at buckets b[j*k + r], times the signs s[j*k + r] and then
-// the median when s is given, else the min (ref.cs_query_ref).
-__device__ __forceinline__ float estimate(const float* __restrict__ S,
+// A sketch cell read as f32: f32 cells as they are, bf16 cells widened.
+__device__ __forceinline__ float load_cell(const float* S, size_t at) {
+  return S[at];
+}
+__device__ __forceinline__ float load_cell(const __nv_bfloat16* S,
+                                           size_t at) {
+  return __bfloat162float(S[at]);
+}
+
+// Estimate of item r at column c from a (depth, width, d) sketch of f32
+// or bf16 cells: the depth cells at buckets b[j*k + r], read in f32,
+// times the signs s[j*k + r] and then the median when s is given, else
+// the min (ref.cs_query_ref).
+template <typename T>
+__device__ __forceinline__ float estimate(const T* __restrict__ S,
                                           const int* __restrict__ b,
                                           const float* __restrict__ s,
                                           int r, int c, int depth, int width,
                                           int d, int k) {
   float v[kMaxDepth];
   for (int j = 0; j < depth; ++j) {
-    const float x = S[cell(j, b[j * k + r], c, width, d)];
+    const float x = load_cell(S, cell(j, b[j * k + r], c, width, d));
     v[j] = s != nullptr ? x * s[j * k + r] : x;
   }
   return s != nullptr ? median(v, depth) : min_of(v, depth);
@@ -92,6 +105,31 @@ __device__ __forceinline__ void bucket_scatter(
     }
     S[at] = acc;
   }
+}
+
+// splitmix32 finalizer (core/hashing.py::_mix), wrapping uint32.
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// Rounding bits of the cell with linear index lin under a step's seed
+// (core/quantize.py::cell_bits): splitmix32 in counter mode.
+__device__ __forceinline__ uint32_t cell_bits(uint32_t seed, uint32_t lin) {
+  return mix32(mix32(lin ^ seed) + 0x9E3779B9u);
+}
+
+// Stochastic rounding of an f32 value to bf16 (core/quantize.py::
+// sr_bfloat16): add the 16 low random bits to the bit pattern, wrapping,
+// and keep the top 16.
+__device__ __forceinline__ __nv_bfloat16 sr_bfloat16(float v,
+                                                     uint32_t bits) {
+  const uint32_t u = __float_as_uint(v) + (bits & 0xFFFFu);
+  return __ushort_as_bfloat16(static_cast<unsigned short>(u >> 16));
 }
 
 constexpr int kThreads = 128;

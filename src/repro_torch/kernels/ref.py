@@ -30,13 +30,15 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
 
 def cs_query_ref(S: torch.Tensor, buckets: torch.Tensor,
                  signs: Optional[torch.Tensor]) -> torch.Tensor:
-    """Batch QUERY.  S (v,w,d); buckets (v,k); signs (v,k) or None for
-    the Count-Min min-estimator.  Returns (k, d)."""
+    """Batch QUERY.  S (v,w,d) f32 or bf16 cells, read in f32; buckets
+    (v,k); signs (v,k) or None for the Count-Min min-estimator.  Returns
+    (k, d) f32."""
     b = buckets.long()
-    rows = [S[j].index_select(0, b[j]) for j in range(S.shape[0])]
+    rows = [S[j].index_select(0, b[j]).to(torch.float32)
+            for j in range(S.shape[0])]
     if signs is None:
         return min_rows(rows)
-    return median_rows([r * signs[j][:, None].to(S.dtype)
+    return median_rows([r * signs[j][:, None].to(torch.float32)
                         for j, r in enumerate(rows)])
 
 

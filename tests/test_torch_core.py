@@ -83,8 +83,18 @@ def test_for_param_widths_match(shape, kw):
 
 
 def test_low_precision_cells_raise():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tcs.SketchSpec(depth=3, width=16, dim=4, dtype="bfloat16")
+    """Unsupported cell dtypes raise ValueError, as the reference's
+    ``cell_dtype_name`` does; bf16 and int8 cells build specs."""
+    for dtype in ("float16", "float64"):
+        with pytest.raises(ValueError, match="unsupported sketch cell dtype"):
+            tcs.SketchSpec(depth=3, width=16, dim=4, dtype=dtype)
+        with pytest.raises(ValueError):
+            jcs.SketchSpec(depth=3, width=16, dim=4, dtype=jnp.dtype(dtype))
+    for dtype in ("bfloat16", "int8"):
+        t = tcs.SketchSpec(depth=3, width=16, dim=4, dtype=dtype)
+        j = jcs.SketchSpec(depth=3, width=16, dim=4, dtype=jnp.dtype(dtype))
+        assert t.cell_dtype_name == j.cell_dtype_name == dtype
+        assert t.nbytes() == j.nbytes()
 
 
 @pytest.mark.parametrize("signed", [True, False])

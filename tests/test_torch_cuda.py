@@ -233,3 +233,120 @@ def test_dense_path_launches_ema_kernel(cuda_device):
     torch.cuda.synchronize()
     assert cs_ema_tiled.launches == before + 2
     assert torch.isfinite(updates["tok_embed"]["table"]).all()
+
+
+# ------------------------------------------------------------ B3, bf16 cells
+def _bf16_within(got: torch.Tensor, want: torch.Tensor, atol: float) -> bool:
+    """Every bf16 cell within one bf16 ulp of ``want`` plus ``atol``."""
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w),
+                      torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8)
+    return bool(((g - w).abs() <= ulp + atol).all())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("signed", [True, False])
+def test_ema_tiled_bf16_against_plain(cuda_device, signed, form, masked):
+    """B3's bf16 branch: bit-equal to its plain version on a CPU copy, in
+    the bf16 cells and ``est``, with and without bucket collisions (the
+    scatter sums each cell's increments in item order, as the CPU
+    index_add_ does).  Against the plain version on the card, whose
+    index_add_ sums in atomic order, ``est`` is bit-equal and, under
+    collisions, a cell may round apart: its f32 increment is summed in another order, which
+    moves it by up to the f32 collision envelope (atol 2e-5, as for f32
+    cells), and the rounding of the sum may then go the other way (one
+    bf16 ulp).  Measured: 3 ulps at one cell where the increments cancel
+    to near the cell's value."""
+    from repro_torch.core import quantize as qz
+    beta, scale = FORMS[form]
+    seed = qz.step_seed(17, 3)
+    for identity, width in ((True, 1024), (False, 16)):
+        S, b, s, x, mask = _ema_case(cuda_device, signed, 3, width, 512, 96,
+                                     len(form), identity)
+        S = S.to(torch.bfloat16)
+        m = mask if masked else None
+        kw = dict(beta=beta, scale=scale, sr_seed=seed)
+        got = cs_ema_tiled(S.clone(), b, s, x, m, **kw)
+        want = cs_ema_tiled_plain(S.clone(), b, s, x, m, **kw)
+        torch.cuda.synchronize()
+        host = cs_ema_tiled_plain(*_cpu([S, b, s, x, m]), **kw)
+        assert got[0].dtype == torch.bfloat16
+        assert torch.equal(host[0].view(torch.int16),
+                           got[0].cpu().view(torch.int16))
+        assert torch.equal(host[1], got[1].cpu())
+        assert torch.equal(want[1], got[1])
+        if identity:
+            assert torch.equal(want[0].view(torch.int16),
+                               got[0].view(torch.int16))
+        else:
+            assert _bf16_within(got[0], want[0], atol=2e-5)
+
+
+def test_ema_tiled_bf16_needs_a_seed_and_counts_apart(cuda_device):
+    from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled_bf16
+    S, b, s, x, mask = _ema_case(cuda_device, True, 3, 16, 8, 32, 0)
+    S = S.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="sr_seed"):
+        cs_ema_tiled(S, b, s, x, mask, beta=0.9, scale=0.1)
+    f32, bf16 = cs_ema_tiled.launches, cs_ema_tiled_bf16.launches
+    cs_ema_tiled(S, b, s, x, mask, beta=0.9, scale=0.1, sr_seed=1)
+    assert (cs_ema_tiled.launches, cs_ema_tiled_bf16.launches) == \
+        (f32, bf16 + 1)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_dense_path_low_precision_cells(cuda_device, dtype):
+    """bf16 sketches run B3's bf16 kernel twice a step; int8 sketches run
+    the plain xla form and launch no B3."""
+    from repro_torch.core.optimizers import SketchHParams, countsketch_adam
+    from repro_torch.core.partition import SketchPolicy
+    from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled_bf16
+    opt = countsketch_adam(1e-3, policy=SketchPolicy(),
+                           hparams=SketchHParams(backend="auto", dtype=dtype))
+    params = {"tok_embed": {"table": torch.randn(4096, 128,
+                                                 device=cuda_device)}}
+    state = opt.init(params)
+    before = (cs_ema_tiled.launches, cs_ema_tiled_bf16.launches)
+    for _ in range(2):
+        grads = {"tok_embed": {"table": torch.randn(4096, 128,
+                                                    device=cuda_device)}}
+        updates, state = opt.update(grads, state)
+    torch.cuda.synchronize()
+    after = (cs_ema_tiled.launches, cs_ema_tiled_bf16.launches)
+    want = (0, 4) if dtype == "bfloat16" else (0, 0)
+    assert (after[0] - before[0], after[1] - before[1]) == want
+    assert torch.isfinite(updates["tok_embed"]["table"]).all()
+
+
+def test_async_cleaner_equals_sync_on_the_card(cuda_device):
+    """The decay on a side stream, waited on by the main stream, gives the
+    sync schedule's sketches to the bit."""
+    from repro_torch.core.cleaning import AsyncCleaner, CleaningSchedule
+    from repro_torch.core.optimizers import adam_from_stores, apply_updates
+    from repro_torch.core.stores import (CountMinStore, CountSketchStore,
+                                         StoreTree)
+
+    def run(mode):
+        sched = CleaningSchedule(alpha=0.5, every=3, mode=mode)
+        tree = StoreTree(rules=(("w", CountSketchStore(backend="auto"),
+                                 CountMinStore(backend="auto",
+                                               cleaning=sched)),))
+        opt = adam_from_stores(1e-2, tree)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        p = {"w": torch.randn((4096, 64), generator=gen, device=cuda_device)}
+        st = opt.init(p)
+        cleaner = AsyncCleaner(sched) if mode == "async" else None
+        for step in range(1, 8):
+            if cleaner is not None:
+                st, _ = cleaner.maybe_dispatch(st, step)
+            g = torch.randn((4096, 64), generator=gen, device=cuda_device)
+            u, st = opt.update({"w": g}, st)
+            apply_updates(p, u)
+        torch.cuda.synchronize()
+        if cleaner is not None:
+            assert cleaner.dispatched == 2 and not cleaner.in_flight()
+        return p["w"], st["v"]["w"]
+
+    (pw, pv), (qw, qv) = run("sync"), run("async")
+    assert torch.equal(pw, qw) and torch.equal(pv, qv)

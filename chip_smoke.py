@@ -13,7 +13,13 @@ own line; any failure raises and the exit code is not 0:
   2. each kernel against its plain PyTorch version on the card:
      B1 ``cs_adam_tiled`` bit-equal on a collision-free batch and within
      atol 2e-5 under heavy collisions, B2 ``cs_adam_fused`` bit-equal to
-     ``ref.adam_fused_ref``, each with and without a first moment;
+     ``ref.adam_fused_ref``, each with and without a first moment, and B2
+     again where a bucket recurs 1, L-1, L and L+1 items back (L its
+     window) and with k below one tile; the bucket CSR kernel
+     (``cs_update.bucket_csr``/``bucket_prev``) integer-equal to its plain
+     form (stable ``torch.sort``), prev included; B5 bit-equal to a CPU
+     copy on one run of all items, with d not a multiple of 4, and on
+     runs long enough for its long-run blocks;
      B3 ``cs_ema_tiled`` (signed and unsigned, the three ``ema_delta``
      forms, with and without a mask) and B5 ``cs_update`` bit-equal on a
      collision-free batch, within atol 2e-5 under heavy collisions and
@@ -40,7 +46,10 @@ own line; any failure raises and the exit code is not 0:
      sketch ops ``ops.sketch_update``/``sketch_query`` (B5, B4) on one
      main-path batch;
   5. each kernel's time, its plain version's time and its byte bound at
-     the shapes its path gives it;
+     the shapes its path gives it: B5 as users call it (its CSR built in
+     the call) beside the CSR alone, the scatter alone, one ``index_add_``
+     and the plain version; B2 with its prev pass; the CSR kernel beside
+     one stable ``torch.sort``;
   6. the dense path at full width: the softmax layer of qwen2-0.5b
      (``tok_embed/table`` 151,936 x 896 and ``final_norm/scale``),
      cross-entropy of ``rmsnorm(h)*scale @ table^T`` on 1,024 zipf(1.1)
@@ -161,11 +170,11 @@ def kernel_counts():
     from repro_torch.kernels.cs_ema_tiled import (cs_ema_tiled,
                                                   cs_ema_tiled_bf16)
     from repro_torch.kernels.cs_query import cs_query
-    from repro_torch.kernels.cs_update import cs_update
+    from repro_torch.kernels.cs_update import bucket_csr, cs_update
     return {"cs_adam_tiled": cs_adam_tiled, "cs_adam_fused": cs_adam_fused,
             "cs_ema_tiled": cs_ema_tiled,
             "cs_ema_tiled_bf16": cs_ema_tiled_bf16, "cs_query": cs_query,
-            "cs_update": cs_update}
+            "cs_update": cs_update, "bucket_csr": bucket_csr}
 
 
 def reset_counts() -> None:
@@ -252,6 +261,96 @@ def phase_kernels(dev, seed: int) -> None:
             f"max_abs_err (M, V, upd) {errs(want, got)}")
         if not bit:
             raise AssertionError("B2 is not bit-equal to adam_fused_ref")
+
+
+def hazard_buckets(k: int, dists, dev):
+    """Row r puts item i in bucket i % dists[r]: each item's last earlier
+    item in its bucket is exactly dists[r] places back."""
+    import torch
+    i = torch.arange(k, device=dev)
+    return torch.stack([i % dd for dd in dists]).to(torch.int32).contiguous()
+
+
+def phase_csr_and_hazards(dev, seed: int) -> None:
+    """The CSR kernel integer-equal to the plain ``bucket_csr`` (order,
+    starts and prev); B5 on one run of all k items (width 1) and with d
+    not a multiple of 4, bit-equal to a CPU copy; B2 bit-equal to its
+    plain version where a bucket recurs 1, L-1, L and L+1 items back (L
+    its window), and with k below one tile."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.kernels import cs_adam, ops, ref
+    from repro_torch.kernels.cs_adam import cs_adam_fused
+    from repro_torch.kernels.cs_update import (bucket_csr, bucket_csr_plain,
+                                               bucket_prev, cs_update)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    spec = SketchHParams().spec("sparse_embedding", (VOCAB, D_MODEL),
+                                signed=True)
+    ids = torch.from_numpy(zipf_ids(np.random.RandomState(seed), 1)[0]
+                           ).to(dev)
+    cases = {
+        "zipf ids at full width": (spec.family.bucket(ids), spec.width),
+        "dense rows (151,936)": (ops._cached_addressing(spec, VOCAB, dev)[0],
+                                 spec.width),
+        "width 1": (torch.zeros((3, 4_000), dtype=torch.int32, device=dev),
+                    1),
+        "one bucket": (torch.full((3, 4_000), 5, dtype=torch.int32,
+                                  device=dev), 64),
+        "last buckets": (torch.randint(spec.width - 2, spec.width, (3, 4_000),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32), spec.width),
+        "k=0": (torch.zeros((3, 0), dtype=torch.int32, device=dev),
+                spec.width),
+    }
+    for tag, (b, width) in cases.items():
+        got = (*bucket_csr(b, width), bucket_prev(b, width))
+        want = bucket_csr_plain(b, width)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(want, got)):
+            raise AssertionError(f"bucket_csr kernel differs from the plain "
+                                 f"form, {tag}")
+    for width, d in ((1, D_MODEL), (spec.width, 893), (2, 893)):
+        S = torch.randn((3, width, d), generator=gen, device=dev)
+        b = spec.family.bucket(ids[:4_000]) % width
+        s = spec.family.sign(ids[:4_000])
+        x = torch.randn((4_000, d), generator=gen, device=dev)
+        got = cs_update(S.clone(), b, s, x)
+        if not torch.equal(ref.cs_update_ref(*on_cpu([S, b, s, x])),
+                           got.cpu()):
+            raise AssertionError(f"B5 width={width} d={d} is not bit-equal "
+                                 f"to its plain version on a CPU copy")
+    kw = dict(lr=1e-2, b2=0.999, eps=1e-8, bc1=0.19, bc2=0.002)
+    window = cs_adam.WINDOW
+    dists = [1, window - 1, window, window + 1]
+    for k in (5, 300):
+        for track_m in (True, False):
+            depth = len(dists)
+            M = torch.randn((depth, 64, D_MODEL), generator=gen,
+                            device=dev) if track_m else None
+            V = torch.randn((depth, 64, D_MODEL), generator=gen,
+                            device=dev).abs()
+            bm = hazard_buckets(k, dists, dev)
+            sm = torch.randint(0, 2, (depth, k), generator=gen,
+                               device=dev).float() * 2 - 1
+            bv = hazard_buckets(k, dists[::-1], dev)
+            g = torch.randn((k, D_MODEL), generator=gen, device=dev)
+            args = (M, V, bm if track_m else None, sm if track_m else None,
+                    bv, g)
+            b1 = 0.9 if track_m else 0.0
+            want = ref.adam_fused_ref(*clone(args), b1=b1, **kw)
+            got = cs_adam_fused(*clone(args), b1=b1, **kw)
+            torch.cuda.synchronize()
+            if not all(a is None or torch.equal(a, c)
+                       for a, c in zip(want, got)):
+                raise AssertionError(
+                    f"B2 k={k} b1={b1} distances {dists}: not bit-equal, "
+                    f"max_abs_err {errs(want, got)}")
+    log(f"phase 2: bucket_csr kernel integer-equal to the plain form "
+        f"(order, starts, prev) on {len(cases)} cases ({', '.join(cases)}); "
+        f"B5 bit-equal to a CPU copy at width 1 (one run of 4,000 items), "
+        f"at d=893 (scalar path) and at width 2, d=893 (long runs, scalar); "
+        f"B2 bit-equal to adam_fused_ref where a bucket recurs "
+        f"{dists} items back (window {window}), k 5 and 300, b1 0.9 and 0")
 
 
 EMA_FORMS = {"adam": (0.999, 1.0 - 0.999), "adagrad": (1.0, 1.0),
@@ -645,6 +744,9 @@ def phase_serve_and_stream(dev, table, target, seed: int):
         f"{losses}; launches {stream_counts}")
     if stream_counts["cs_adam_fused"] != STREAM_STEPS:
         raise AssertionError("the stream path did not launch B2 every step")
+    if stream_counts["bucket_csr"] != 2 * STREAM_STEPS:
+        raise AssertionError("the stream path did not find prev on the "
+                             "device (two bucket_csr launches a step)")
     if not torch.isfinite(table).all():
         raise AssertionError("non-finite table after phase 4")
     return stream_counts
@@ -696,8 +798,10 @@ def phase_sketch_ops(dev, ids_np, seed: int):
         f"the 5 most frequent ids "
         f"({[int(f) for f in sorted(freq)[-5:][::-1]]} "
         f"times) read back with relative error {rel}")
-    if counts["cs_update"] != 1 or counts["cs_query"] != 1:
-        raise AssertionError("the sketch ops did not launch B5 and B4")
+    if counts["cs_update"] != 1 or counts["cs_query"] != 1 \
+            or counts["bucket_csr"] != 1:
+        raise AssertionError("the sketch ops did not launch B5 (and its "
+                             "CSR) and B4")
     if not max(rel) < 0.5:
         raise AssertionError(f"heavy hitters lost in the sketch: {rel}")
     return spec, S, ids, rows, counts
@@ -713,6 +817,14 @@ def unique_rows(buckets, n_valid: int, width: int) -> int:
     return int((b + width * rows).unique().numel())
 
 
+def longest_chain(buckets) -> int:
+    """The most items of one hash row in one bucket: the longest chain of
+    items that B2 must run in order through one cell."""
+    import torch
+    return int(max(torch.unique(row, return_counts=True)[1].max()
+                   for row in buckets)) if buckets.numel() else 0
+
+
 def phase_times(dev, table, target, state, ids_np, seed: int,
                 sketch_ops) -> list:
     import torch
@@ -721,6 +833,7 @@ def phase_times(dev, table, target, state, ids_np, seed: int,
     from repro_torch.kernels.cs_adam import cs_adam_fused
     from repro_torch.kernels.cs_adam_tiled import (cs_adam_tiled,
                                                    cs_adam_tiled_plain)
+    from repro_torch.kernels.cs_update import bucket_prev
     from repro_torch.train.steps import sparse_embedding_stores
     m_store, v_store = sparse_embedding_stores(VOCAB, D_MODEL,
                                                hparams=SketchHParams())
@@ -762,7 +875,8 @@ def phase_times(dev, table, target, state, ids_np, seed: int,
     log(f"phase 5: B1 k_u={k_u} (of {ids.numel()}): {ms} ms, plain "
         f"{plain_ms} ms, bound {out[-1]['bound_ms']} ms ({nbytes} B at "
         f"3.35 TB/s); vs plain upd bit-equal, max_abs_err {err}")
-    # B2 at the inputs the stream backend gives it: the raw ids, in order
+    # B2 at the inputs the stream backend gives it: the raw ids, in order;
+    # its time includes the two CSR launches that find each item's prev
     bm, sm, bv = ops._adam_addressing(spec_m, spec_v, ids)
     args = (state["m"], state["v"], bm, sm, bv, rows.contiguous())
     got = cs_adam_fused(*clone(args), **kw)
@@ -775,22 +889,28 @@ def phase_times(dev, table, target, state, ids_np, seed: int,
     if err != 0.0:
         raise AssertionError(f"B2 at main-path shapes: max_abs_err {err}")
     scratch = clone(args)
-    ms = cuda_ms(lambda: cs_adam_fused(*scratch, **kw), reps=5)
+    ms = cuda_ms(lambda: cs_adam_fused(*scratch, **kw), reps=10, warmup=2)
+    prev_ms = cuda_ms(lambda: (bucket_prev(bm, spec_m.width),
+                               bucket_prev(bv, spec_v.width)),
+                      reps=20, warmup=3)
     k = int(ids.numel())
     nbytes = (4 * D_MODEL * 2 * k
               + 4 * D_MODEL * 2 * (unique_rows(bm, k, spec_m.width)
                                    + unique_rows(bv, k, spec_v.width))
               + 4 * 3 * depth * k)
+    chain = max(longest_chain(bm), longest_chain(bv))
     out.append(dict(name="cs_adam_fused", route="cuda",
                     source="src/repro_torch/kernels/csrc/cs_adam.cu",
                     replaces="src/repro/kernels/cs_adam.py:110",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     bound_by="bytes", library_ms=None, k=k,
-                    k_unique=int(np.unique(ids_np).size), bytes=nbytes))
-    log(f"phase 5: B2 k={k}: {ms} ms, plain {plain_ms} ms (one run), bound "
-        f"{out[-1]['bound_ms']} ms ({nbytes} B at 3.35 TB/s); vs plain "
-        f"bit-equal")
+                    k_unique=int(np.unique(ids_np).size), bytes=nbytes,
+                    prev_ms=prev_ms, longest_chain=chain))
+    log(f"phase 5: B2 k={k}: {ms} ms with its prev pass ({prev_ms} ms of "
+        f"it), plain {plain_ms} ms (one run), bound {out[-1]['bound_ms']} "
+        f"ms ({nbytes} B at 3.35 TB/s); longest same-bucket chain {chain} "
+        f"items; vs plain bit-equal")
     out.append(time_ema(dev, seed))
     out.append(time_ema_bf16(dev, seed))
     out.extend(time_sketch_ops(dev, sketch_ops))
@@ -911,7 +1031,8 @@ def time_sketch_ops(dev, sketch_ops) -> list:
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.cs_query import cs_query
-    from repro_torch.kernels.cs_update import bucket_csr, cs_update
+    from repro_torch.kernels.cs_update import (bucket_csr, bucket_csr_plain,
+                                               cs_update)
     spec, S, ids, rows, counts = sketch_ops
     depth, width, d = spec.shape
     k = ids.numel()
@@ -931,11 +1052,17 @@ def time_sketch_ops(dev, sketch_ops) -> list:
                     touched_rows=touched, bytes=nbytes))
     log(f"phase 5: B4 k={k} ({touched} sketch rows): {ms} ms, plain "
         f"{plain_ms} ms, bound {out[-1]['bound_ms']} ms ({nbytes} B)")
-    csr = bucket_csr(b, width)
+    # B5 as users call it (the CSR built in the call), then its parts
     work = S.clone()
-    ms = cuda_ms(lambda: cs_update(work, b, s, rows, csr=csr), reps=20,
-                 warmup=3)
-    sort_ms = cuda_ms(lambda: bucket_csr(b, width), reps=20, warmup=3)
+    ms = cuda_ms(lambda: cs_update(work, b, s, rows), reps=20, warmup=3)
+    csr = bucket_csr(b, width)
+    scatter_ms = cuda_ms(lambda: cs_update(work, b, s, rows, csr=csr),
+                         reps=20, warmup=3)
+    csr_ms = cuda_ms(lambda: bucket_csr(b, width), reps=20, warmup=3)
+    csr_plain_ms = cuda_ms(lambda: bucket_csr_plain(b, width), reps=20,
+                           warmup=3)
+    sort_ms = cuda_ms(lambda: torch.sort(b, dim=1, stable=True), reps=20,
+                      warmup=3)
     plain_ms = cuda_ms(lambda: ref.cs_update_ref(work, b, s, rows), reps=10)
     flat = work.view(depth * width, d)
     idx = (b.long() + width * torch.arange(depth, device=dev)[:, None]
@@ -943,7 +1070,7 @@ def time_sketch_ops(dev, sketch_ops) -> list:
     signed_rows = (s[:, :, None] * rows[None]).reshape(depth * k, d)
     library_ms = cuda_ms(lambda: flat.index_add_(0, idx, signed_rows),
                          reps=20, warmup=3)
-    got = cs_update(S.clone(), b, s, rows, csr=csr)
+    got = cs_update(S.clone(), b, s, rows)
     card_err = float((ref.cs_update_ref(S.clone(), b, s, rows) - got).abs()
                      .max())
     err = float((ref.cs_update_ref(*on_cpu([S, b, s, rows])) - got.cpu())
@@ -951,6 +1078,10 @@ def time_sketch_ops(dev, sketch_ops) -> list:
     if err != 0.0:
         raise AssertionError(f"B5 at the sketch ops' shapes: {err} vs a "
                              f"CPU copy")
+    if not all(torch.equal(a, c) for a, c in
+               zip(bucket_csr_plain(b, width)[:2], csr)):
+        raise AssertionError("bucket_csr at the sketch ops' shapes differs "
+                             "from the plain form")
     nbytes = 4 * (k * d + 2 * touched * d + 2 * depth * k)
     out.append(dict(name="cs_update", route="cuda",
                     source="src/repro_torch/kernels/csrc/cs_update.cu",
@@ -959,11 +1090,29 @@ def time_sketch_ops(dev, sketch_ops) -> list:
                     plain_ms=plain_ms,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     bound_by="bytes", library_ms=library_ms, k=k,
-                    touched_rows=touched, bytes=nbytes, sort_ms=sort_ms))
-    log(f"phase 5: B5 k={k}: {ms} ms (+ {sort_ms} ms for bucket_csr's "
-        f"sort), plain {plain_ms} ms, index_add_ {library_ms} ms, bound "
+                    touched_rows=touched, bytes=nbytes, csr_ms=csr_ms,
+                    scatter_ms=scatter_ms))
+    log(f"phase 5: B5 k={k} as called (CSR built in the call): {ms} ms "
+        f"(CSR alone {csr_ms}, scatter alone {scatter_ms}), plain "
+        f"{plain_ms} ms, index_add_ {library_ms} ms, bound "
         f"{out[-1]['bound_ms']} ms ({nbytes} B); bit-equal to the plain "
         f"version on a CPU copy, max_abs_err {card_err} vs it on the card")
+    if not ms < library_ms:
+        log(f"phase 5: B5 ({ms} ms) is not faster than one index_add_ "
+            f"({library_ms} ms)")
+    csr_bytes = 4 * (2 * depth * k + depth * (width + 1))
+    out.append(dict(name="bucket_csr", route="cuda",
+                    source="src/repro_torch/kernels/csrc/cs_csr.cu",
+                    replaces=None, max_abs_err=0.0, ms=csr_ms,
+                    plain_ms=csr_plain_ms,
+                    bound_ms=csr_bytes / HBM_BYTES_PER_S * 1e3,
+                    bound_by="bytes", library_ms=sort_ms, k=k,
+                    bytes=csr_bytes))
+    log(f"phase 5: bucket_csr ({depth}, {k}) buckets, width {width}: "
+        f"{csr_ms} ms, plain (stable torch.sort + searchsorted) "
+        f"{csr_plain_ms} ms, one stable torch.sort (order only) {sort_ms} "
+        f"ms, bound {out[-1]['bound_ms']} ms ({csr_bytes} B); integer-equal "
+        f"to the plain form")
     return out
 
 
@@ -1381,6 +1530,7 @@ def main(argv=None) -> int:
             log(f"phase 1:   {line.strip()}")
     phases = [
         ("2", lambda: (phase_kernels(dev, args.seed),
+                       phase_csr_and_hazards(dev, args.seed),
                        phase_sketch_kernels(dev, args.seed),
                        phase_bf16_kernel(dev, args.seed))),
         ("3", lambda: phase_main(dev, args.seed)),
@@ -1404,7 +1554,11 @@ def main(argv=None) -> int:
     launches = {"cs_adam_tiled": out["3"][4]["cs_adam_tiled"],
                 "cs_adam_fused": out["4"]["cs_adam_fused"],
                 "cs_ema_tiled": out["6"][0]["cs_ema_tiled"],
-                "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"]}
+                "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"],
+                # prev for B2, B5's CSR, and B3's cached dense-row CSR
+                "bucket_csr": (out["4"]["bucket_csr"]
+                               + out["4 (sketch ops)"][4]["bucket_csr"]
+                               + out["6"][0]["bucket_csr"])}
     for row in kernels:
         row.setdefault("launches", launches.get(row["name"]))
     log(f"peak device memory {torch.cuda.max_memory_allocated()} B")

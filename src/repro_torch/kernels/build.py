@@ -29,8 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "kernels"
-SOURCES = ("cs_adam_tiled.cu", "cs_adam.cu", "cs_ema_tiled.cu", "cs_query.cu",
-           "cs_update.cu")
+SOURCES = ("cs_adam_tiled.cu", "cs_adam.cu", "cs_csr.cu", "cs_ema_tiled.cu",
+           "cs_query.cu", "cs_update.cu")
 HEADERS = ("cs_common.cuh",)
 ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false",
@@ -44,10 +44,12 @@ SIGNATURES = {
     # depth_m, width_m, depth_v, width_v, k, d,
     # lr, 1-b1, 1-b2, eps, bc1, bc2, stream
     "cs_adam_tiled_launch": [P] * 10 + [I] * 6 + [F] * 6 + [P],
-    # M, V, bm, sm, bv, g, upd,
+    # M, V, bm, sm, bv, prev_m, prev_v, g, upd,
     # depth_m, width_m, depth_v, width_v, k, d,
     # lr, 1-b1, 1-b2, eps, bc1, bc2, stream
-    "cs_adam_fused_launch": [P] * 7 + [I] * 6 + [F] * 6 + [P],
+    "cs_adam_fused_launch": [P] * 9 + [I] * 6 + [F] * 6 + [P],
+    # buckets, order, starts, prev, scratch, depth, width, k, stream
+    "bucket_csr_launch": [P] * 5 + [I] * 3 + [P],
     # S, b, s, x, mask, order, starts, est, scratch,
     # depth, width, d, k, form, unit_scale, scale, beta-1, stream
     "cs_ema_tiled_launch": [P] * 9 + [I] * 6 + [F] * 2 + [P],
@@ -56,8 +58,8 @@ SIGNATURES = {
     + [ctypes.c_uint32, P],
     # S, b, s, out, depth, width, d, k, stream
     "cs_query_launch": [P] * 4 + [I] * 4 + [P],
-    # S, order, starts, s, delta, depth, width, d, k, stream
-    "cs_update_launch": [P] * 5 + [I] * 4 + [P],
+    # S, order, starts, buckets, s, delta, depth, width, d, k, stream
+    "cs_update_launch": [P] * 6 + [I] * 4 + [P],
 }
 
 

@@ -1,18 +1,22 @@
 """B5 · batch UPDATE: signed scatter-add of ``(k, d)`` rows, duplicate
-buckets accumulating.
+buckets accumulating; and the stable bucket CSR that B5, B3 and B2 share.
 
 Replaces the TPU kernel ``repro/kernels/cs_update.py::cs_update``.  As on
-the TPU, the items are first sorted by bucket in each hash row, stably
-(``bucket_csr``), so that the rows of one bucket lie together in item
-order.  The CUDA kernel (``csrc/cs_update.cu``) then gives each thread
-one (hash row, bucket, column) cell: it starts from the cell's old value
-and adds ``sign*delta`` of the bucket's items one after another, in item
-order.  No atomics, deterministic, and it adds in the order of the CPU
-``index_add_``: bit-equal to its plain version ``ref.cs_update_ref`` run
-on the CPU, and on the card within rounding of that version, whose
-``index_add_`` uses atomics.  Bound on the card: bytes.  The wrapper runs
-the plain version only for CPU tensors; for CUDA tensors it launches the
-kernel or raises.
+the TPU, the items are first grouped by bucket in each hash row, stably
+(``bucket_csr``: on CUDA tensors the kernel of ``csrc/cs_csr.cu``, a
+histogram, a scan and an in-order placement in shared memory; its plain
+version ``bucket_csr_plain`` is a stable ``torch.sort`` and a
+``searchsorted``).  Each bucket's items are then a run of sorted
+positions, and the CUDA scatter (``csrc/cs_update.cu``) adds every run
+into its sketch row in item order, starting from the row's old value,
+and writes each touched cell once: short runs by blocks over the sorted
+positions, long runs (the zipf head) by one warp per 32-column slice,
+each pulling item rows through a ``cp.async`` ring.  No atomics,
+deterministic, and in the order of the CPU ``index_add_``: bit-equal to
+its plain version ``ref.cs_update_ref`` run on the CPU, and on the card
+within rounding of that version, whose ``index_add_`` uses atomics.
+Bound on the card: bytes.  The wrappers run the plain versions only for
+CPU tensors; for CUDA tensors they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -23,18 +27,77 @@ import torch
 from repro_torch.kernels import build, ref
 
 
+# Widths up to this keep the CSR kernel's bucket cursors in shared memory
+# (csrc/cs_csr.cu, kSharedBuckets); wider ones in device scratch.
+SHARED_BUCKETS = 48 * 1024
+
+
+def bucket_csr_plain(buckets: torch.Tensor, width: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain form of ``bucket_csr`` and ``bucket_prev``: ``(order,
+    starts, prev)``, all int32, on any device."""
+    sorted_b, order = torch.sort(buckets.long(), dim=1, stable=True)
+    edges = torch.arange(width + 1, device=buckets.device)
+    starts = torch.searchsorted(
+        sorted_b, edges.expand(buckets.shape[0], width + 1).contiguous())
+    # in sorted order, the item before shares the bucket or there is none
+    before = torch.full_like(order, -1)
+    same = sorted_b[:, 1:] == sorted_b[:, :-1]
+    before[:, 1:] = torch.where(same, order[:, :-1], -1)
+    prev = torch.empty_like(order).scatter_(1, order, before)
+    return (order.to(torch.int32).contiguous(),
+            starts.to(torch.int32).contiguous(),
+            prev.to(torch.int32).contiguous())
+
+
+def _csr_kernel(buckets: torch.Tensor, width: int, with_prev: bool):
+    dev = buckets.device
+    if dev.type != "cuda":
+        raise ValueError(f"bucket_csr: no kernel for device {dev}")
+    if buckets.dim() != 2 or width < 1:
+        raise ValueError(f"bucket_csr: buckets {tuple(buckets.shape)} must "
+                         f"be (depth, k) and width {width} positive")
+    build.check_cuda_inputs("bucket_csr", dev, buckets=buckets)
+    depth, k = buckets.shape
+    order = torch.empty((depth, k), dtype=torch.int32, device=dev)
+    starts = torch.empty((depth, width + 1), dtype=torch.int32, device=dev)
+    prev = torch.empty((depth, k), dtype=torch.int32, device=dev) \
+        if with_prev else None
+    scratch = torch.empty((depth, width), dtype=torch.int32, device=dev) \
+        if width > SHARED_BUCKETS else None
+    lib = build.library()
+    with torch.cuda.device(dev):
+        rc = lib.bucket_csr_launch(build.ptr(buckets), build.ptr(order),
+                                   build.ptr(starts), build.ptr(prev),
+                                   build.ptr(scratch), depth, width, k,
+                                   build.stream_handle(dev))
+    build.check_launch(rc, "bucket_csr")
+    bucket_csr.launches += 1
+    return order, starts, prev
+
+
 def bucket_csr(buckets: torch.Tensor, width: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The items of each hash row grouped by bucket: ``order`` (v, k)
     int32, item positions stably sorted by bucket, and ``starts`` (v,
     w+1) int32, where bucket ``b``'s items are ``order[j, starts[j, b]:
-    starts[j, b+1]]``, in item order."""
-    sorted_b, order = torch.sort(buckets.long(), dim=1, stable=True)
-    edges = torch.arange(width + 1, device=buckets.device)
-    starts = torch.searchsorted(
-        sorted_b, edges.expand(buckets.shape[0], width + 1).contiguous())
-    return (order.to(torch.int32).contiguous(),
-            starts.to(torch.int32).contiguous())
+    starts[j, b+1]]``, in item order.  ``buckets`` (v, k) int32 in [0,
+    width)."""
+    if buckets.device.type == "cpu":
+        return bucket_csr_plain(buckets, width)[:2]
+    return _csr_kernel(buckets, width, False)[:2]
+
+
+def bucket_prev(buckets: torch.Tensor, width: int) -> torch.Tensor:
+    """For each item, the last earlier item of its hash row with the same
+    bucket, or -1: (v, k) int32.  On CUDA tensors one launch of the CSR
+    kernel, counted on ``bucket_csr``."""
+    if buckets.device.type == "cpu":
+        return bucket_csr_plain(buckets, width)[2]
+    return _csr_kernel(buckets, width, True)[2]
+
+
+bucket_csr.launches = 0
 
 
 def scatter_shapes(name: str, S, buckets, signs, rows) -> Tuple[int, ...]:
@@ -61,15 +124,16 @@ def cs_update(S: torch.Tensor, buckets: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"cs_update: no kernel for device {dev}")
     depth, width, d, k = scatter_shapes("cs_update", S, buckets, signs, delta)
+    build.check_cuda_inputs("cs_update", dev, S=S, buckets=buckets,
+                            signs=signs, delta=delta)
     order, starts = csr if csr is not None else bucket_csr(buckets, width)
-    build.check_cuda_inputs("cs_update", dev, S=S, signs=signs, delta=delta,
-                            order=order, starts=starts)
+    build.check_cuda_inputs("cs_update", dev, order=order, starts=starts)
     lib = build.library()
     with torch.cuda.device(dev):
         rc = lib.cs_update_launch(build.ptr(S), build.ptr(order),
-                                  build.ptr(starts), build.ptr(signs),
-                                  build.ptr(delta), depth, width, d, k,
-                                  build.stream_handle(dev))
+                                  build.ptr(starts), build.ptr(buckets),
+                                  build.ptr(signs), build.ptr(delta), depth,
+                                  width, d, k, build.stream_handle(dev))
     build.check_launch(rc, "cs_update")
     cs_update.launches += 1
     return S

@@ -1,6 +1,7 @@
 // Shared device helpers of the sketch kernels: the depth-way estimators,
-// the gathered estimate of one cell, the bucket-ordered scatter, and the
-// stochastic rounding of bf16 cells (repro_torch/core/quantize.py).
+// the gathered estimate of one cell, the bucket-ordered scatter, the
+// stochastic rounding of bf16 cells (repro_torch/core/quantize.py), and
+// cp.async copies from device to shared memory.
 //
 // Built with --fmad=false, so each add and multiply rounds on its own, in
 // the order written, exactly as the plain PyTorch versions
@@ -130,6 +131,29 @@ __device__ __forceinline__ __nv_bfloat16 sr_bfloat16(float v,
                                                      uint32_t bits) {
   const uint32_t u = __float_as_uint(v) + (bits & 0xFFFFu);
   return __ushort_as_bfloat16(static_cast<unsigned short>(u >> 16));
+}
+
+// cp.async: a 4- or 16-byte copy from device to shared memory that needs
+// no register; the copies of a thread are grouped by commit, and
+// cp_async_wait<N> waits until all but the newest N groups have landed.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(at),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 constexpr int kThreads = 128;

@@ -11,19 +11,24 @@ every sketch cell is written at most once they must match the plain
 versions to the bit; B1's atomics reorder colliding adds, held to the
 reference's collision envelope atol=2e-5.  B3's and B5's scatters add in
 the order of the CPU ``index_add_``, so under collisions they are also
-bit-equal to their plain versions run on a CPU copy.
+bit-equal to their plain versions run on a CPU copy.  The bucket CSR
+kernel gives the plain form's integers; B2's window rule is held to the
+per-item plain version where a bucket recurs at the window's edges.
 """
 import pytest
 import torch
 
 from repro_torch.core import sketch as cs
 from repro_torch.kernels import ref
+from repro_torch.kernels import cs_adam
 from repro_torch.kernels.cs_adam import cs_adam_fused
 from repro_torch.kernels.cs_adam_tiled import (cs_adam_tiled,
                                                cs_adam_tiled_plain)
 from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled, cs_ema_tiled_plain
 from repro_torch.kernels.cs_query import cs_query
-from repro_torch.kernels.cs_update import cs_update
+from repro_torch.kernels.cs_update import (SHARED_BUCKETS, bucket_csr,
+                                          bucket_csr_plain, bucket_prev,
+                                          cs_update)
 from repro_torch.train.steps import make_sparse_embedding_step
 
 pytestmark = pytest.mark.cuda
@@ -350,3 +355,95 @@ def test_async_cleaner_equals_sync_on_the_card(cuda_device):
 
     (pw, pv), (qw, qv) = run("sync"), run("async")
     assert torch.equal(pw, qw) and torch.equal(pv, qv)
+
+
+# ------------------------------------------ bucket CSR, B5 and B2 hazards
+def _csr_case(name, dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    if name == "zipf":
+        width, k = 10_240, 16_384
+        ids = torch.empty(k, device=dev).exponential_(generator=gen)
+        b = (ids * 900).long() % width
+        b = torch.stack([b, (b * 7 + 3) % width, (b * 13 + 5) % width])
+    elif name == "width1":
+        width, k = 1, 3_000
+        b = torch.zeros((3, k), dtype=torch.long, device=dev)
+    elif name == "one_bucket":
+        width, k = 512, 5_000
+        b = torch.full((2, k), 77, dtype=torch.long, device=dev)
+    elif name == "last_bucket":
+        width, k = 300, 2_000
+        b = torch.randint(width - 3, width, (3, k), generator=gen,
+                          device=dev)
+    elif name == "empty":
+        width, k = 64, 0
+        b = torch.zeros((3, 0), dtype=torch.long, device=dev)
+    elif name == "wide":
+        width, k = SHARED_BUCKETS + 1_000, 7_000
+        b = torch.randint(0, width, (3, k), generator=gen, device=dev)
+    else:
+        width, k = 10_240, 151_936
+        b = (torch.arange(k, device=dev)[None] * torch.tensor(
+            [[2_654_435_761], [40_503], [97]], device=dev)) % width
+    return b.to(torch.int32).contiguous(), width
+
+
+@pytest.mark.parametrize("name", ["zipf", "width1", "one_bucket",
+                                  "last_bucket", "empty", "wide", "dense"])
+def test_bucket_csr_kernel_equals_plain(cuda_device, name):
+    b, width = _csr_case(name, cuda_device)
+    before = bucket_csr.launches
+    order, starts = bucket_csr(b, width)
+    prev = bucket_prev(b, width)
+    torch.cuda.synchronize()
+    assert bucket_csr.launches == before + 2
+    want = bucket_csr_plain(b, width)
+    for got, exp in zip((order, starts, prev), want):
+        assert got.dtype == torch.int32
+        assert torch.equal(got, exp)
+
+
+def test_update_width_one_and_odd_d(cuda_device):
+    """One run of all k items (width 1), d not a multiple of 4 (the scalar
+    path), runs long enough for the long-run blocks (64 items or more) in
+    both paths and over several column slices, and rows wider than a
+    block: bit-equal to the plain version on a CPU copy."""
+    for width, d in ((1, 96), (16, 93), (1_024, 5), (4, 93), (2, 260),
+                     (64, 4_096), (3, 4_100)):
+        S, b, s, x, _ = _ema_case(cuda_device, True, 3, width, 700, d, 9)
+        got = cs_update(S.clone(), b, s, x)
+        torch.cuda.synchronize()
+        assert torch.equal(ref.cs_update_ref(*_cpu([S, b, s, x])), got.cpu())
+
+
+def _hazard_buckets(k, dists, dev):
+    """Row r puts item i in bucket i % dists[r]: each item's last earlier
+    item in its bucket is exactly dists[r] places back."""
+    i = torch.arange(k, device=dev)
+    return torch.stack([i % dd for dd in dists]).to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("k", [5, 100])
+def test_stream_window_hazards(cuda_device, k):
+    """The same bucket recurring 1, L-1, L and L+1 items back (L the
+    kernel's window), with k below one tile and past a few: bit-equal to
+    the per-item plain version."""
+    L = cs_adam.WINDOW
+    dists = [1, L - 1, L, L + 1]
+    d = 40
+    for track_m in (True, False):
+        M, V, _, _, _, g = _state(len(dists), 64, d, k, cuda_device, k,
+                                  track_m)
+        bm = _hazard_buckets(k, dists, cuda_device)
+        bv = _hazard_buckets(k, dists[::-1], cuda_device)
+        sm = (torch.arange(len(dists) * k, device=cuda_device) % 3 == 0
+              ).float().reshape(len(dists), k) * 2 - 1
+        args = (M, V, bm if track_m else None, sm if track_m else None, bv,
+                g)
+        kw = dict(KW, b1=0.9 if track_m else 0.0)
+        want = ref.adam_fused_ref(*_clone(args), **kw)
+        got = cs_adam_fused(*_clone(args), **kw)
+        torch.cuda.synchronize()
+        for a, c in zip(want, got):
+            if a is not None:
+                assert torch.equal(a, c)

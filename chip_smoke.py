@@ -49,7 +49,10 @@ own line; any failure raises and the exit code is not 0:
      the shapes its path gives it: B5 as users call it (its CSR built in
      the call) beside the CSR alone, the scatter alone, one ``index_add_``
      and the plain version; B2 with its prev pass; the CSR kernel beside
-     one stable ``torch.sort``;
+     one stable ``torch.sort``; B3 (f32 and bf16 cells) with its column
+     slices: their width, count and scratch bytes, one slice's read and
+     scatter, the kernels' busy time within a call, and a call at other
+     slice widths;
   6. the dense path at full width: the softmax layer of qwen2-0.5b
      (``tok_embed/table`` 151,936 x 896 and ``final_norm/scale``),
      cross-entropy of ``rmsnorm(h)*scale @ table^T`` on 1,024 zipf(1.1)
@@ -948,6 +951,8 @@ def time_ema(dev, seed: int) -> dict:
                  reps=10, warmup=2)
     plain_ms = cuda_ms(lambda: cs_ema_tiled_plain(work, b, s, x, mask, **kw),
                        reps=5)
+    slices = time_ema_slices(work, b, s, x, mask, csr, dict(sr_seed=None,
+                                                            **kw))
     depth, width, d = spec.shape
     nbytes = 4 * (2 * VOCAB * d + 2 * depth * width * d + 2 * depth * VOCAB
                   + VOCAB)
@@ -956,12 +961,87 @@ def time_ema(dev, seed: int) -> dict:
                replaces="src/repro/kernels/cs_ema_tiled.py:140",
                max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-               library_ms=None, k=VOCAB, bytes=nbytes)
+               library_ms=None, k=VOCAB, bytes=nbytes, **slices)
     log(f"phase 5: B3 k={VOCAB} (every row, signed, mask on): {ms} ms, "
         f"plain {plain_ms} ms, bound {row['bound_ms']} ms ({nbytes} B at "
         f"3.35 TB/s); bit-equal to the plain version on a CPU copy, "
         f"max_abs_err {card_err} vs it on the card")
+    log_slices("B3", ms, slices)
     return row
+
+
+def device_ms(fn, n: int = 3):
+    """Device time a call of the kernels that ``fn()`` launches, from
+    ``torch.profiler``; None where it saw no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / n if busy > 0.0 else None
+
+
+def time_ema_slices(work, b, s, x, mask, csr, kw) -> dict:
+    """B3's column slices at the shapes of ``work``: the slice width the
+    wrapper picks, the number of slices and the scratch bytes; the read
+    launches of a call alone and its scatter launches alone, each over
+    the number of slices (the time of one slice's read and scatter); the
+    device time of a call's kernels (the rest of a call's time is gaps
+    between launches); a copy of x into est slice by slice, the DRAM
+    traffic of the reads without their work, beside one whole copy; a
+    whole call at slice widths 16, 32 and 64 (through ``launch_slices``,
+    which counts nothing)."""
+    import torch
+    from repro_torch.kernels.cs_ema_tiled import (READ, SCATTER,
+                                                  launch_slices, slice_cols)
+    depth, width, d = work.shape
+    k = x.shape[0]
+    cols = slice_cols(k, d, depth, width, work.element_size())
+    order, starts = csr
+    est = torch.empty((k, d), device=x.device)
+
+    def run(c, parts=READ | SCATTER):
+        scratch = torch.empty((k, c), device=x.device)
+        return lambda: launch_slices(work, b, s, x, mask.reshape(k), order,
+                                     starts, est, scratch, parts=parts, **kw)
+
+    def copy_by_slices():  # the DRAM pattern of x and est, alone
+        for c0 in range(0, d, cols):
+            est[:, c0:c0 + cols].copy_(x[:, c0:c0 + cols])
+    slices = -(-d // cols)
+    return dict(
+        slice_cols=cols, slices=slices, scratch_bytes=4 * k * cols,
+        slice_read_ms=cuda_ms(run(cols, READ), reps=10, warmup=2) / slices,
+        slice_scatter_ms=cuda_ms(run(cols, SCATTER), reps=10,
+                                 warmup=2) / slices,
+        busy_ms=device_ms(run(cols)),
+        copy_by_slices_ms=cuda_ms(copy_by_slices, reps=5, warmup=1),
+        copy_ms=cuda_ms(lambda: est.copy_(x), reps=5, warmup=1),
+        call_ms_by_cols={c: cuda_ms(run(c), reps=10, warmup=2)
+                         for c in (16, 32, 64)})
+
+
+def log_slices(name: str, ms: float, sl: dict) -> None:
+    apart = sl["slices"] * (sl["slice_read_ms"] + sl["slice_scatter_ms"])
+    busy = ("not measured" if sl["busy_ms"] is None
+            else f"{sl['busy_ms']} ms")
+    log(f"phase 5: {name} in {sl['slices']} slices of {sl['slice_cols']} "
+        f"columns, scratch {sl['scratch_bytes']} B; one slice (a call's "
+        f"launches of each kind over its slices): read "
+        f"{sl['slice_read_ms']} ms, scatter {sl['slice_scatter_ms']} ms "
+        f"({apart} ms over all slices timed apart, against {ms} ms a "
+        f"call); the call's kernels busy {busy} of it (profiler); x "
+        f"copied into est slice by slice {sl['copy_by_slices_ms']} ms, in "
+        f"one copy {sl['copy_ms']} ms; a call at slice widths 16/32/64: "
+        f"{sl['call_ms_by_cols']}")
 
 
 def time_ema_bf16(dev, seed: int) -> dict:
@@ -1006,6 +1086,7 @@ def time_ema_bf16(dev, seed: int) -> dict:
                  reps=10, warmup=2)
     plain_ms = cuda_ms(lambda: cs_ema_tiled_plain(work, b, s, x, mask, **kw),
                        reps=5)
+    slices = time_ema_slices(work, b, s, x, mask, csr, kw)
     depth, width, d = spec.shape
     nbytes = (4 * 2 * VOCAB * d + 2 * 2 * depth * width * d
               + 4 * (2 * depth * VOCAB + VOCAB))
@@ -1014,12 +1095,13 @@ def time_ema_bf16(dev, seed: int) -> dict:
                replaces="src/repro/kernels/cs_ema_tiled.py:140",
                max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-               library_ms=None, k=VOCAB, bytes=nbytes)
+               library_ms=None, k=VOCAB, bytes=nbytes, **slices)
     log(f"phase 5: B3 bf16 k={VOCAB} (every row, signed, mask on): {ms} ms, "
         f"plain {plain_ms} ms, bound {row['bound_ms']} ms ({nbytes} B at "
         f"3.35 TB/s); bit-equal to the plain version on a CPU copy; "
         f"{card_differ} of {S.numel()} cells round apart from it on the "
         f"card (atomic-order sums), est bit-equal")
+    log_slices("B3 bf16", ms, slices)
     return row
 
 

@@ -51,10 +51,11 @@ SIGNATURES = {
     # buckets, order, starts, prev, scratch, depth, width, k, stream
     "bucket_csr_launch": [P] * 5 + [I] * 3 + [P],
     # S, b, s, x, mask, order, starts, est, scratch,
-    # depth, width, d, k, form, unit_scale, scale, beta-1, stream
-    "cs_ema_tiled_launch": [P] * 9 + [I] * 6 + [F] * 2 + [P],
+    # depth, width, d, k, form, unit_scale, scale, beta-1, slice, parts,
+    # stream
+    "cs_ema_tiled_launch": [P] * 9 + [I] * 6 + [F] * 2 + [I] * 2 + [P],
     # as cs_ema_tiled_launch with S bf16, then the uint32 rounding seed
-    "cs_ema_tiled_bf16_launch": [P] * 9 + [I] * 6 + [F] * 2
+    "cs_ema_tiled_bf16_launch": [P] * 9 + [I] * 6 + [F] * 2 + [I] * 2
     + [ctypes.c_uint32, P],
     # S, b, s, out, depth, width, d, k, stream
     "cs_query_launch": [P] * 4 + [I] * 4 + [P],

@@ -13,20 +13,26 @@ CUDA kernel (``csrc/cs_ema_tiled.cu``) has the whole-batch semantics of
 the reference's ``xla`` backend: every estimate reads the pre-step
 sketch.  The two agree where no two rows share a bucket and differ by
 estimator noise where they do, which on the dense path at full width is
-always (about 15 rows a bucket).  It runs as two launches: a read launch
-writes ``est`` and ``d`` (a (k, d) scratch), and a scatter launch adds
-``sign*d`` into each sketch cell from a per-hash-row CSR of the items
-sorted by bucket (``cs_update.bucket_csr``), in item order, starting from
-the old cell.  That scatter is deterministic, uses no atomics and adds in
-the CPU ``index_add_``'s order.  No padding: the mask carries which rows
-take part.
+always (about 15 rows a bucket).
 
-bf16 cells (the TPU kernel's bf16 branch) run the same two launches on a
+Every column is independent, so the kernel runs in column slices of
+``slice_cols`` columns, each done in full before the next, so that the
+sketch slice and a scratch of one slice stay in the card's L2.  A slice
+is two launches: a read launch writes ``est`` and ``d`` (into the (k, C)
+scratch, reused by every slice), and a scatter launch adds ``sign*d``
+into each sketch cell of the slice from a per-hash-row CSR of the items
+sorted by bucket (``cs_update.bucket_csr``), in item order, starting
+from the old cell.  That scatter is deterministic, uses no atomics and
+adds in the CPU ``index_add_``'s order.  No padding: the mask carries
+which rows take part.
+
+bf16 cells (the TPU kernel's bf16 branch) run the same slices on a
 ``__nv_bfloat16`` sketch: the read launch widens the gathered cells to
-f32, and the scatter launch visits EVERY cell, sums its bucket's
-increments from zero in item order, adds the sum to the widened cell and
-writes ``sr_bfloat16(cell + inc, cell_bits(seed, lin))`` with ``lin =
-(j·width + bucket)·dim + col``, the reference's
+f32, and the scatter launch visits EVERY cell of its slice, sums its
+bucket's increments from zero in item order, adds the sum to the widened
+cell and writes ``sr_bfloat16(cell + inc, cell_bits(seed, lin))`` with
+``lin = (j·width + bucket)·dim + col`` and ``col`` the cell's column in
+the whole sketch, not in its slice, the reference's
 ``_ema_update_read_lowp`` form (``repro/kernels/ops.py:259``), which
 re-rounds the whole sketch.  The seed is ``quantize.step_seed`` of the
 step, a uint32 launch argument.  Its launches are counted apart, on
@@ -54,6 +60,25 @@ from repro_torch.kernels.cs_update import bucket_csr, scatter_shapes
 
 # ema_delta forms, in the order core.sketch.ema_delta tests them
 ADAM, ADAGRAD, MOMENTUM = 0, 1, 2
+# the launches of a slice, as ``parts`` of launch_slices
+READ, SCATTER = 1, 2
+# bytes of one slice's scratch and sketch columns: about half of the
+# H100's 50 MB L2, so that they stay there beside the x and est stream
+SLICE_BYTES = 24 << 20
+
+
+def slice_cols(k: int, d: int, depth: int, width: int,
+               cell_bytes: int) -> int:
+    """Columns of one slice: the most whose f32 scratch (k rows) and
+    sketch slice (depth x width cells of ``cell_bytes``) fit
+    ``SLICE_BYTES``, a multiple of 32 (else of 4, at least 4); ``d``, one
+    slice, when the whole call fits."""
+    cols = SLICE_BYTES // max(1, 4 * k + cell_bytes * depth * width)
+    if cols >= d:
+        return d
+    if cols >= 32:
+        return cols - cols % 32
+    return min(d, max(4, cols - cols % 4))
 
 
 def ema_form(beta: float, scale: float) -> Tuple[int, bool]:
@@ -124,25 +149,43 @@ def cs_ema_tiled(S: torch.Tensor, b: torch.Tensor, s: Optional[torch.Tensor],
                             cells=torch.bfloat16 if bf16 else torch.float32,
                             S=S, b=b, s=s, x=x, mask=m, order=order,
                             starts=starts)
-    form, unit = ema_form(beta, scale)
     est = torch.empty((k, d), dtype=torch.float32, device=dev)
-    scratch = torch.empty_like(est)
-    lib = build.library()
-    args = (build.ptr(S), build.ptr(b), build.ptr(s), build.ptr(x),
-            build.ptr(m), build.ptr(order), build.ptr(starts),
-            build.ptr(est), build.ptr(scratch), depth, width, d, k, form,
-            int(unit), float(np.float32(scale)),
-            float(np.float32(beta - 1.0)))
-    with torch.cuda.device(dev):
-        if bf16:
-            rc = lib.cs_ema_tiled_bf16_launch(*args, int(sr_seed) & 0xFFFFFFFF,
-                                              build.stream_handle(dev))
-        else:
-            rc = lib.cs_ema_tiled_launch(*args, build.stream_handle(dev))
+    scratch = torch.empty((k, slice_cols(k, d, depth, width,
+                                         S.element_size())),
+                          dtype=torch.float32, device=dev)
+    launch_slices(S, b, s, x, m, order, starts, est, scratch, beta=beta,
+                  scale=scale, sr_seed=sr_seed)
     counter = cs_ema_tiled_bf16 if bf16 else cs_ema_tiled
-    build.check_launch(rc, counter.__name__)
     counter.launches += 1
     return S, est
+
+
+def launch_slices(S, b, s, x, mask, order, starts, est, scratch, *,
+                  beta: float, scale: float, sr_seed: Optional[int],
+                  parts: int = READ | SCATTER) -> None:
+    """Launch B3 on column slices as wide as ``scratch`` (k, C), with the
+    launches ``parts`` names.  The inputs are checked by
+    ``cs_ema_tiled``, which calls this and counts the call;
+    ``chip_smoke.py`` times a call's reads and its scatters apart through
+    it."""
+    depth, width, d = S.shape
+    k = x.shape[0]
+    form, unit = ema_form(beta, scale)
+    lib = build.library()
+    args = (build.ptr(S), build.ptr(b), build.ptr(s), build.ptr(x),
+            build.ptr(mask), build.ptr(order), build.ptr(starts),
+            build.ptr(est), build.ptr(scratch), depth, width, d, k, form,
+            int(unit), float(np.float32(scale)),
+            float(np.float32(beta - 1.0)), scratch.shape[1], parts)
+    with torch.cuda.device(S.device):
+        if S.dtype == torch.bfloat16:
+            rc = lib.cs_ema_tiled_bf16_launch(
+                *args, int(sr_seed) & 0xFFFFFFFF,
+                build.stream_handle(S.device))
+        else:
+            rc = lib.cs_ema_tiled_launch(*args,
+                                         build.stream_handle(S.device))
+    build.check_launch(rc, "cs_ema_tiled")
 
 
 def cs_ema_tiled_bf16(S: torch.Tensor, *args, **kwargs):

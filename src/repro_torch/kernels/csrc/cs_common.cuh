@@ -1,7 +1,7 @@
 // Shared device helpers of the sketch kernels: the depth-way estimators,
-// the gathered estimate of one cell, the bucket-ordered scatter, the
-// stochastic rounding of bf16 cells (repro_torch/core/quantize.py), and
-// cp.async copies from device to shared memory.
+// the gathered estimate of one cell, the stochastic rounding of bf16
+// cells (repro_torch/core/quantize.py), and cp.async copies from device
+// to shared memory.
 //
 // Built with --fmad=false, so each add and multiply rounds on its own, in
 // the order written, exactly as the plain PyTorch versions
@@ -77,35 +77,6 @@ __device__ __forceinline__ float estimate(const T* __restrict__ S,
     v[j] = s != nullptr ? x * s[j * k + r] : x;
   }
   return s != nullptr ? median(v, depth) : min_of(v, depth);
-}
-
-// Bucket-ordered scatter, one thread per (hash row j, bucket w, column c)
-// over a grid of (column blocks, y): the cell starts from its old value
-// and adds s[j*k + r] * x[r, c] for the items r of bucket w one after
-// another, in the order order[j*k + starts[j*(width+1) + w] ...] lists
-// them (ascending r: bucket_csr sorts stably).  The CPU index_add_ of
-// ref.cs_update_ref adds in that order, so no atomics and the same bits.
-__device__ __forceinline__ void bucket_scatter(
-    float* __restrict__ S, const int* __restrict__ order,
-    const int* __restrict__ starts, const float* __restrict__ s,
-    const float* __restrict__ x, int depth, int width, int d, int k) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d) return;
-  const int n_cells = depth * width;
-  for (int jw = blockIdx.y; jw < n_cells; jw += gridDim.y) {
-    const int j = jw / width;
-    const int* st = starts + (size_t)j * (width + 1) + (jw - j * width);
-    const int lo = st[0], hi = st[1];
-    if (lo == hi) continue;
-    const size_t at = (size_t)jw * d + c;
-    float acc = S[at];
-    for (int p = lo; p < hi; ++p) {
-      const int r = order[(size_t)j * k + p];
-      const float u = x[(size_t)r * d + c];
-      acc = acc + (s != nullptr ? s[(size_t)j * k + r] * u : u);
-    }
-    S[at] = acc;
-  }
 }
 
 // splitmix32 finalizer (core/hashing.py::_mix), wrapping uint32.

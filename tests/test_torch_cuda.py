@@ -357,6 +357,79 @@ def test_async_cleaner_equals_sync_on_the_card(cuda_device):
     assert torch.equal(pw, qw) and torch.equal(pv, qv)
 
 
+# ------------------------------------------------- B3 in column slices
+# name: (k, d, width); the slices are cs_ema_tiled.slice_cols wide
+SLICE_CASES = {
+    "d900_slices": (20_000, 900, 512),   # 3 slices of 288, one of 36
+    "d97_slices": (100_000, 97, 256),    # 4-byte path: 3 of 32, one of 1
+    "d64_one_slice": (2_048, 64, 256),   # d below one slice
+    "k1": (1, 96, 16),
+    "k0": (0, 96, 16),
+}
+
+
+def _ema_slices_check(S, b, s, x, mask, kw, offset=0):
+    """One call on a copy of S that lies ``offset`` cells into its
+    buffer: counted once, bit-equal to the plain version on a CPU copy,
+    and against it on the card within the collision envelope (f32) or
+    est bit-equal and cells within one ulp + 2e-5 (bf16)."""
+    from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled_bf16
+    bf16 = S.dtype == torch.bfloat16
+    counter = cs_ema_tiled_bf16 if bf16 else cs_ema_tiled
+    work = torch.empty(S.numel() + offset, dtype=S.dtype,
+                       device=S.device)[offset:].view(S.shape)
+    work.copy_(S)
+    before = counter.launches
+    got = cs_ema_tiled(work, b, s, x, mask, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = cs_ema_tiled_plain(S.clone(), b, s, x, mask, **kw)
+    host = cs_ema_tiled_plain(*_cpu([S, b, s, x, mask]), **kw)
+    if bf16:
+        assert torch.equal(host[0].view(torch.int16),
+                           got[0].cpu().view(torch.int16))
+        assert torch.equal(want[1], got[1])
+        assert _bf16_within(got[0], want[0], atol=2e-5)
+    else:
+        for a, c in zip(want, got):
+            torch.testing.assert_close(c, a, rtol=0, atol=2e-5)
+        assert torch.equal(host[0], got[0].cpu())
+    assert torch.equal(host[1], got[1].cpu())
+
+
+@pytest.mark.parametrize("cells", ["f32_signed", "f32_unsigned", "bf16"])
+@pytest.mark.parametrize("case", sorted(SLICE_CASES))
+def test_ema_tiled_slices(cuda_device, case, cells):
+    """B3 f32 and bf16 where d is not a multiple of the slice width, below
+    one slice, at k = 1 and k = 0, and over several slices."""
+    from repro_torch.core import quantize as qz
+    from repro_torch.kernels.cs_ema_tiled import slice_cols
+    k, d, width = SLICE_CASES[case]
+    S, b, s, x, mask = _ema_case(cuda_device, cells != "f32_unsigned", 3,
+                                 width, k, d, len(case))
+    if cells == "bf16":
+        S = S.to(torch.bfloat16)
+    cols = slice_cols(k, d, 3, width, S.element_size())
+    assert (cols < d) == case.endswith("_slices")
+    kw = dict(beta=0.999, scale=1.0 - 0.999,
+              sr_seed=qz.step_seed(3, 9) if cells == "bf16" else None)
+    _ema_slices_check(S, b, s, x, mask, kw)
+
+
+@pytest.mark.parametrize("cells", ["f32", "bf16"])
+def test_ema_tiled_misaligned_sketch_takes_4_byte_path(cuda_device, cells):
+    """A sketch that starts two cells into its buffer, off the 16-byte
+    (f32) or 8-byte (bf16) alignment of the wide accesses: the 4-byte
+    path, the same bits."""
+    from repro_torch.core import quantize as qz
+    S, b, s, x, mask = _ema_case(cuda_device, True, 3, 64, 700, 96, 2)
+    if cells == "bf16":
+        S = S.to(torch.bfloat16)
+    kw = dict(beta=0.9, scale=1.0,
+              sr_seed=qz.step_seed(3, 9) if cells == "bf16" else None)
+    _ema_slices_check(S, b, s, x, mask, kw, offset=2)
+
+
 # ------------------------------------------ bucket CSR, B5 and B2 hazards
 def _csr_case(name, dev):
     gen = torch.Generator(device=dev).manual_seed(11)

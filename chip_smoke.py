@@ -11,8 +11,13 @@ own line; any failure raises and the exit code is not 0:
   1. the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (into ``build/kernels/``);
   2. each kernel against its plain PyTorch version on the card:
-     B1 ``cs_adam_tiled`` bit-equal on a collision-free batch and within
-     atol 2e-5 under heavy collisions, B2 ``cs_adam_fused`` bit-equal to
+     B1 ``cs_adam_tiled`` bit-equal on a collision-free batch, and under
+     heavy collisions M and V bit-equal to the plain version on a CPU copy
+     (upd within rtol 1e-6 of it: torch's CPU sqrt), within atol 2e-5 of
+     it on the card and the same bits on a second run; B1 as the
+     ``tiled`` path calls it (``ops.adam_rows_tiled``) on a full-width
+     zipf batch, the same against a CPU copy; B4 at full width bit-equal;
+     B2 ``cs_adam_fused`` bit-equal to
      ``ref.adam_fused_ref``, each with and without a first moment, and B2
      again where a bucket recurs 1, L-1, L and L+1 items back (L its
      window) and with k below one tile; the bucket CSR kernel
@@ -30,13 +35,18 @@ own line; any failure raises and the exit code is not 0:
      qwen2-0.5b (vocab 151,936 x d_model 896, from
      ``src/repro/configs/qwen2_0_5b.py:10-12``) with ``SketchHParams()``
      sketches, backend ``auto`` (= ``tiled``), 8 x 2,048 zipf ids a step;
-     the loss on the first batch's ids must fall and B1 must launch.
+     the loss on the first batch's ids must fall and B1, its CSR and the
+     dedup sum (B5) must launch once a step.
      The per-batch loss (a fresh zipf sample each step) is printed, not
      required to fall: at this workload sketch noise on rare ids keeps it
      near its start.  Its witness: the same 20 batches from the same
      table through the plain ``xla`` backend must give the same per-batch
-     losses and table.  Five more steps under ``torch.profiler`` give the
-     device's busy time a step, set against the unprofiled step time.
+     losses and table (rtol 1e-4; whether they are equal to the bit is
+     printed).  3f: the 20 steps again from the same start must give the
+     same table and sketches to the bit, and one more step runs under
+     ``torch.cuda.set_sync_debug_mode("error")``.  Five more steps under
+     ``torch.profiler`` give the device's busy time a step, set against
+     the unprofiled step time, and the launches a step by kernel name.
      The same 20 batches as dense gradients (``zeros.index_add_(0, ids,
      rows)``) through ``adam_from_stores`` with the same stores on
      ``auto`` (B3) must give phase 3's table (3d), and through dense Adam
@@ -46,7 +56,9 @@ own line; any failure raises and the exit code is not 0:
      sketch ops ``ops.sketch_update``/``sketch_query`` (B5, B4) on one
      main-path batch;
   5. each kernel's time, its plain version's time and its byte bound at
-     the shapes its path gives it: B5 as users call it (its CSR built in
+     the shapes its path gives it: B1 alone and ``ops.adam_rows_tiled`` as
+     the step calls it (time, busy time, launches); B5 as users call it
+     (its CSR built in
      the call) beside the CSR alone, the scatter alone, one ``index_add_``
      and the plain version; B2 with its prev pass; the CSR kernel beside
      one stable ``torch.sort``; B3 (f32 and bf16 cells) with its column
@@ -74,8 +86,9 @@ own line; any failure raises and the exit code is not 0:
      run.  7b: int8 cells on the same layer, 5 steps through the plain
      route (no B3), the loss must fall and the table stay finite.  7c:
      bf16 cells on phase 3's sparse-rows batches, backend ``tiled``: no
-     B1 launch (low-precision cells run ``xla``, as in the reference),
-     the held loss must fall.  7d: the bf16 dense path with a Count-Min
+     B1 launch (low-precision cells run ``xla``, as in the reference,
+     whose sums go through B5), the held loss must fall, and the steps
+     run twice from the same start must give the same bits.  7d: the bf16 dense path with a Count-Min
      cleaned every 5 steps, 10 steps sync against ``AsyncCleaner``: the
      table and sketches must be equal to the bit.
 
@@ -239,12 +252,18 @@ def phase_kernels(dev, seed: int) -> None:
         args = (M, V, bm if track_m else None, sm if track_m else None, bv, g)
         want = cs_adam_tiled_plain(*clone(args), b1=b1, n_valid=29, **kw)
         got = cs_adam_tiled(*clone(args), b1=b1, n_valid=29, **kw)
+        again = cs_adam_tiled(*clone(args), b1=b1, n_valid=29, **kw)
+        host = cs_adam_tiled_plain(*on_cpu(args), b1=b1, n_valid=29, **kw)
         err = max_err(want, got)
+        same = all(a is None or torch.equal(a, c) for a, c in zip(got, again))
         log(f"phase 2: B1 cs_adam_tiled collisions width=16 k=32 {tag}: "
-            f"max_abs_err (M, V, upd) {errs(want, got)} (atol "
-            f"{COLLISION_ATOL})")
-        if not err <= COLLISION_ATOL:
-            raise AssertionError(f"B1 under collisions: {err}")
+            f"{b1_vs_cpu(host, got)}; max_abs_err (M, V, upd) vs the plain "
+            f"version on the card {errs(want, got)} (atol {COLLISION_ATOL}); "
+            f"a second run equal to the bit {same}")
+        if not (err <= COLLISION_ATOL and same
+                and torch.equal(want[2], got[2])):
+            raise AssertionError(f"B1 under collisions: {err}, second run "
+                                 f"equal {same}")
         # B2 against the per-item plain version, k=512, real hashing
         spec_m = cs.for_param((VOCAB, D_MODEL), signed=True, seed=seed + 1)
         spec_v = cs.for_param((VOCAB, D_MODEL), signed=False, seed=seed + 2)
@@ -264,6 +283,72 @@ def phase_kernels(dev, seed: int) -> None:
             f"max_abs_err (M, V, upd) {errs(want, got)}")
         if not bit:
             raise AssertionError("B2 is not bit-equal to adam_fused_ref")
+
+
+def b1_vs_cpu(host, got) -> str:
+    """Hold B1's (M, V, upd) to a CPU copy's: M and V to the bit; upd to
+    the bit or within rtol 1e-6, for torch's CPU f32 sqrt, which is not
+    always correctly rounded (the values apart are counted and printed).
+    Returns the line's text."""
+    import torch
+    for name, a, c in zip(("M", "V"), host[:2], got[:2]):
+        if a is not None and not torch.equal(a, c.cpu()):
+            raise AssertionError(f"B1's {name} is not bit-equal to a CPU copy "
+                                 f"(max_abs_err {max_err([a], [c.cpu()])})")
+    upd = got[2].cpu()
+    differ = int((upd != host[2]).sum())
+    rel = float(((upd - host[2]).abs() / host[2].abs()).nan_to_num().max())
+    torch.testing.assert_close(upd, host[2], rtol=1e-6, atol=0.0)
+    return (f"M and V bit-equal to a CPU copy; upd {differ} of "
+            f"{upd.numel()} values apart from it, max rel diff {rel} "
+            f"(torch's CPU sqrt)")
+
+
+def phase_full_width_b1_b4(dev, seed: int) -> None:
+    """B1 as the ``tiled`` path calls it (``ops.adam_rows_tiled``: dedup,
+    addressing, B1 with its per-position output) on a full-width zipf
+    batch into ``SketchHParams()`` sketches with random moments, against
+    the same call on a CPU copy; two runs on the card equal to the bit.
+    B4 on the same batch into the same sketch, bit-equal to
+    ``ref.cs_query_ref``."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.cs_query import cs_query
+    hp = SketchHParams()
+    spec_m = hp.spec("sparse_embedding", (VOCAB, D_MODEL), signed=True)
+    spec_v = hp.spec("sparse_embedding", (VOCAB, D_MODEL), signed=False)
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    M = torch.randn(spec_m.shape, generator=gen, device=dev) * 1e-3
+    V = torch.rand(spec_v.shape, generator=gen, device=dev) * 1e-6
+    ids = torch.from_numpy(zipf_ids(np.random.RandomState(seed + 7), 1)[0]
+                           ).to(dev)
+    g = torch.randn((ids.numel(), D_MODEL), generator=gen, device=dev) * 1e-3
+    kw = dict(lr=-1.0, b1=0.9, b2=0.999, eps=1e-8)
+    got = ops.adam_rows_tiled(spec_m, spec_v, M.clone(), V.clone(), ids, g,
+                              STEPS, **kw)
+    again = ops.adam_rows_tiled(spec_m, spec_v, M.clone(), V.clone(), ids, g,
+                                STEPS, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    host = ops.adam_rows_tiled(spec_m, spec_v, *on_cpu([M, V, ids, g]),
+                               STEPS, **kw)
+    line = b1_vs_cpu(host, got)
+    log(f"phase 2: B1 as the tiled path calls it, {ids.numel()} zipf ids "
+        f"({len(set(ids.tolist()))} unique) into {spec_m.shape} sketches: "
+        f"{line}; a second run equal to the bit {same}")
+    if not same:
+        raise AssertionError("two runs of the tiled path differ")
+    del got, again, host
+    b, s = spec_m.family.bucket(ids), spec_m.family.sign(ids)
+    for signed in (True, False):
+        out = cs_query(M if signed else V, b, s if signed else None)
+        if not torch.equal(out, ref.cs_query_ref(M if signed else V, b,
+                                                  s if signed else None)):
+            raise AssertionError(f"B4 at full width is not bit-equal, "
+                                 f"signed={signed}")
+    log(f"phase 2: B4 cs_query k={ids.numel()} into {spec_m.shape}, signed "
+        f"and unsigned: bit-equal to ref.cs_query_ref")
 
 
 def hazard_buckets(k: int, dists, dev):
@@ -575,14 +660,18 @@ def phase_main(dev, seed: int):
         f"after {fresh_after}")
     log(f"phase 3: per-step batch loss (not required to fall) {losses}")
     log(f"phase 3: kernel launches {counts}")
-    if counts["cs_adam_tiled"] <= 0:
-        raise AssertionError("the main path did not launch B1")
+    if counts["cs_adam_tiled"] != STEPS or counts["cs_update"] != STEPS \
+            or counts["bucket_csr"] != STEPS:
+        raise AssertionError(f"the main path did not launch B1, its CSR and "
+                             f"the dedup sum (B5) once a step: {counts}")
     if not held_after < held_before:
         raise AssertionError("the loss did not fall")
     if not (torch.isfinite(table).all() and torch.isfinite(state["m"]).all()
             and torch.isfinite(state["v"]).all()):
         raise AssertionError("non-finite table or sketch")
     phase_witness(dev, table0, target, batches, table, losses)
+    phase_repeat(dev, step_fn, opt, table0, target, batches, table, state,
+                 losses)
     phase_dense_vs_sparse(dev, table0, target, batches, table, losses)
     dense_table = run_dense(adam(LR), table0, target, batches, dev)[0]
     log(f"phase 3e: dense Adam (optimizers.adam, lr {LR}) on the same "
@@ -595,7 +684,8 @@ def phase_main(dev, seed: int):
     more = zipf_ids(np.random.RandomState(seed + 30), 5)
     table, state, _, _ = profile_steps(
         "phase 3c", lambda: run_steps(step_fn, table, target, state, more,
-                                      dev), statistics.median(ms[1:]))
+                                      dev), statistics.median(ms[1:]),
+        by_name=True)
     return (table, target, state, batches[-1], counts,
             (held_before, held_after))
 
@@ -614,16 +704,47 @@ def phase_witness(dev, table0, target, batches, tiled_table, tiled_losses):
                                           opt.init(), batches, dev)
     rel = max(abs(a - b) / abs(b) for a, b in zip(tiled_losses, losses))
     err = float((table - tiled_table).abs().max())
+    bit = losses == tiled_losses and torch.equal(table, tiled_table)
     log(f"phase 3b: plain xla, same {len(batches)} batches at full width: "
         f"ms/step median {statistics.median(ms[1:])}; per-step batch loss "
         f"{losses}")
     log(f"phase 3b: tiled vs plain xla: per-batch loss max rel diff {rel}, "
         f"table max_abs_err {err} (rtol {WITNESS_TOL['rtol']}, atol "
-        f"{WITNESS_TOL['atol']})")
+        f"{WITNESS_TOL['atol']}); losses and table equal to the bit {bit}")
     torch.testing.assert_close(torch.tensor(tiled_losses),
                                torch.tensor(losses), rtol=WITNESS_TOL["rtol"],
                                atol=0.0)
     torch.testing.assert_close(tiled_table, table, **WITNESS_TOL)
+
+
+def phase_repeat(dev, step_fn, opt, table0, target, batches, table, state,
+                 losses):
+    """3f: phase 3's batches again from the same start: the table, both
+    sketches and the losses must be phase 3's to the bit.  Then one more
+    step of that copy under ``torch.cuda.set_sync_debug_mode("error")``:
+    a step that waited for the device would raise."""
+    import torch
+    t2, s2, losses2, _ = run_steps(step_fn, table0.clone(), target,
+                                   opt.init(), batches, dev)
+    same = {"table": torch.equal(table, t2),
+            "m": torch.equal(state["m"], s2["m"]),
+            "v": torch.equal(state["v"], s2["v"]),
+            "losses": losses == losses2}
+    log(f"phase 3f: phase 3's {len(batches)} tiled steps again from the "
+        f"same start: equal to the bit {same}")
+    if not all(same.values()):
+        raise AssertionError(f"two runs of the tiled steps differ: {same}")
+    ids = torch.from_numpy(batches[0]).to(dev)
+    rows = t2[ids.long()] - target[ids.long()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_fn(t2, s2, ids, rows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("phase 3f: one tiled step under torch.cuda.set_sync_debug_mode("
+        "'error'): no host-device synchronisation")
 
 
 def run_dense(opt, table0, target, batches, dev):
@@ -676,12 +797,10 @@ def phase_dense_vs_sparse(dev, table0, target, batches, tiled_table,
     torch.testing.assert_close(table, tiled_table, **WITNESS_TOL)
 
 
-def profile_steps(tag: str, run, step_ms: float, n: int = 5):
-    """``run()``, which drives ``n`` steps and synchronises, under
-    ``torch.profiler``: the device's busy time a step and the kernels that
-    take it.  The idle share is taken against ``step_ms``, the unprofiled
-    step time, since the profiler slows the host.  Returns ``run()``'s
-    result."""
+def kernel_profile(run):
+    """``run()``, which synchronises, under ``torch.profiler``.  Returns
+    (its result, wall ms, [(device ms, launches, name)] of every device
+    operation, most time first)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -698,17 +817,34 @@ def profile_steps(tag: str, run, step_ms: float, n: int = 5):
                      getattr(evt, "self_cuda_time_total", 0.0))
         kernels.append((us / 1e3, evt.count, evt.key))
     kernels.sort(reverse=True)
+    return out, wall_ms, kernels
+
+
+def profile_steps(tag: str, run, step_ms: float, n: int = 5,
+                  by_name: bool = False):
+    """``run()``, which drives ``n`` steps and synchronises, under
+    ``torch.profiler``: the device's busy time a step, its launches (device
+    operations) a step, and the kernels that take the time (with
+    ``by_name``, every kernel's launches a step).  The idle share is taken
+    against ``step_ms``, the unprofiled step time, since the profiler slows
+    the host.  Returns ``run()``'s result."""
+    out, wall_ms, kernels = kernel_profile(run)
     busy_ms = sum(k[0] for k in kernels)
     if busy_ms <= 0.0:
         log(f"{tag}: device busy time not measured (the profiler saw no "
             f"CUDA kernels)")
         return out
+    launches = sum(k[1] for k in kernels)
     log(f"{tag}: {n} steps under torch.profiler: wall {wall_ms} ms, "
         f"device busy {busy_ms} ms ({busy_ms / n} ms a step); idle share "
         f"{1.0 - busy_ms / n / step_ms} against the unprofiled step of "
-        f"{step_ms} ms ({1.0 - busy_ms / wall_ms} with the profiler on)")
+        f"{step_ms} ms ({1.0 - busy_ms / wall_ms} with the profiler on); "
+        f"{launches / n} launches a step")
     for ms, count, name in kernels[:10]:
         log(f"{tag}:   {ms} ms  x{count}  {name[:90]}")
+    if by_name:
+        per_step = {name: count / n for _ms, count, name in kernels}
+        log(f"{tag}: launches a step by kernel name {json.dumps(per_step)}")
     return out
 
 
@@ -834,7 +970,8 @@ def phase_times(dev, table, target, state, ids_np, seed: int,
     from repro_torch.core.optimizers import SketchHParams
     from repro_torch.kernels import dedup as dd, ops, ref
     from repro_torch.kernels.cs_adam import cs_adam_fused
-    from repro_torch.kernels.cs_adam_tiled import (cs_adam_tiled,
+    from repro_torch.kernels.cs_adam_tiled import (at_positions,
+                                                   cs_adam_tiled,
                                                    cs_adam_tiled_plain)
     from repro_torch.kernels.cs_update import bucket_prev
     from repro_torch.train.steps import sparse_embedding_stores
@@ -850,34 +987,71 @@ def phase_times(dev, table, target, state, ids_np, seed: int,
     batch = dd.dedup_rows(ids, rows)
     bm, sm, bv = ops._adam_addressing(spec_m, spec_v, batch.unique_ids)
     k_u = int(batch.n_unique)
+    pos = (batch.inv, batch.first_pos)
     args = (state["m"], state["v"], bm, sm, bv, batch.rows)
+    b1kw = dict(n_valid=batch.n_unique, positions=pos, **kw)
     want = cs_adam_tiled_plain(*clone(args), n_valid=batch.n_unique, **kw)
-    got = cs_adam_tiled(*clone(args), n_valid=batch.n_unique, **kw)
-    err = max_err(want, got)
-    upd_bit = torch.equal(want[2], got[2])
+    got = cs_adam_tiled(*clone(args), **b1kw)
+    err = max_err(want[:2], got[:2])
+    upd_bit = torch.equal(at_positions(want[2], batch.first_pos), got[2])
+    host = cs_adam_tiled(*on_cpu(args), n_valid=batch.n_unique.cpu(),
+                         positions=on_cpu(pos), **kw)
+    line = b1_vs_cpu(host, got)
     if not (upd_bit and err <= COLLISION_ATOL):
-        raise AssertionError(f"B1 at main-path shapes: upd bit-equal "
-                             f"{upd_bit}, max_abs_err {err}")
+        raise AssertionError(f"B1 at main-path shapes: upd bit-equal to the "
+                             f"plain version on the card {upd_bit}, M and V "
+                             f"max_abs_err {err}")
+    del want, got, host
     scratch = clone(args)
-    ms = cuda_ms(lambda: cs_adam_tiled(*scratch, n_valid=batch.n_unique,
-                                       **kw), reps=20, warmup=3)
+    ms = cuda_ms(lambda: cs_adam_tiled(*scratch, **b1kw), reps=20, warmup=3)
+    b1_prof = kernel_profile(
+        lambda: [cs_adam_tiled(*scratch, **b1kw) for _ in range(5)]
+        + [torch.cuda.synchronize()])[2]
+    b1_launches = sum(c for _ms, c, _n in b1_prof) / 5
+    b1_parts = {name: t / 5 for t, _c, name in b1_prof}
     plain_ms = cuda_ms(lambda: cs_adam_tiled_plain(
         *scratch, n_valid=batch.n_unique, **kw), reps=5)
+    # the tiled backend as the step calls it: ids and rows in, the update
+    # per input position out (dedup, hashing, B1)
+    def called():
+        return ops.adam_rows_tiled(spec_m, spec_v, scratch[0], scratch[1],
+                                   ids, rows, STEPS, lr=-1.0)
+    called_ms = cuda_ms(called, reps=20, warmup=3)
+    _o, _w, prof = kernel_profile(
+        lambda: [called() for _ in range(5)] + [torch.cuda.synchronize()])
+    called_busy = sum(p[0] for p in prof) / 5
+    called_launches = sum(p[1] for p in prof) / 5
+    called_top = {name: t / 5 for t, _c, name in prof[:6]}
     depth = spec_v.depth
-    nbytes = (4 * D_MODEL * 2 * k_u
-              + 4 * D_MODEL * 2 * (unique_rows(bm, k_u, spec_m.width)
-                                   + unique_rows(bv, k_u, spec_v.width))
-              + 4 * 3 * depth * k_u + 4)
+    k = int(ids.numel())
+    rows_m = unique_rows(bm, k_u, spec_m.width)
+    rows_v = unique_rows(bv, k_u, spec_v.width)
+    # live gradient rows read, output rows written, touched M and V rows
+    # read and written, the live slots' addressing, inv, first_pos, n_valid
+    nbytes = (4 * D_MODEL * (k_u + k) + 4 * D_MODEL * 2 * (rows_m + rows_v)
+              + 4 * (3 * depth * k_u + 2 * k + 1))
     out.append(dict(name="cs_adam_tiled", route="cuda",
                     source="src/repro_torch/kernels/csrc/cs_adam_tiled.cu",
                     replaces="src/repro/kernels/cs_adam_tiled.py:153",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                    bound_by="bytes", library_ms=None, k=int(ids.numel()),
-                    k_unique=k_u, bytes=nbytes))
-    log(f"phase 5: B1 k_u={k_u} (of {ids.numel()}): {ms} ms, plain "
-        f"{plain_ms} ms, bound {out[-1]['bound_ms']} ms ({nbytes} B at "
-        f"3.35 TB/s); vs plain upd bit-equal, max_abs_err {err}")
+                    bound_by="bytes", library_ms=None, k=k, k_unique=k_u,
+                    touched_rows_m=rows_m, touched_rows_v=rows_v,
+                    bytes=nbytes, launches_per_call=b1_launches,
+                    device_ms_by_kernel=b1_parts, as_called_ms=called_ms,
+                    as_called_busy_ms=called_busy,
+                    as_called_launches=called_launches))
+    log(f"phase 5: B1 k_u={k_u} (of {k}): {ms} ms ({b1_launches} device "
+        f"launches a call), plain {plain_ms} ms, bound "
+        f"{out[-1]['bound_ms']} ms ({nbytes} B at 3.35 TB/s: 4 B x "
+        f"{D_MODEL} x (k_u + k + 2 x ({rows_m} M rows + {rows_v} V rows)) "
+        f"+ 4 B x (9 k_u + 2 k + 1)); {line}; M and V max_abs_err {err} vs "
+        f"the plain version on the card, upd bit-equal to it")
+    log(f"phase 5: B1's device ms a call by kernel {json.dumps(b1_parts)}")
+    log(f"phase 5: ops.adam_rows_tiled as called (ids and rows in, the "
+        f"update per input position out): {called_ms} ms, device busy "
+        f"{called_busy} ms, {called_launches} device launches a call; its "
+        f"costliest kernels (ms a call) {json.dumps(called_top)}")
     # B2 at the inputs the stream backend gives it: the raw ids, in order;
     # its time includes the two CSR launches that find each item's prev
     bm, sm, bv = ops._adam_addressing(spec_m, spec_v, ids)
@@ -1168,7 +1342,7 @@ def time_sketch_ops(dev, sketch_ops) -> list:
     out.append(dict(name="cs_update", route="cuda",
                     source="src/repro_torch/kernels/csrc/cs_update.cu",
                     replaces="src/repro/kernels/cs_update.py:58",
-                    launches=counts["cs_update"], max_abs_err=err, ms=ms,
+                    max_abs_err=err, ms=ms,
                     plain_ms=plain_ms,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     bound_by="bytes", library_ms=library_ms, k=k,
@@ -1497,15 +1671,18 @@ def phase_dense_int8(dev, task):
 def phase_sparse_bf16(dev, seed: int, held3):
     """bf16 cells on phase 3's sparse-rows batches, backend ``tiled``:
     low-precision cells run the whole-batch ``xla`` form as in the
-    reference, so no B1 launches.  Prints the held loss beside phase
-    3's."""
+    reference, so no B1 launches; its colliding sums go through B5.
+    Prints the held loss beside phase 3's.  The 20 steps run twice from
+    the same start must give the same table and sketches to the bit
+    (stochastic rounding turns any change of sum order into a whole
+    bf16 ulp)."""
     import torch
     from repro_torch.core.optimizers import SketchHParams
     from repro_torch.train.steps import make_sparse_embedding_step
     init_fn, step_fn, opt = make_sparse_embedding_step(
         VOCAB, D_MODEL, lr=LR, device=dev,
         hparams=SketchHParams(backend="tiled", dtype="bfloat16"))
-    table = init_fn(torch.Generator(device=dev).manual_seed(seed))
+    table0 = init_fn(torch.Generator(device=dev).manual_seed(seed))
     target = init_fn(torch.Generator(device=dev).manual_seed(seed + 1))
     batches = zipf_ids(np.random.RandomState(seed), STEPS)
     held = torch.from_numpy(batches[0]).to(dev).long()
@@ -1514,20 +1691,35 @@ def phase_sparse_bf16(dev, seed: int, held3):
         rows = tab[held] - target[held]
         return float(torch.mean(rows * rows))
 
-    before = loss_on(table)
-    state = opt.init()
+    before = loss_on(table0)
     reset_counts()
-    table, state, losses, ms = run_steps(step_fn, table, target, state,
-                                         batches, dev)
+    table, state, losses, ms = run_steps(step_fn, table0.clone(), target,
+                                         opt.init(), batches, dev)
     counts = read_counts()
     after = loss_on(table)
+    table2, state2, losses2, _ = run_steps(step_fn, table0, target,
+                                           opt.init(), batches, dev)
+    same = {"table": torch.equal(table, table2),
+            "m": torch.equal(state["m"].view(torch.int16),
+                             state2["m"].view(torch.int16)),
+            "v": torch.equal(state["v"].view(torch.int16),
+                             state2["v"].view(torch.int16)),
+            "losses": losses == losses2}
     log(f"phase 7c: phase 3's {STEPS} sparse-rows batches with bf16 sketch "
         f"cells ({state['v'].dtype}, {sketch_bytes(state['v'])} B per "
         f"moment), backend tiled: ms/step median {statistics.median(ms[1:])}; "
         f"loss on the first batch's ids {before} -> {after} (f32, phase 3: "
-        f"{held3[0]} -> {held3[1]}); launches {counts}")
-    if any(counts.values()):
-        raise AssertionError(f"bf16 sparse rows launched kernels: {counts}")
+        f"{held3[0]} -> {held3[1]}); launches {counts}; run twice from the "
+        f"same start, equal to the bit {same}")
+    if counts["cs_adam_tiled"]:
+        raise AssertionError(f"bf16 sparse rows launched B1: {counts}")
+    if counts["cs_update"] != 3 * STEPS:
+        raise AssertionError(f"bf16 sparse rows: {counts['cs_update']} B5 "
+                             f"launches, not 3 a step (the dedup sum and "
+                             f"both moments)")
+    if not all(same.values()):
+        raise AssertionError(f"two runs of the bf16 sparse steps differ: "
+                             f"{same}")
     if not after < before:
         raise AssertionError("the bf16 sparse path's loss did not fall")
     if not torch.isfinite(table).all():
@@ -1612,6 +1804,7 @@ def main(argv=None) -> int:
             log(f"phase 1:   {line.strip()}")
     phases = [
         ("2", lambda: (phase_kernels(dev, args.seed),
+                       phase_full_width_b1_b4(dev, args.seed),
                        phase_csr_and_hazards(dev, args.seed),
                        phase_sketch_kernels(dev, args.seed),
                        phase_bf16_kernel(dev, args.seed))),
@@ -1637,8 +1830,13 @@ def main(argv=None) -> int:
                 "cs_adam_fused": out["4"]["cs_adam_fused"],
                 "cs_ema_tiled": out["6"][0]["cs_ema_tiled"],
                 "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"],
-                # prev for B2, B5's CSR, and B3's cached dense-row CSR
-                "bucket_csr": (out["4"]["bucket_csr"]
+                # the main path's dedup sums, and the sketch ops' update
+                "cs_update": (out["3"][4]["cs_update"]
+                              + out["4 (sketch ops)"][4]["cs_update"]),
+                # B1's CSR on the main path, prev for B2, B5's CSR in the
+                # sketch ops, and B3's cached dense-row CSR
+                "bucket_csr": (out["3"][4]["bucket_csr"]
+                               + out["4"]["bucket_csr"]
                                + out["4 (sketch ops)"][4]["bucket_csr"]
                                + out["6"][0]["bucket_csr"])}
     for row in kernels:

@@ -10,11 +10,14 @@ The reference hashes with wrapping ``uint32`` arithmetic.  PyTorch's
 here is a ``uint32`` held in an ``int64`` tensor and masked with
 ``& 0xFFFFFFFF`` after each step.  A 32×32-bit product is split at 16 bits
 so that no ``int64`` product overflows.  Hashing runs on the device of
-``ids``.
+``ids``; each family's (a, b) parameters are drawn once and kept on each
+device that hashes with them, so a call copies nothing from the host and
+never waits for the device.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -99,9 +102,9 @@ class HashFamily:
 
     def _rows_params(self, ids: torch.Tensor):
         """(a, b) as int64 tensors shaped (depth, 1, ..., 1) for ``ids``."""
-        p = torch.as_tensor(self.params.astype(np.int64), device=ids.device)
+        a, b = _params_on(self, ids.device)
         shape = (self.depth,) + (1,) * ids.dim()
-        return p[:, 0].reshape(shape), p[:, 1].reshape(shape)
+        return a.reshape(shape), b.reshape(shape)
 
     def owner(self, ids: torch.Tensor) -> torch.Tensor:
         """Owning shard per id, int32 in [0, shards) (hash layout or
@@ -135,3 +138,12 @@ class HashFamily:
         x = (_u32(ids) + _GOLDEN) & _MASK
         h = _mix((_mul32(x[None], b) + a) & _MASK)
         return torch.where((h >> 31) == 0, 1.0, -1.0).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _params_on(family: HashFamily, device: torch.device):
+    """A family's (a, b) as (depth,) int64 tensors on ``device``: drawn and
+    copied once per (family, device).  The copy to a card waits for it,
+    so it must not happen inside a step."""
+    p = torch.as_tensor(family.params.astype(np.int64), device=device)
+    return p[:, 0].contiguous(), p[:, 1].contiguous()

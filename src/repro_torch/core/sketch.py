@@ -12,8 +12,11 @@ The batched step reads the pre-step sketch, then scatter-adds:
 
 ``update`` writes ``S`` IN PLACE and returns it.  On the CPU
 ``index_add_`` adds colliding rows one after another in batch order, as
-XLA does, so the result is the reference's to the bit.  On CUDA it adds
-them with atomics, whose order varies from run to run.
+XLA does, so the result is the reference's to the bit.  On CUDA the sums
+go through B5's run scatter (``kernels/cs_update.py``), which adds each
+bucket's rows in the same batch order, with no atomics: the CPU's bits,
+run after run, at every cell dtype (f32 cells directly, bf16 increments
+summed from zero, int8 into the dequantized sketch).
 
 Cells are float32, bfloat16 or int8 (``core.quantize``).  Low-precision
 cells are read in f32 (bf16 widened, int8 times its block's scale, an
@@ -229,17 +232,35 @@ def _signed_rows(spec: SketchSpec, ids: torch.Tensor, delta: torch.Tensor,
     return [s[j][:, None] * delta for j in range(spec.depth)]
 
 
-def _update_quant(spec: SketchSpec, S: QuantState, b: torch.Tensor,
-                  upd: List[torch.Tensor], sr_seed: int) -> QuantState:
+def _add_rows(spec: SketchSpec, acc: torch.Tensor, ids: torch.Tensor,
+              b: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Add ``s_j·delta`` (or ``delta``) at buckets ``b`` into the f32
+    tensor ``acc`` (depth, width, dim), IN PLACE, in batch order: row by
+    row with ``index_add_`` on the CPU, B5's run scatter on CUDA."""
+    if acc.device.type == "cuda":
+        from repro_torch.kernels.cs_update import cs_update
+        signs = spec.family.sign(ids) if spec.signed else None
+        return cs_update(acc, b, signs,
+                         delta.to(torch.float32).contiguous())
+    upd = _signed_rows(spec, ids, delta, torch.float32)
+    bl = b.long()
+    for j in range(spec.depth):
+        acc[j].index_add_(0, bl[j], upd[j])
+    return acc
+
+
+def _update_quant(spec: SketchSpec, S: QuantState, ids: torch.Tensor,
+                  b: torch.Tensor, delta: torch.Tensor,
+                  sr_seed: int) -> QuantState:
     """int8 UPDATE, in place: dequantize, add in f32, grow the block
     scales, re-round the touched buckets and every bucket of a block whose
     scale grew; the other cells keep their exact int8 values."""
     w = spec.width
-    new = qz.dequantize(S, spec.scale_block)
+    new = _add_rows(spec, qz.dequantize(S, spec.scale_block), ids, b, delta)
     touched = torch.zeros((spec.depth, w), dtype=torch.bool, device=b.device)
+    bl = b.long()
     for j in range(spec.depth):
-        new[j].index_add_(0, b[j], upd[j])
-        touched[j, b[j]] = True
+        touched[j, bl[j]] = True
     scales = qz.grown_scales(S.scales, new, spec.scale_block)
     grew = qz.expand_scales(scales > S.scales, w, spec.scale_block)
     need = (touched | grew)[:, :, None]
@@ -256,23 +277,17 @@ def update(spec: SketchSpec, S, ids: torch.Tensor, delta: torch.Tensor,
     IN PLACE; colliding ids accumulate.  Low-precision writes round
     stochastically with ``sr_seed`` (None: the step-0 seed).  Returns
     ``S``."""
-    b = spec.family.bucket(ids).long()
+    b = spec.family.bucket(ids)
     if spec.quantized:
-        upd = _signed_rows(spec, ids, delta, torch.float32)
-        return _update_quant(spec, S, b, upd,
+        return _update_quant(spec, S, ids, b, delta,
                              sr_seed_or_default(spec, sr_seed))
     if spec.lowp:
-        upd = _signed_rows(spec, ids, delta, torch.float32)
-        inc = torch.zeros(spec.shape, dtype=torch.float32, device=S.device)
-        for j in range(spec.depth):
-            inc[j].index_add_(0, b[j], upd[j])
+        inc = _add_rows(spec, torch.zeros(spec.shape, dtype=torch.float32,
+                                          device=S.device), ids, b, delta)
         bits = qz.cell_bits(sr_seed_or_default(spec, sr_seed),
                             qz._lin_index(spec.shape, device=S.device))
         return S.copy_(qz.sr_bfloat16(S.to(torch.float32) + inc, bits))
-    upd = _signed_rows(spec, ids, delta, S.dtype)
-    for j in range(spec.depth):
-        S[j].index_add_(0, b[j], upd[j])
-    return S
+    return _add_rows(spec, S, ids, b, delta)
 
 
 def update_and_query(spec: SketchSpec, S, ids: torch.Tensor,

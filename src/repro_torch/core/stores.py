@@ -111,10 +111,22 @@ class DenseStore(AuxStore):
                            device=device)
 
     def accumulate(self, state, delta, rows=None, *, scale: float = 1.0):
+        """Add ``scale*delta`` IN PLACE, at ``rows`` when given (repeated
+        rows accumulate in batch order).  An f32 state of two or more
+        dimensions on CUDA adds its rows by B5's run scatter, with no
+        atomics: the CPU ``index_add_``'s bits on every run."""
         if scale != 1.0:
             delta = scale * delta
         if rows is None:
             return state.add_(delta)
+        if state.device.type == "cuda" and state.dtype == torch.float32 \
+                and state.dim() >= 2:
+            from repro_torch.kernels.cs_update import cs_update
+            n, k = state.shape[0], rows.numel()
+            cs_update(state.view(1, n, -1),
+                      rows.to(torch.int32).reshape(1, k), None,
+                      delta.to(torch.float32).reshape(k, -1).contiguous())
+            return state
         return state.index_add_(0, rows.long(), delta.to(state.dtype))
 
     def decay(self, state, beta):

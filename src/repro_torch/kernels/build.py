@@ -40,10 +40,10 @@ LIB_NAME = "libcs_kernels.so"
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
-    # M, V, bm, sm, bv, g, n_valid, upd, dm, dv,
-    # depth_m, width_m, depth_v, width_v, k, d,
+    # M, V, bm, sm, bv, g, n_valid, inv, first_pos, upd, dm, dv, order,
+    # starts, buckets, depth_m, width_m, depth_v, width_v, k, d,
     # lr, 1-b1, 1-b2, eps, bc1, bc2, stream
-    "cs_adam_tiled_launch": [P] * 10 + [I] * 6 + [F] * 6 + [P],
+    "cs_adam_tiled_launch": [P] * 15 + [I] * 6 + [F] * 6 + [P],
     # M, V, bm, sm, bv, prev_m, prev_v, g, upd,
     # depth_m, width_m, depth_v, width_v, k, d,
     # lr, 1-b1, 1-b2, eps, bc1, bc2, stream

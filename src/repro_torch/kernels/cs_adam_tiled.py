@@ -1,17 +1,27 @@
 """B1 · batch-parallel CS-Adam over deduplicated rows (backend ``tiled``).
 
 Replaces the TPU kernel ``repro/kernels/cs_adam_tiled.py::cs_adam_tiled``.
-The CUDA kernel (``csrc/cs_adam_tiled.cu``) runs one batch for the whole
-step, the semantics of the reference's ``xla`` backend: every estimate
-reads the pre-step sketches and the writes accumulate.  The TPU kernel
-streams across tiles of 8 rows; on a batch with no bucket collisions the
-two agree exactly, and under collisions they differ by estimator noise
-(see ``tests/test_backends.py`` of the reference).  Its scatter uses fp32
-atomics: colliding adds land in an order that varies from run to run.
+The CUDA kernels run one batch for the whole step, the semantics of the
+reference's ``xla`` backend: every estimate reads the pre-step sketches
+and the writes accumulate.  The TPU kernel streams across tiles of 8
+rows; on a batch with no bucket collisions the two agree exactly, and
+under collisions they differ by estimator noise (see
+``tests/test_backends.py`` of the reference).
+
+A call is one ``bucket_csr`` launch over the stacked M and V buckets,
+then the read launch (``csrc/cs_adam_tiled.cu``: the estimates, Δm and
+Δv into a scratch, the update, and the new value of every cell whose
+CSR run holds one row) and one launch of B5's run scatter
+(``csrc/cs_update.cu``), which adds each longer run's live rows in row
+order from the old cell.  No atomics: M and V are bit-equal to the plain
+version run on the CPU under any collisions, and two runs give the same
+bits.  Given the dedup batch's ``positions`` (``inv``, ``first_pos``),
+the read writes the update straight to the per-input-position output,
+as ``dedup.scatter_back`` would place it.
 
 ``cs_adam_tiled_plain`` is the plain PyTorch version, the whole-batch form
 of ``ops.adam_rows_xla`` on bucket/sign arrays.  The wrapper runs it only
-for CPU tensors; for CUDA tensors it launches the kernel or raises.
+for CPU tensors; for CUDA tensors it launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.cs_update import bucket_csr
 
 
 def cs_adam_tiled_plain(M: Optional[torch.Tensor], V: torch.Tensor,
@@ -70,11 +81,22 @@ def geometry(name: str, M, V, bm, sm, bv, g):
     return k, d, depth_m, width_m, depth_v, width_v
 
 
+def at_positions(upd: torch.Tensor, first_pos: torch.Tensor) -> torch.Tensor:
+    """Slot-aligned updates (k, d) placed per input position: slot u's at
+    ``first_pos[u]``, zeros elsewhere; padding slots (``first_pos`` k)
+    land nowhere (``dedup.scatter_back``)."""
+    k = upd.shape[0]
+    out = torch.zeros((k + 1,) + tuple(upd.shape[1:]), dtype=upd.dtype,
+                      device=upd.device)
+    out.index_copy_(0, first_pos.long(), upd)
+    return out[:k]
+
+
 def cs_adam_tiled(M: Optional[torch.Tensor], V: torch.Tensor,
                   bm: Optional[torch.Tensor], sm: Optional[torch.Tensor],
                   bv: torch.Tensor, g: torch.Tensor, *,
                   lr: float, b1: float, b2: float, eps: float,
-                  bc1: float, bc2: float, n_valid=None
+                  bc1: float, bc2: float, n_valid=None, positions=None
                   ) -> Tuple[Optional[torch.Tensor], torch.Tensor,
                              torch.Tensor]:
     """Batch-parallel CS-Adam over ``k`` deduplicated rows.
@@ -83,11 +105,16 @@ def cs_adam_tiled(M: Optional[torch.Tensor], V: torch.Tensor,
     int32/f32; bv (dv, k) int32, buckets in range (as ``HashFamily``
     makes them); g (k, d) f32.  ``n_valid`` (int or a device int32
     scalar; default k): rows at or past it are padding, add nothing and
-    get zero updates.  M and V are updated IN PLACE.  Returns
-    ``(M, V, upd)``."""
+    get zero updates.  ``positions``: the dedup batch's ``(inv,
+    first_pos)``, (k,) int32 each; the update then comes back per input
+    position (``dedup.scatter_back``'s layout), else per row of g.  M and
+    V are updated IN PLACE.  Returns ``(M, V, upd)``."""
     if V.device.type == "cpu":
-        return cs_adam_tiled_plain(M, V, bm, sm, bv, g, lr=lr, b1=b1, b2=b2,
-                                   eps=eps, bc1=bc1, bc2=bc2, n_valid=n_valid)
+        M, V, upd = cs_adam_tiled_plain(M, V, bm, sm, bv, g, lr=lr, b1=b1,
+                                        b2=b2, eps=eps, bc1=bc1, bc2=bc2,
+                                        n_valid=n_valid)
+        return M, V, (upd if positions is None
+                      else at_positions(upd, positions[1]))
     dev = V.device
     if dev.type != "cuda":
         raise ValueError(f"cs_adam_tiled: no kernel for device {dev}")
@@ -98,8 +125,18 @@ def cs_adam_tiled(M: Optional[torch.Tensor], V: torch.Tensor,
                         dtype=torch.int32, device=dev)
     else:
         nv = n_valid.reshape(1)
+    inv, first_pos = positions if positions is not None else (None, None)
+    if positions is not None and not (tuple(inv.shape) == (k,)
+                                      == tuple(first_pos.shape)):
+        raise ValueError(f"cs_adam_tiled: positions {tuple(inv.shape)}, "
+                         f"{tuple(first_pos.shape)} and g {tuple(g.shape)} "
+                         f"disagree")
     build.check_cuda_inputs("cs_adam_tiled", dev, M=M, V=V, bm=bm, sm=sm,
-                            bv=bv, g=g, n_valid=nv)
+                            bv=bv, g=g, n_valid=nv, inv=inv,
+                            first_pos=first_pos)
+    # one CSR over the stacked buckets of both moments
+    both = torch.cat([bm, bv]) if M is not None else bv
+    order, starts = bucket_csr(both, max(width_m, width_v))
     upd = torch.empty((k, d), dtype=torch.float32, device=dev)
     dm = torch.empty_like(upd) if M is not None else None
     dv = torch.empty_like(upd)
@@ -107,10 +144,12 @@ def cs_adam_tiled(M: Optional[torch.Tensor], V: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.cs_adam_tiled_launch(
             build.ptr(M), build.ptr(V), build.ptr(bm), build.ptr(sm),
-            build.ptr(bv), build.ptr(g), build.ptr(nv), build.ptr(upd),
-            build.ptr(dm), build.ptr(dv), depth_m, width_m, depth_v, width_v,
-            k, d, _f32(lr), _f32(1.0 - b1), _f32(1.0 - b2), _f32(eps),
-            _f32(bc1), _f32(bc2), build.stream_handle(dev))
+            build.ptr(bv), build.ptr(g), build.ptr(nv), build.ptr(inv),
+            build.ptr(first_pos), build.ptr(upd), build.ptr(dm),
+            build.ptr(dv), build.ptr(order), build.ptr(starts),
+            build.ptr(both), depth_m, width_m, depth_v, width_v, k, d,
+            _f32(lr), _f32(1.0 - b1), _f32(1.0 - b2), _f32(eps), _f32(bc1),
+            _f32(bc2), build.stream_handle(dev))
     build.check_launch(rc, "cs_adam_tiled")
     cs_adam_tiled.launches += 1
     return M, V, upd

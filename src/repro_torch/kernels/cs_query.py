@@ -1,14 +1,16 @@
 """B4 · batch QUERY: gather ``depth`` bucket rows per item and reduce.
 
 Replaces the TPU kernel ``repro/kernels/cs_query.py::cs_query``.  The CUDA
-kernel (``csrc/cs_query.cu``) gives each thread one (item, column): it
-gathers the item's ``depth`` cells, multiplies by the signs and takes the
+kernel (``csrc/cs_query.cu``) gives each item one block: each warp loads
+the item's buckets and signs once, and each thread gathers 16 bytes of
+every one of the ``depth`` rows (4 where d or the pointers do not allow
+16), all loads in flight before it multiplies by the signs and takes the
 median (``a+b+c-max-min`` at depth 3, a sort at other depths, the mean of
-the two middles at even depths) or, unsigned, the min.  It only gathers,
-so it is bit-equal to its plain version, ``ref.cs_query_ref``.  Bound on
-the card: bytes (each output cell reads ``depth`` sketch cells).  The
-wrapper runs the plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.
+the two middles at even depths) or, unsigned, the min: the same routine
+as B1's read.  It only gathers, so it is bit-equal to its plain version,
+``ref.cs_query_ref``.  Bound on the card: bytes (each output row reads
+``depth`` sketch rows).  The wrapper runs the plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 

@@ -17,6 +17,11 @@ its plain version ``ref.cs_update_ref`` run on the CPU, and on the card
 within rounding of that version, whose ``index_add_`` uses atomics.
 Bound on the card: bytes.  The wrappers run the plain versions only for
 CPU tensors; for CUDA tensors they launch the kernels or raise.
+
+The same run scatter makes every colliding sum of the port deterministic
+on the card: B1's scatter (M and V as two targets of one launch, from
+``csrc/cs_adam_tiled.cu``), the dedup segment sum, ``core.sketch.update``
+and ``DenseStore.accumulate`` (these three through ``cs_update``).
 """
 from __future__ import annotations
 

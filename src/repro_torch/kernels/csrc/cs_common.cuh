@@ -1,7 +1,7 @@
 // Shared device helpers of the sketch kernels: the depth-way estimators,
-// the gathered estimate of one cell, the stochastic rounding of bf16
-// cells (repro_torch/core/quantize.py), and cp.async copies from device
-// to shared memory.
+// an item's gathered sketch rows and their estimate (B1's read and B4),
+// the stochastic rounding of bf16 cells (repro_torch/core/quantize.py),
+// and cp.async copies from device to shared memory.
 //
 // Built with --fmad=false, so each add and multiply rounds on its own, in
 // the order written, exactly as the plain PyTorch versions
@@ -52,32 +52,123 @@ __device__ __forceinline__ size_t cell(int j, int b, int c, int width, int d) {
   return ((size_t)j * width + (size_t)b) * d + c;
 }
 
-// A sketch cell read as f32: f32 cells as they are, bf16 cells widened.
-__device__ __forceinline__ float load_cell(const float* S, size_t at) {
-  return S[at];
-}
-__device__ __forceinline__ float load_cell(const __nv_bfloat16* S,
-                                           size_t at) {
-  return __bfloat162float(S[at]);
+// N consecutive f32 columns of one row: N = 4 is one 16-byte access
+// (the caller checks the alignment), N = 1 the 4-byte path.
+template <int N>
+struct Lanes {
+  float v[N];
+};
+
+template <int N>
+__device__ __forceinline__ Lanes<N> load_lanes(const float* p) {
+  Lanes<N> out;
+  if constexpr (N == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    out.v[0] = q.x;
+    out.v[1] = q.y;
+    out.v[2] = q.z;
+    out.v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int t = 0; t < N; ++t) out.v[t] = p[t];
+  }
+  return out;
 }
 
-// Estimate of item r at column c from a (depth, width, d) sketch of f32
-// or bf16 cells: the depth cells at buckets b[j*k + r], read in f32,
-// times the signs s[j*k + r] and then the median when s is given, else
-// the min (ref.cs_query_ref).
-template <typename T>
-__device__ __forceinline__ float estimate(const T* __restrict__ S,
-                                          const int* __restrict__ b,
-                                          const float* __restrict__ s,
-                                          int r, int c, int depth, int width,
-                                          int d, int k) {
-  float v[kMaxDepth];
-  for (int j = 0; j < depth; ++j) {
-    const float x = load_cell(S, cell(j, b[j * k + r], c, width, d));
-    v[j] = s != nullptr ? x * s[j * k + r] : x;
+template <int N>
+__device__ __forceinline__ void store_lanes(float* p, const Lanes<N>& x) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x.v[0], x.v[1], x.v[2],
+                                                x.v[3]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < N; ++t) p[t] = x.v[t];
   }
-  return s != nullptr ? median(v, depth) : min_of(v, depth);
 }
+
+// Buckets b[j] (and signs s[j]) of the depth hash rows from the warp's
+// word, laid out as depth buckets, then depth signs when ``with_signs``.
+template <int DEPTH>
+__device__ __forceinline__ void item_addressing(int word, int depth,
+                                                bool with_signs, int base,
+                                                int (&b)[kMaxDepth],
+                                                float (&s)[kMaxDepth]) {
+#pragma unroll
+  for (int j = 0; j < kMaxDepth; ++j) {
+    if (j < (DEPTH ? DEPTH : depth)) {
+      b[j] = __shfl_sync(0xffffffffu, word, base + j);
+      s[j] = with_signs ? __int_as_float(__shfl_sync(
+                              0xffffffffu, word, base + depth + j))
+                        : 1.0f;
+    }
+  }
+}
+
+// The depth cells of one item in N columns from c: row j of the (depth,
+// width, d) sketch S at bucket b[j].  Every load is issued before any
+// value is used.
+template <int DEPTH, int N>
+__device__ __forceinline__ void gather_lanes(Lanes<N> (&cells)[kMaxDepth],
+                                             const float* __restrict__ S,
+                                             const int (&b)[kMaxDepth],
+                                             int depth, int width, int d,
+                                             int c) {
+#pragma unroll
+  for (int j = 0; j < kMaxDepth; ++j) {
+    if (j < (DEPTH ? DEPTH : depth)) {
+      cells[j] = load_lanes<N>(S + cell(j, b[j], c, width, d));
+    }
+  }
+}
+
+// Column t of gathered cells reduced over depth, as ref.cs_query_ref
+// does: each cell times its sign and the median when ``signed_``, else
+// the min.
+template <int DEPTH, int N>
+__device__ __forceinline__ float reduce_lane(
+    const Lanes<N> (&cells)[kMaxDepth], const float (&s)[kMaxDepth],
+    bool signed_, int depth_rt, int t) {
+  const int depth = DEPTH ? DEPTH : depth_rt;
+  float v[kMaxDepth];
+#pragma unroll
+  for (int j = 0; j < kMaxDepth; ++j) {
+    if (j < depth) v[j] = signed_ ? cells[j].v[t] * s[j] : cells[j].v[t];
+  }
+  return signed_ ? median(v, depth) : min_of(v, depth);
+}
+
+// Threads of a block for ``cols`` column groups: whole warps, at most
+// 256, so that every lane takes part in the addressing shuffles.
+inline int row_threads(int cols) {
+  const int w = (cols + 31) / 32 * 32;
+  return w < 256 ? w : 256;
+}
+
+// One launch of the run scatter (csrc/cs_update.cu): hash rows [0,
+// depth0) of the CSR add the rows of x0, times the signs s0 (depth0, k)
+// when given, into S0 (depth0, width0 rows of ld floats); rows [depth0,
+// depth) add the rows of x1, unsigned, into S1 (width1 rows of ld).  Both
+// add ncols columns: x0 and x1 are (k, ncols), and S0, S1 point at the
+// first column.  order (depth, k) and starts (depth, width + 1) are the
+// stable bucket CSR of buckets (depth, k); n_valid is a device int32
+// scalar (items at or past it add nothing) or null.  With skip_single,
+// runs of one item are left as they are.
+struct RunScatter {
+  float* S0;
+  const float* x0;
+  const float* s0;
+  int depth0, width0;
+  float* S1;
+  const float* x1;
+  int width1;
+  const int* order;
+  const int* starts;
+  const int* buckets;
+  const int* n_valid;
+  int depth, width, ncols, ld, k;
+  bool skip_single;
+};
+int launch_run_scatter(const RunScatter& a, cudaStream_t stream);
 
 // splitmix32 finalizer (core/hashing.py::_mix), wrapping uint32.
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -125,14 +216,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-constexpr int kThreads = 128;
-constexpr int kMaxGridY = 65535;
-
-// Grid of (column blocks, min(n, kMaxGridY)) for n rows of d columns.
-inline dim3 grid_for(int n, int d) {
-  return dim3((d + kThreads - 1) / kThreads, n < kMaxGridY ? n : kMaxGridY);
 }
 
 }  // namespace cs

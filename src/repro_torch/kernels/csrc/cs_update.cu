@@ -18,33 +18,41 @@
 //
 //   * short runs (fewer than kLong items, most of a zipf batch): the grid
 //     runs over the depth * k sorted positions, kPositions to a block; a
-//     position
-//     starts a run when starts[j][bucket] equals it, so the host sizes the
-//     grid without reading anything back, and a block whose positions
-//     start no run exits.  The block adds its runs with all threads along
-//     d (float4 when d % 4 == 0 and the pointers allow), reads a run's
-//     item indices and signs once into shared memory, and copies the item
-//     rows with cp.async into a ring, kStages-1 groups of kGroup rows ahead
-//     of the adds, so the loads are in flight together whatever the
-//     compiler schedules.
+//     position starts a run when starts[j][bucket] equals it, so the host
+//     sizes the grid without reading anything back, and a block whose
+//     positions start no run exits.  Each warp of the block adds one run
+//     at a time along d (float4 when d % 4 == 0 and the pointers allow):
+//     its lanes fetch the run's item indices and signs once, and the item
+//     rows of kCols column groups are loaded together, independent of the
+//     adds.  Most runs hold one to three items, so a run costs about two
+//     memory latencies, and the eight warps of a block add eight runs at
+//     once (a block adding one run at a time with all its threads left
+//     the card waiting on one run after another).
 //   * long runs (the zipf head: 1,500 items in one bucket): a column's
 //     adds are one chain, and one block keeps too few rows in flight for
 //     it (Little's law: a run's bytes over the rows in flight times the
 //     latency).  So the long runs are found from starts by blocks of
 //     their own, one warp for each 32-column slice on its own SM, each
 //     with a ring of about 64 rows in flight.  Those blocks come first in
-//     the grid and run beside the short runs.
+//     the grid and run beside the short runs.  A block scans kChunk
+//     buckets strided across the width, so neighbouring long runs go to
+//     different blocks: a dedup sum's heaviest slots are its first ones.
+//
+// The same launch is every colliding sum of the port on the card: B1's
+// scatter (M signed and V unsigned as two targets of one launch, each
+// run cut at the first dedup padding slot, n_valid, runs of one item
+// left to B1's read), the dedup segment sum (depth 1 over dedup's own
+// sort), core/sketch.py::update and DenseStore.accumulate (depth 1 over
+// the table's rows).
 #include "cs_common.cuh"
 
 namespace {
 
-constexpr int kBatch = 128;     // short runs: item indices staged at a time
-constexpr int kGroup = 4;       // short runs: rows a cp.async group copies
-constexpr int kStages = 4;      // short runs: groups in a thread's ring
-constexpr int kLong = 64;       // a run this long or longer is a long run
+constexpr int kThreads = 256;   // a block: 8 warps
+constexpr int kCols = 2;        // short runs: column groups a warp adds at once
+constexpr int kLong = 16;       // a run this long or longer is a long run
 constexpr int kChunk = 256;     // buckets a long-run block scans
 constexpr int kLongStages = 3;  // long runs: batches of 32 rows in the ring
-constexpr int kMaxThreads = 512;  // so that the ring fits: 128 KB of float4
 constexpr int kPositions = 16;  // sorted positions a short-run block tests
 constexpr unsigned kAll = 0xffffffffu;
 
@@ -66,60 +74,48 @@ __device__ __forceinline__ void copy(float4* smem, const float4* gmem) {
   cs::cp_async16(smem, gmem);
 }
 
-// A short run order[lo..hi) of hash row j added into the sketch row
-// ``row``.  Every thread of the block calls it; T is float or float4.
-// Each thread copies its own columns of the item rows into its slots of
-// ``ring`` (kStages * kGroup rows), kStages-1 groups ahead of the adds.
+// A short run order[lo..hi) (fewer than kLong <= 32 items) of one hash row
+// added into the sketch row ``row`` by one warp; T is float or float4.
+// Lane i fetches item i's index and sign once; then the warp walks the
+// row kCols groups of 32 columns at a time, each item's cells of those
+// columns loaded independently of the adds, which go from the old cell,
+// one item after another in item order.
 template <typename T>
 __device__ __forceinline__ void add_short_run(
     T* __restrict__ row, const T* __restrict__ x, const int* __restrict__ ord,
-    const float* __restrict__ sj, int lo, int hi, int ncols, int* s_row,
-    float* s_sign, T* ring) {
-  for (int c0 = 0; c0 < ncols; c0 += blockDim.x) {
-    const int c = c0 + threadIdx.x;
-    const bool on = c < ncols;
-    T acc;
-    if (on) acc = row[c];
-    for (int q0 = lo; q0 < hi; q0 += kBatch) {
-      const int n = min(kBatch, hi - q0);
-      __syncthreads();  // the previous batch is consumed
-      for (int t = threadIdx.x; t < n; t += blockDim.x) {
-        const int r = ord[q0 + t];
-        s_row[t] = r;
-        s_sign[t] = sj != nullptr ? sj[r] : 1.0f;
-      }
-      __syncthreads();
-      if (!on) continue;
-      const int groups = (n + kGroup - 1) / kGroup;
-      auto issue = [&](int gi) {
+    const float* __restrict__ sj, int lo, int hi, int ncols) {
+  static_assert(kLong <= 32, "a short run's items must fit one warp");
+  const int lane = threadIdx.x & 31;
+  const int n = hi - lo;
+  int r_lane = 0;
+  float s_lane = 1.0f;
+  if (lane < n) {
+    r_lane = ord[lo + lane];
+    if (sj != nullptr) s_lane = sj[r_lane];
+  }
+  // every lane takes every pass: the shuffles below need the whole warp
+  for (int c0 = lane; c0 - lane < ncols; c0 += 32 * kCols) {
+    T acc[kCols];
 #pragma unroll
-        for (int t = 0; t < kGroup; ++t) {
-          const int q = gi * kGroup + t;
-          if (gi < groups && q < n) {
-            copy(&ring[((gi % kStages) * kGroup + t) * blockDim.x +
-                       threadIdx.x],
-                 &x[(size_t)s_row[q] * ncols + c]);
-          }
-        }
-        cs::cp_async_commit();
-      };
-      for (int gi = 0; gi < kStages - 1; ++gi) issue(gi);
-      for (int gi = 0; gi < groups; ++gi) {
-        issue(gi + kStages - 1);
-        cs::cp_async_wait<kStages - 1>();  // group gi has landed
-#pragma unroll
-        for (int t = 0; t < kGroup; ++t) {
-          const int q = gi * kGroup + t;
-          if (q < n) {
-            acc = add_signed(acc, s_sign[q],
-                             ring[((gi % kStages) * kGroup + t) * blockDim.x +
-                                  threadIdx.x]);
-          }
-        }
-      }
-      cs::cp_async_wait<0>();
+    for (int g = 0; g < kCols; ++g) {
+      if (c0 + 32 * g < ncols) acc[g] = row[c0 + 32 * g];
     }
-    if (on) row[c] = acc;
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      const int r = __shfl_sync(kAll, r_lane, i);
+      const float sg = __shfl_sync(kAll, s_lane, i);
+      const T* xr = x + (size_t)r * ncols;
+#pragma unroll
+      for (int g = 0; g < kCols; ++g) {
+        if (c0 + 32 * g < ncols) {
+          acc[g] = add_signed(acc[g], sg, __ldg(xr + c0 + 32 * g));
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kCols; ++g) {
+      if (c0 + 32 * g < ncols) row[c0 + 32 * g] = acc[g];
+    }
   }
 }
 
@@ -179,25 +175,81 @@ __device__ __forceinline__ void add_long_run(
   if (on) row[c] = acc;
 }
 
+// What the scatter adds where: hash rows [0, depth0) add the rows of x0
+// (times the signs s0 of each row, when s0 is given) into S0; rows
+// [depth0, depth) add the rows of x1, unsigned, into S1 (B1 scatters M
+// and V in one launch; a plain update has depth0 = depth).
+// In units of T: S0 and S1 hold rows of ld, x0 and x1 rows of ncols.
+template <typename T>
+struct Targets {
+  T* S0;
+  const T* x0;
+  const float* s0;
+  int depth0, width0;
+  T* S1;
+  const T* x1;
+  int width1, ld;
+};
+
+// Hash row j's sketch rows, item rows and signs.
+template <typename T>
+__device__ __forceinline__ void target_of(const Targets<T>& t, int j, int k,
+                                          T*& S, const T*& x,
+                                          const float*& s) {
+  if (j < t.depth0) {
+    S = t.S0 + (size_t)j * t.width0 * t.ld;
+    x = t.x0;
+    s = t.s0 != nullptr ? t.s0 + (size_t)j * k : nullptr;
+  } else {
+    S = t.S1 + (size_t)(j - t.depth0) * t.width1 * t.ld;
+    x = t.x1;
+    s = nullptr;
+  }
+}
+
+// The end of the run ord[lo..hi) cut before its first item at or past
+// nv.  A run's items ascend, so its live items come first: one load when
+// the last item is live, else a binary search.
+__device__ __forceinline__ int live_end(const int* __restrict__ ord, int lo,
+                                        int hi, int nv) {
+  if (lo < hi && ord[hi - 1] < nv) return hi;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ord[mid] < nv) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
 // One launch, two roles.  Blocks [0, long_blocks): (hash row j, chunk of
 // kChunk buckets, slice of 32 columns); warp 0 finds the long runs of its
 // chunk from ``starts`` and adds each for its slice.  The other blocks:
 // (hash row j, kPositions sorted positions); a position starts a run when
-// starts[j][bucket] equals it, and the block adds the short runs that
-// start in its range, one after another, with all its threads along d.
+// starts[j][bucket] equals it, and the block's warps add the short runs
+// that start in its range, a run a warp.
+// With ``n_valid``, items at or past it add nothing: each run is cut at
+// its first such item, and a run is long or short by its live length.
+// With ``skip_single``, runs of one item are skipped (B1's read writes
+// those cells).
 template <typename T>
-__global__ void run_scatter(T* __restrict__ S, const T* __restrict__ x,
-                            const int* __restrict__ order,
+__global__ void run_scatter(Targets<T> tg, const int* __restrict__ order,
                             const int* __restrict__ starts,
                             const int* __restrict__ buckets,
-                            const float* __restrict__ s, int width,
-                            int ncols, int k, int long_blocks) {
-  __shared__ int s_row[kBatch];
-  __shared__ float s_sign[kBatch];
+                            const int* __restrict__ n_valid, int width,
+                            int ncols, int k, int long_blocks,
+                            bool skip_single) {
+  __shared__ float s_sgn[4 * 32];        // long runs: signs of 4 batches
   __shared__ int s_run[kPositions][3];  // bucket, lo, hi
   __shared__ int s_runs;
   extern __shared__ float4 s_ring[];
   T* ring = reinterpret_cast<T*>(s_ring);
+  const int nv = n_valid != nullptr ? min(max(*n_valid, 0), k) : k;
+  T* S;
+  const T* x;
+  const float* sj;
   if (blockIdx.x < long_blocks) {
     if (threadIdx.x >= 32) return;
     const int slices = (ncols + 31) / 32;
@@ -206,20 +258,24 @@ __global__ void run_scatter(T* __restrict__ S, const T* __restrict__ x,
     const int rem = blockIdx.x - j * chunks * slices;
     const int chunk = rem / slices, slice = rem - chunk * slices;
     const int* st = starts + (size_t)j * (width + 1);
-    const int end = min(width, (chunk + 1) * kChunk);
-    for (int b0 = chunk * kChunk; b0 < end; b0 += 32) {
-      const int b = b0 + threadIdx.x;
-      const int lo = b < end ? st[b] : 0, hi = b < end ? st[b + 1] : 0;
+    const int* ord = order + (size_t)j * k;
+    target_of(tg, j, k, S, x, sj);
+    // the chunk's buckets are strided, chunk + m * chunks: the heavy
+    // slots of a dedup sum are neighbours and go to different blocks
+    for (int m0 = 0; m0 < kChunk; m0 += 32) {
+      const int b = chunk + (m0 + (int)threadIdx.x) * chunks;
+      const int lo = b < width ? st[b] : 0;
+      int hi = b < width ? st[b + 1] : 0;
+      if (n_valid != nullptr && hi - lo >= kLong) {
+        hi = live_end(ord, lo, hi, nv);
+      }
       unsigned longs = __ballot_sync(kAll, hi - lo >= kLong);
       while (longs) {
         const int t = __ffs(longs) - 1;
         longs &= longs - 1;
-        add_long_run(S + ((size_t)j * width + b0 + t) * ncols, x,
-                     order + (size_t)j * k,
-                     s != nullptr ? s + (size_t)j * k : nullptr,
+        add_long_run(S + (size_t)__shfl_sync(kAll, b, t) * tg.ld, x, ord, sj,
                      __shfl_sync(kAll, lo, t), __shfl_sync(kAll, hi, t),
-                     ncols, slice * 32 + (int)threadIdx.x, ring,
-                     reinterpret_cast<float*>(s_row));
+                     ncols, slice * 32 + (int)threadIdx.x, ring, s_sgn);
       }
     }
     return;
@@ -235,9 +291,10 @@ __global__ void run_scatter(T* __restrict__ S, const T* __restrict__ x,
   const int p = p0 + threadIdx.x;
   if (threadIdx.x < kPositions && p < k) {
     const int bucket = buckets[(size_t)j * k + ord[p]];
-    if (st[bucket] == p) {  // p starts its bucket's run
-      const int hi = st[bucket + 1];
-      if (hi - p < kLong) {
+    if (st[bucket] == p && !(skip_single && st[bucket + 1] == p + 1)) {
+      int hi = st[bucket + 1];  // p starts its bucket's run
+      if (n_valid != nullptr) hi = live_end(ord, p, hi, nv);
+      if (hi > p && hi - p < kLong) {
         const int at = atomicAdd(&s_runs, 1);  // runs touch distinct cells
         s_run[at][0] = bucket;
         s_run[at][1] = p;
@@ -247,14 +304,64 @@ __global__ void run_scatter(T* __restrict__ S, const T* __restrict__ x,
   }
   __syncthreads();
   const int runs = s_runs;
-  const float* sj = s != nullptr ? s + (size_t)j * k : nullptr;
-  for (int r = 0; r < runs; ++r) {
-    add_short_run(S + ((size_t)j * width + s_run[r][0]) * ncols, x, ord, sj,
-                  s_run[r][1], s_run[r][2], ncols, s_row, s_sign, ring);
+  target_of(tg, j, k, S, x, sj);
+  for (int r = threadIdx.x / 32; r < runs; r += blockDim.x / 32) {
+    add_short_run(S + (size_t)s_run[r][0] * tg.ld, x, ord, sj, s_run[r][1],
+                  s_run[r][2], ncols);
   }
 }
 
 }  // namespace
+
+namespace cs {
+
+int launch_run_scatter(const RunScatter& a, cudaStream_t st) {
+  if (a.k <= 0 || a.ncols <= 0) return (int)cudaGetLastError();
+  if (a.depth0 < 0 || a.depth0 > a.depth ||
+      (a.depth0 < a.depth && a.S1 == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = a.ncols % 4 == 0 && a.ld % 4 == 0 && aligned(a.S0) &&
+                   aligned(a.x0) && aligned(a.S1) && aligned(a.x1);
+  const int ncols = vec ? a.ncols / 4 : a.ncols;
+  const int ld = vec ? a.ld / 4 : a.ld;
+  const long long long_blocks = (long long)a.depth *
+                                ((a.width + kChunk - 1) / kChunk) *
+                                ((ncols + 31) / 32);
+  const long long blocks = long_blocks + (long long)a.depth *
+                                             ((a.k + kPositions - 1) /
+                                              kPositions);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t ring =
+      (size_t)kLongStages * 32 * 32 * (vec ? sizeof(float4) : sizeof(float));
+  const cudaError_t e = cudaFuncSetAttribute(
+      vec ? (const void*)run_scatter<float4> : (const void*)run_scatter<float>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ring);
+  if (e != cudaSuccess) return (int)e;
+  if (vec) {
+    const Targets<float4> tg{reinterpret_cast<float4*>(a.S0),
+                             reinterpret_cast<const float4*>(a.x0), a.s0,
+                             a.depth0, a.width0,
+                             reinterpret_cast<float4*>(a.S1),
+                             reinterpret_cast<const float4*>(a.x1), a.width1,
+                             ld};
+    run_scatter<float4><<<(unsigned)blocks, kThreads, ring, st>>>(
+        tg, a.order, a.starts, a.buckets, a.n_valid, a.width, ncols, a.k,
+        (int)long_blocks, a.skip_single);
+  } else {
+    const Targets<float> tg{a.S0, a.x0, a.s0, a.depth0, a.width0,
+                            a.S1, a.x1, a.width1, ld};
+    run_scatter<float><<<(unsigned)blocks, kThreads, ring, st>>>(
+        tg, a.order, a.starts, a.buckets, a.n_valid, a.width, ncols, a.k,
+        (int)long_blocks, a.skip_single);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace cs
 
 // S (depth, width, d) f32 in place; order (depth, k) and starts (depth,
 // width + 1) from bucket_csr of buckets (depth, k); s (depth, k) or null;
@@ -263,37 +370,8 @@ extern "C" int cs_update_launch(float* S, const int* order, const int* starts,
                                 const int* buckets, const float* s,
                                 const float* delta, int depth, int width,
                                 int d, int k, void* stream) {
-  if (k <= 0 || d <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(S) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(delta) % 16 == 0;
-  const int ncols = vec ? d / 4 : d;
-  const long long long_blocks = (long long)depth *
-                                ((width + kChunk - 1) / kChunk) *
-                                ((ncols + 31) / 32);
-  const long long blocks =
-      long_blocks + (long long)depth * ((k + kPositions - 1) / kPositions);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int warps32 = (ncols + 31) / 32 * 32;
-  // at least one warp: the first kPositions threads test the positions
-  const int threads = warps32 < kMaxThreads ? warps32 : kMaxThreads;
-  const size_t cell = vec ? sizeof(float4) : sizeof(float);
-  const size_t short_ring = (size_t)kStages * kGroup * threads * cell;
-  const size_t long_ring = (size_t)kLongStages * 32 * 32 * cell;
-  const size_t ring = short_ring > long_ring ? short_ring : long_ring;
-  const cudaError_t e = cudaFuncSetAttribute(
-      vec ? (const void*)run_scatter<float4> : (const void*)run_scatter<float>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ring);
-  if (e != cudaSuccess) return (int)e;
-  if (vec) {
-    run_scatter<float4><<<(unsigned)blocks, threads, ring, st>>>(
-        reinterpret_cast<float4*>(S), reinterpret_cast<const float4*>(delta),
-        order, starts, buckets, s, width, ncols, k, (int)long_blocks);
-  } else {
-    run_scatter<float><<<(unsigned)blocks, threads, ring, st>>>(
-        S, delta, order, starts, buckets, s, width, ncols, k,
-        (int)long_blocks);
-  }
-  return (int)cudaGetLastError();
+  const cs::RunScatter a{S,     delta,  s,       depth,   width, nullptr,
+                         nullptr, width, order,  starts,  buckets, nullptr,
+                         depth, width,  d,       d,       k,       false};
+  return cs::launch_run_scatter(a, static_cast<cudaStream_t>(stream));
 }

@@ -13,16 +13,21 @@ tensor on the device, so the pass never waits for the device.
 
 Order of the segment sum: ``index_add_`` on the CPU adds each segment's
 rows one after another in sorted order, as ``jax.ops.segment_sum`` does,
-so the sums match the reference to the bit.  On CUDA ``index_add_`` adds
-duplicates with atomics; the port does NOT make that order
-deterministic, so a sum of duplicates may differ in its last bit from
-run to run.  The integer outputs are exact on every device.
+so the sums match the reference to the bit.  On CUDA, f32 rows are
+summed by B5's run scatter at depth 1 over the sort itself (a slot's
+rows are its run of sorted positions, added in that order from zero):
+no atomics, the same bits as the CPU and the same bits from run to run.
+Other dtypes on CUDA still go through ``index_add_``, whose atomics
+order duplicates differently from run to run.  The integer outputs are
+exact on every device.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels.cs_update import cs_update
 
 
 class DedupBatch(NamedTuple):
@@ -63,9 +68,12 @@ def dedup_rows(ids: torch.Tensor, rows: torch.Tensor,
     n_unique = (seg[-1] + 1).to(torch.int32)
     unique_ids = torch.full((k,), fill_id, dtype=torch.int32, device=dev)
     unique_ids.scatter_(0, seg, sorted_ids)
-    summed = torch.zeros_like(rows).index_add_(0, seg, rows[order])
     inv = torch.empty((k,), dtype=torch.int64, device=dev)
     inv.scatter_(0, order, seg)
+    if dev.type == "cuda" and rows.dtype == torch.float32:
+        summed = _segment_sum_runs(rows, seg, order, inv)
+    else:
+        summed = torch.zeros_like(rows).index_add_(0, seg, rows[order])
     # stable sort: within a segment `order` ascends, so the min is the
     # id's first input position; padding slots keep the sentinel k
     first_pos = torch.full((k,), k, dtype=torch.int64, device=dev)
@@ -74,6 +82,24 @@ def dedup_rows(ids: torch.Tensor, rows: torch.Tensor,
                       inv=inv.to(torch.int32),
                       first_pos=first_pos.to(torch.int32),
                       n_unique=n_unique)
+
+
+def _segment_sum_runs(rows: torch.Tensor, seg: torch.Tensor,
+                      order: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """The segment sums of CUDA f32 rows: B5 at depth 1, where slot u is
+    a bucket whose run is the sorted positions ``starts[u] ..
+    starts[u+1]`` of ``order``; B5 reads the rows in place.  ``starts``
+    is found on the device (padding slots: empty runs at k)."""
+    k = rows.shape[0]
+    starts = torch.full((k + 1,), k, dtype=torch.int64, device=rows.device)
+    starts.scatter_reduce_(0, seg, torch.arange(k, device=rows.device),
+                           reduce="amin")
+    flat = rows.reshape(k, -1).contiguous()
+    summed = torch.zeros_like(flat)
+    cs_update(summed.view(1, k, -1), inv.to(torch.int32).view(1, k), None,
+              flat, csr=(order.to(torch.int32).view(1, k),
+                         starts.to(torch.int32).view(1, k + 1)))
+    return summed.view(rows.shape)
 
 
 def scatter_back(batch: DedupBatch, unique_out: torch.Tensor) -> torch.Tensor:

@@ -169,10 +169,11 @@ def adam_rows_tiled(spec_m, spec_v, M, V, ids, g, step, *, lr,
                     eps: float = 1e-8) -> Result:
     """'tiled': the dedup pre-pass, then the batch-parallel CUDA kernel
     ``cs_adam_tiled`` (B1) over the unique rows; its plain version on the
-    CPU.  Only each id's first occurrence carries its update.  B1 has one
-    grid row per input row, so the batch needs no padding to a tile.
-    Low-precision cells run 'xla', as in the reference: B1 holds f32
-    cells."""
+    CPU.  Only each id's first occurrence carries its update: B1 writes
+    it there itself (``positions``), so no ``scatter_back`` follows.  B1
+    has one block per unique row, so the batch needs no padding to a
+    tile.  Low-precision cells run 'xla', as in the reference: B1 holds
+    f32 cells."""
     if _lowp(spec_m, spec_v):
         return adam_rows_xla(spec_m, spec_v, M, V, ids, g, step, lr=lr,
                              b1=b1, b2=b2, eps=eps)
@@ -181,10 +182,9 @@ def adam_rows_tiled(spec_m, spec_v, M, V, ids, g, step, *, lr,
     eta, bc1, bc2 = _adam_hypers(step, lr, b1, b2)
     batch = dd.dedup_rows(ids, g)
     bm, sm, bv = _adam_addressing(spec_m, spec_v, batch.unique_ids)
-    M, V, upd_u = cs_adam_tiled(M, V, bm, sm, bv, batch.rows, lr=eta, b1=b1,
-                                b2=b2, eps=eps, bc1=bc1, bc2=bc2,
-                                n_valid=batch.n_unique)
-    return M, V, dd.scatter_back(batch, upd_u)
+    return cs_adam_tiled(M, V, bm, sm, bv, batch.rows, lr=eta, b1=b1, b2=b2,
+                         eps=eps, bc1=bc1, bc2=bc2, n_valid=batch.n_unique,
+                         positions=(batch.inv, batch.first_pos))
 
 
 # ---------------------------------------------------------------------------

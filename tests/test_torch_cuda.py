@@ -8,17 +8,22 @@ where no card is present.  Run on a machine with an H100 and nvcc:
 Nothing here imports ``jax``, so the file also runs where only PyTorch is
 installed.  Kernels are built with ``--fmad=false``, so on batches where
 every sketch cell is written at most once they must match the plain
-versions to the bit; B1's atomics reorder colliding adds, held to the
-reference's collision envelope atol=2e-5.  B3's and B5's scatters add in
-the order of the CPU ``index_add_``, so under collisions they are also
-bit-equal to their plain versions run on a CPU copy.  The bucket CSR
+versions to the bit.  B1's, B3's and B5's scatters add in the order of
+the CPU ``index_add_``, so under collisions they are bit-equal to their
+plain versions run on a CPU copy, and two runs give the same bits; so
+are the colliding sums that go through B5 (the dedup segment sum,
+``core.sketch.update`` at every cell dtype, ``DenseStore.accumulate``).
+The plain versions on the card sum with ``index_add_``'s atomics and are
+held to the reference's collision envelope atol=2e-5.  The bucket CSR
 kernel gives the plain form's integers; B2's window rule is held to the
 per-item plain version where a bucket recurs at the window's edges.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import sketch as cs
+from repro_torch.core.quantize import QuantState
 from repro_torch.kernels import ref
 from repro_torch.kernels import cs_adam
 from repro_torch.kernels.cs_adam import cs_adam_fused
@@ -29,6 +34,7 @@ from repro_torch.kernels.cs_query import cs_query
 from repro_torch.kernels.cs_update import (SHARED_BUCKETS, bucket_csr,
                                           bucket_csr_plain, bucket_prev,
                                           cs_update)
+from repro_torch.kernels.dedup import dedup_rows
 from repro_torch.train.steps import make_sparse_embedding_step
 
 pytestmark = pytest.mark.cuda
@@ -62,6 +68,10 @@ def _clone(xs):
     return [None if x is None else x.clone() for x in xs]
 
 
+def _cpu(xs):
+    return [None if x is None else x.cpu() for x in xs]
+
+
 @pytest.mark.parametrize("depth", [1, 3])
 @pytest.mark.parametrize("track_m", [True, False])
 def test_tiled_bit_equal_collision_free(cuda_device, depth, track_m):
@@ -84,15 +94,28 @@ def test_tiled_bit_equal_collision_free(cuda_device, depth, track_m):
 @pytest.mark.parametrize("depth", [1, 3])
 @pytest.mark.parametrize("track_m", [True, False])
 def test_tiled_under_heavy_collisions(cuda_device, depth, track_m):
+    """Width 16: M and V bit-equal to the plain version on a CPU copy and
+    the same bits on a second run; upd bit-equal to the plain version on
+    the card (it reads the pre-step sketches) and within one ulp of the
+    CPU copy's (torch's CPU f32 sqrt is not always correctly rounded)."""
     M, V, bm, sm, bv, g = _state(depth, 16, 128, 32, cuda_device, depth,
                                  track_m)
     args = (M, V, bm if track_m else None, sm if track_m else None, bv, g)
     kw = dict(KW, b1=0.9 if track_m else 0.0, n_valid=29)
     want = cs_adam_tiled_plain(*_clone(args), **kw)
     got = cs_adam_tiled(*_clone(args), **kw)
+    again = cs_adam_tiled(*_clone(args), **kw)
+    host = cs_adam_tiled_plain(*_cpu(args), **kw)
+    torch.cuda.synchronize()
     for a, c in zip(want, got):
         if a is not None:
             torch.testing.assert_close(c, a, rtol=0, atol=2e-5)
+    for h, c, c2 in zip(host[:2], got[:2], again[:2]):
+        if h is not None:
+            assert torch.equal(h, c.cpu())
+            assert torch.equal(c, c2)
+    assert torch.equal(want[2], got[2]) and torch.equal(got[2], again[2])
+    torch.testing.assert_close(got[2].cpu(), host[2], rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("depth", [1, 3])
@@ -155,10 +178,6 @@ def _ema_case(dev, signed, depth, width, k, d, seed, identity=False):
     x = torch.randn((k, d), generator=gen, device=dev)
     mask = (torch.rand((k, 1), generator=gen, device=dev) > 0.3).float()
     return S, b, s, x, mask
-
-
-def _cpu(xs):
-    return [None if x is None else x.cpu() for x in xs]
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -520,3 +539,128 @@ def test_stream_window_hazards(cuda_device, k):
         for a, c in zip(want, got):
             if a is not None:
                 assert torch.equal(a, c)
+
+
+# ------------------------------------ C1: colliding sums in the CPU's order
+def _zipf_ids(n, k, dev, seed):
+    """Duplicate-heavy zipf ids: the head repeats hundreds of times."""
+    rng = np.random.RandomState(seed)
+    ids = ((rng.zipf(1.1, k) - 1) % n).astype(np.int32)
+    return torch.from_numpy(ids).to(dev)
+
+
+def _to(state, dev):
+    if isinstance(state, QuantState):
+        return QuantState(state.cells.to(dev), state.scales.to(dev))
+    return state.to(dev)
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def test_dedup_rows_sums_in_cpu_order(cuda_device):
+    ids = _zipf_ids(5_000, 6_000, cuda_device, 1)
+    rows = torch.randn((6_000, 96), device=cuda_device)
+    before = cs_update.launches
+    got = dedup_rows(ids, rows)
+    again = dedup_rows(ids, rows)
+    host = dedup_rows(*_cpu([ids, rows]))
+    torch.cuda.synchronize()
+    assert cs_update.launches == before + 2
+    for a, b, h in zip(got, again, host):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), h)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("signed", [True, False])
+def test_sketch_update_in_cpu_order(cuda_device, dtype, signed):
+    """``core.sketch.update`` on duplicate-heavy ids: two runs on the card
+    and a CPU copy give the same cells (and int8 scales) to the bit."""
+    spec = cs.SketchSpec(depth=3, width=64, dim=96, signed=signed, seed=3,
+                         dtype=dtype)
+    ids = _zipf_ids(5_000, 4_000, cuda_device, 2)
+    delta = torch.randn((4_000, 96), device=cuda_device)
+    S = cs.update(spec, cs.init(spec, cuda_device), ids,
+                  torch.randn_like(delta), sr_seed=5)
+    before = cs_update.launches
+    outs = [_to(cs.update(spec, _to(cs.clone(S), dev), ids.to(dev),
+                          delta.to(dev), sr_seed=7), "cpu")
+            for dev in (cuda_device, cuda_device, torch.device("cpu"))]
+    torch.cuda.synchronize()
+    assert cs_update.launches == before + 2
+    leaves = [list(o) if isinstance(o, QuantState) else [o] for o in outs]
+    for got in leaves[:2]:
+        for a, h in zip(got, leaves[2]):
+            assert torch.equal(_bits(a), _bits(h))
+
+
+def test_dense_store_accumulate_in_cpu_order(cuda_device):
+    from repro_torch.core.stores import DenseStore
+    store = DenseStore().bind("t", (5_000, 96), torch.float32)
+    ids = _zipf_ids(5_000, 6_000, cuda_device, 3)
+    delta = torch.randn((6_000, 96), device=cuda_device)
+    before = cs_update.launches
+    got = [store.accumulate(store.init(cuda_device) + 1.0, delta, ids,
+                            scale=0.1) for _ in range(2)]
+    host = store.accumulate(store.init("cpu") + 1.0, delta.cpu(), ids.cpu(),
+                            scale=0.1)
+    torch.cuda.synchronize()
+    assert cs_update.launches == before + 2
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0].cpu(), host)
+
+
+@pytest.mark.parametrize("track_m", [True, False])
+def test_tiled_path_in_cpu_order(cuda_device, track_m):
+    """``ops.adam_rows_tiled`` as the step calls it (dedup, B1 with the
+    per-position output) on zipf ids whose head repeats hundreds of times,
+    at a narrow width: M and V bit-equal to a CPU copy and the same bits
+    on a second run, the update equal on both runs, within one ulp of the
+    CPU copy's (torch's CPU sqrt), and zero at every later duplicate."""
+    from repro_torch.kernels import ops
+    spec_m = cs.SketchSpec(depth=3, width=256, dim=96, signed=True, seed=1)
+    spec_v = cs.SketchSpec(depth=3, width=256, dim=96, signed=False, seed=2)
+    ids = _zipf_ids(5_000, 3_000, cuda_device, 4)
+    g = torch.randn((3_000, 96), device=cuda_device)
+    M = torch.randn(spec_m.shape, device=cuda_device) if track_m else None
+    V = torch.rand(spec_v.shape, device=cuda_device)
+    sm = spec_m if track_m else None
+    kw = dict(lr=1e-2, b1=0.9 if track_m else 0.0, b2=0.999, eps=1e-8)
+    before = cs_adam_tiled.launches
+    runs = [ops.adam_rows_tiled(sm, spec_v, *_clone([M, V]), ids, g, 3,
+                                **kw) for _ in range(2)]
+    host = ops.adam_rows_tiled(sm, spec_v, *_cpu([M, V, ids, g]), 3, **kw)
+    torch.cuda.synchronize()
+    assert cs_adam_tiled.launches == before + 2
+    for a, b, h in zip(runs[0], runs[1], host):
+        if h is not None:
+            assert torch.equal(a, b)
+    for a, h in zip(runs[0][:2], host[:2]):
+        if h is not None:
+            assert torch.equal(a.cpu(), h)
+    torch.testing.assert_close(runs[0][2].cpu(), host[2], rtol=1e-6, atol=0)
+    first = torch.zeros(3_000, dtype=torch.bool)
+    first[np.unique(ids.cpu().numpy(), return_index=True)[1]] = True
+    assert not runs[0][2].cpu()[~first].any()
+
+
+def test_tiled_full_width_in_cpu_order(cuda_device):
+    """The main path's shapes: a 16,384-id zipf batch into SketchHParams()
+    sketches of a 151,936 x 896 table: M and V bit-equal to a CPU copy."""
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.kernels import ops
+    hp = SketchHParams()
+    spec_m = hp.spec("t", (151_936, 896), signed=True)
+    spec_v = hp.spec("t", (151_936, 896), signed=False)
+    ids = _zipf_ids(151_936, 16_384, cuda_device, 5)
+    g = torch.randn((16_384, 896), device=cuda_device)
+    M = torch.randn(spec_m.shape, device=cuda_device) * 1e-3
+    V = torch.rand(spec_v.shape, device=cuda_device) * 1e-3
+    got = ops.adam_rows_tiled(spec_m, spec_v, M.clone(), V.clone(), ids, g,
+                              9, lr=1e-3)
+    host = ops.adam_rows_tiled(spec_m, spec_v, *_cpu([M, V, ids, g]), 9,
+                               lr=1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), host[0])
+    assert torch.equal(got[1].cpu(), host[1])
+    torch.testing.assert_close(got[2].cpu(), host[2], rtol=1e-6, atol=0)

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``repro_torch`` nor ``chip_smoke.py``
-imports ``jax`` or the reference package ``repro``."""
+"""The port stands alone: no file of ``repro_torch``, ``chip_smoke.py`` or
+``tools/`` imports ``jax`` or the reference package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -7,7 +7,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

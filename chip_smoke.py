@@ -91,6 +91,28 @@ own line; any failure raises and the exit code is not 0:
      run twice from the same start must give the same bits.  7d: the bf16 dense path with a Count-Min
      cleaned every 5 steps, 10 steps sync against ``AsyncCleaner``: the
      table and sketches must be equal to the bit.
+  8. the MACH extreme-classification step (``train/extreme.py::
+     make_extreme_step``) at the reference's full scale,
+     ``benchmarks/extreme_scale.py:191-194``: 8,000,000 classes hashed
+     into a 2,097,152 x 64 class head, a 65,536 x 64 feature table, 16
+     zipf(1.05) features an example, 1,024 shared negatives, batch 1,024,
+     lr 1e-2, ``SketchHParams(compression=100.0)``, backend ``auto``
+     (``tiled``).  8a: ``cs_rmsprop`` (B1 without M) on both replicas, 20
+     steps each, each replica's batches through its class map; the mean
+     of the last w losses must be below the first w's (w = max(1,
+     min(10, steps // 3)), the reference launcher's check); B1, its CSR
+     and the dedup sum must launch once a table a step; five more steps
+     under the profiler.  8b: replica 0's batches through ``xla`` within
+     rtol 1e-4, atol 1e-5 (printed: equal to the bit).  8c: 8a's replica
+     0 again: tables, V and losses to the bit; one step under
+     ``set_sync_debug_mode("error")``.  8d: ``cs_adam`` (B1 with M) and
+     ``dense_adam``, the same loss check, each arm's ``state_bytes``.
+     8e: the peak device memory of a step of ``dense_adam`` and
+     ``cs_rmsprop`` at batch 1,024 and 8,192.  8f: C1's last sites
+     (the ordered table add, the dense path's plain routes, a 1-D
+     ``DenseStore``) give the same bits twice and a CPU copy's; B1 at both
+     tables' shapes, with and without M, held to its plain version and a
+     CPU copy, and timed beside its bound (printed as phase 5 rows).
 
 Phase 2 also holds B3's bf16 branch to its plain version (bit-equal on a
 CPU copy; within one bf16 ulp plus the f32 collision envelope of the
@@ -811,7 +833,11 @@ def kernel_profile(run):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a profiler span (``obs.profiling.scope``) also shows on the
+        # device, as the time between its first and last kernel: not work
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False) \
+                or evt.key.startswith("obs."):
             continue
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
@@ -956,6 +982,16 @@ def unique_rows(buckets, n_valid: int, width: int) -> int:
     return int((b + width * rows).unique().numel())
 
 
+def b1_bytes(d: int, k: int, k_u: int, rows_m: int, rows_v: int,
+             depth: int, track_m: bool) -> int:
+    """B1's bytes, each input read once and each output written once: the
+    live gradient rows read, the output rows written, the touched M and V
+    rows read and written, the live slots' addressing (M's buckets and
+    signs with a first moment, V's buckets), inv, first_pos, n_valid."""
+    return (4 * d * (k_u + k) + 4 * d * 2 * (rows_m + rows_v)
+            + 4 * ((3 if track_m else 1) * depth * k_u + 2 * k + 1))
+
+
 def longest_chain(buckets) -> int:
     """The most items of one hash row in one bucket: the longest chain of
     items that B2 must run in order through one cell."""
@@ -1026,10 +1062,7 @@ def phase_times(dev, table, target, state, ids_np, seed: int,
     k = int(ids.numel())
     rows_m = unique_rows(bm, k_u, spec_m.width)
     rows_v = unique_rows(bv, k_u, spec_v.width)
-    # live gradient rows read, output rows written, touched M and V rows
-    # read and written, the live slots' addressing, inv, first_pos, n_valid
-    nbytes = (4 * D_MODEL * (k_u + k) + 4 * D_MODEL * 2 * (rows_m + rows_v)
-              + 4 * (3 * depth * k_u + 2 * k + 1))
+    nbytes = b1_bytes(D_MODEL, k, k_u, rows_m, rows_v, depth, True)
     out.append(dict(name="cs_adam_tiled", route="cuda",
                     source="src/repro_torch/kernels/csrc/cs_adam_tiled.cu",
                     replaces="src/repro/kernels/cs_adam_tiled.py:153",
@@ -1781,6 +1814,436 @@ def phase_async_clean(dev, task):
                else "the side-stream decay is not ordered before the step"))
 
 
+# ---------------------------------------------------------------- phase 8
+# the reference's full scale, benchmarks/extreme_scale.py:191-194
+EXTREME = dict(n_classes=8_000_000, n_meta=1 << 21, n_features=1 << 16,
+               dim=64, nnz=16, n_negatives=1_024)
+X_BATCH, X_BIG_BATCH, X_LR, X_STEPS = 1_024, 8_192, 1e-2, 20
+
+
+def extreme_batches(cfg, cmap, batch: int, steps: int, dev,
+                    first: int = 0) -> list:
+    """Replica batches ``first ..`` from the port's ``ExtremeStream``,
+    labels and negatives mapped through the replica's class map, on the
+    card."""
+    from repro_torch.data import ExtremeStream
+    from repro_torch.train.extreme import MetaStream
+    stream = MetaStream(ExtremeStream(cfg.data_config(batch)), cmap, dev)
+    return [stream.batch(i) for i in range(first, first + steps)]
+
+
+def run_extreme(step_fn, params, state, batches):
+    """Drive the extreme step over ``batches``; returns (params, state,
+    losses, per-step ms)."""
+    import torch
+    losses, events = [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, metrics = step_fn(params, state, b)
+        end.record()
+        losses.append(metrics["loss"])
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return (params, state, [float(x) for x in losses],
+            [s.elapsed_time(e) for s, e in events])
+
+
+def loss_windows(losses) -> tuple:
+    """The reference launcher's check (``src/repro/launch/train.py:390,
+    :402``): the means of the first and the last w losses, w = max(1,
+    min(10, steps // 3)); the loss fell when the second is below."""
+    w = max(1, min(10, len(losses) // 3))
+    return float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+
+
+def tables_of(params) -> list:
+    return [params["tok_embed"]["table"], params["class_head"]["table"]]
+
+
+def params_from(tables) -> dict:
+    return {"tok_embed": {"table": tables[0].clone()},
+            "class_head": {"table": tables[1].clone()}}
+
+
+def extreme_step(cfg, dev, **kw):
+    """(step_fn, opts, fresh state) of ``make_extreme_step``."""
+    from repro_torch.train.extreme import make_extreme_step
+    _init, step_fn, opts = make_extreme_step(cfg, lr=X_LR, device=dev, **kw)
+    return step_fn, opts, {p: o.init() for p, o in opts.items()}
+
+
+def phase_extreme(dev, seed: int):
+    """Phase 8: the MACH extreme-classification step at the reference's
+    full scale (see the module docstring).  Returns what phase 5's
+    extreme rows and the kernels' line need, and the peak device memory
+    before 8e reset its counter."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.train.extreme import MachConfig, make_extreme_step
+    cfg = MachConfig(**EXTREME)
+    t0 = time.perf_counter()
+    maps = cfg.class_maps()
+    backend = kernels.resolve_backend(SketchHParams().backend, dev)
+    log(f"phase 8: MachConfig {EXTREME}, {cfg.n_replicas} replicas, batch "
+        f"{X_BATCH}, lr {X_LR}, SketchHParams(compression=100.0), backend "
+        f"auto -> {backend}; class maps {maps.shape} {maps.dtype} hashed "
+        f"on the host in {time.perf_counter() - t0:.1f} s")
+    if backend != "tiled":
+        raise AssertionError(f"auto resolved to {backend!r} on the card")
+    counts_8a, start, final = {}, None, None
+    for r in range(cfg.n_replicas):
+        init_fn, step_fn, opts = make_extreme_step(
+            cfg, optimizer="cs_rmsprop", lr=X_LR, device=dev)
+        params = init_fn(torch.Generator(device=dev).manual_seed(seed + r))
+        state = {p: o.init() for p, o in opts.items()}
+        batches = extreme_batches(cfg, maps[r], X_BATCH, X_STEPS, dev)
+        if r == 0:
+            start, batches0 = [t.clone() for t in tables_of(params)], batches
+            log(f"phase 8: tables tok_embed {tuple(start[0].shape)} "
+                f"{start[0].numel() * 4} B, class_head "
+                f"{tuple(start[1].shape)} {start[1].numel() * 4} B; V "
+                + ", ".join(f"{p} {tuple(s['v'].shape)} "
+                            f"{sketch_bytes(s['v'])} B"
+                            for p, s in state.items()))
+        torch.cuda.synchronize()
+        reset_counts()
+        params, state, losses, ms = run_extreme(step_fn, params, state,
+                                                batches)
+        counts = read_counts()
+        for name, n in counts.items():
+            counts_8a[name] = counts_8a.get(name, 0) + n
+        first, last = loss_windows(losses)
+        log(f"phase 8a: replica {r} cs_rmsprop {X_STEPS} steps: ms/step "
+            f"median of steps 2..{X_STEPS} {statistics.median(ms[1:])} "
+            f"(first {ms[0]}); loss first {losses[0]} last {losses[-1]}; "
+            f"mean of the first/last {max(1, min(10, X_STEPS // 3))} "
+            f"{first} -> {last}; launches {counts}")
+        log(f"phase 8a: replica {r} losses {losses}")
+        if counts["cs_adam_tiled"] != 2 * X_STEPS \
+                or counts["cs_update"] != 2 * X_STEPS \
+                or counts["bucket_csr"] != 2 * X_STEPS:
+            raise AssertionError(f"the extreme step did not launch B1, its "
+                                 f"CSR and the dedup sum (B5) once a table "
+                                 f"a step: {counts}")
+        if not last < first:
+            raise AssertionError(f"replica {r}: the loss did not fall")
+        if not all(torch.isfinite(t).all() for t in tables_of(params)):
+            raise AssertionError(f"replica {r}: non-finite table")
+        if r == 0:
+            final, losses0, state0 = [t.clone() for t in tables_of(params)], \
+                losses, state
+        else:
+            more = extreme_batches(cfg, maps[r], X_BATCH, 5, dev,
+                                   first=X_STEPS)
+            profile_steps("phase 8a", lambda: run_extreme(
+                step_fn, params, state, more), statistics.median(ms[1:]),
+                by_name=True)
+        del params, state
+    phase_extreme_witness(cfg, dev, start, batches0, final, losses0)
+    phase_extreme_repeat(cfg, dev, start, batches0, final, losses0, state0)
+    states = phase_extreme_arms(cfg, dev, start, batches0)
+    peak = torch.cuda.max_memory_allocated()    # 8e resets the counter
+    phase_extreme_memory(cfg, dev, maps[0], seed)
+    phase_extreme_sites(cfg, dev, params_from(final), batches0[0])
+    return counts_8a, {"cs_rmsprop": state0, **states}, params_from(final), \
+        batches0[-1], peak
+
+
+def phase_extreme_witness(cfg, dev, start, batches, final, losses):
+    """8b: replica 0's batches from the same start through backend
+    ``xla``: losses and both tables within rtol 1e-4, atol 1e-5 of 8a."""
+    import torch
+    step_fn, _opts, state = extreme_step(cfg, dev, optimizer="cs_rmsprop",
+                                         backend="xla")
+    reset_counts()
+    params, _, x_losses, ms = run_extreme(step_fn, params_from(start), state,
+                                          batches)
+    counts = read_counts()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, x_losses))
+    errs_ = [float((a - b).abs().max())
+             for a, b in zip(tables_of(params), final)]
+    bit = x_losses == losses and all(
+        torch.equal(a, b) for a, b in zip(tables_of(params), final))
+    log(f"phase 8b: backend xla, replica 0's {len(batches)} batches: ms/step "
+        f"median {statistics.median(ms[1:])}; launches {counts}; loss max rel "
+        f"diff vs tiled {rel}, tables max_abs_err {errs_}; losses and tables "
+        f"equal to the bit {bit}")
+    if counts["cs_adam_tiled"]:
+        raise AssertionError("the xla witness launched B1")
+    torch.testing.assert_close(torch.tensor(x_losses), torch.tensor(losses),
+                               rtol=WITNESS_TOL["rtol"], atol=0.0)
+    for a, b in zip(tables_of(params), final):
+        torch.testing.assert_close(a, b, **WITNESS_TOL)
+
+
+def phase_extreme_repeat(cfg, dev, start, batches, final, losses, state):
+    """8c: 8a's replica-0 run again from the same start: both tables, V
+    and the losses to the bit; then one step under sync-debug 'error'
+    with its batch already on the card."""
+    import torch
+    step_fn, _opts, fresh = extreme_step(cfg, dev, optimizer="cs_rmsprop")
+    params, state2, losses2, _ = run_extreme(step_fn, params_from(start),
+                                             fresh, batches)
+    same = {"tables": all(torch.equal(a, b)
+                          for a, b in zip(tables_of(params), final)),
+            "v": all(torch.equal(state[p]["v"], state2[p]["v"])
+                     for p in state),
+            "losses": losses2 == losses}
+    log(f"phase 8c: replica 0's {len(batches)} steps again from the same "
+        f"start: equal to the bit {same}")
+    if not all(same.values()):
+        raise AssertionError(f"two runs of the extreme step differ: {same}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_fn(params, state2, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("phase 8c: one extreme step under torch.cuda.set_sync_debug_mode("
+        "'error'): no host-device synchronisation")
+
+
+def phase_extreme_arms(cfg, dev, start, batches) -> dict:
+    """8d: ``cs_adam`` (B1 with M) and ``dense_adam`` on replica 0's
+    batches from 8a's start; the loss must fall; each arm's
+    ``state_bytes``.  Returns ``{"cs_adam": its state}``."""
+    import torch
+    from repro_torch.core.optimizers import state_bytes
+    out = {}
+    for optimizer in ("cs_rmsprop", "cs_adam", "dense_adam"):
+        step_fn, opts, state = extreme_step(cfg, dev, optimizer=optimizer)
+        nbytes = state_bytes(state)
+        if optimizer == "cs_rmsprop":
+            log(f"phase 8d: cs_rmsprop state_bytes {nbytes} (8a's arm)")
+            continue
+        reset_counts()
+        params, state, losses, ms = run_extreme(step_fn, params_from(start),
+                                                state, batches)
+        counts = read_counts()
+        first, last = loss_windows(losses)
+        log(f"phase 8d: {optimizer} {len(batches)} steps: ms/step median "
+            f"{statistics.median(ms[1:])}; loss {losses[0]} -> {losses[-1]}, "
+            f"window means {first} -> {last}; state_bytes {nbytes}; launches "
+            f"{counts}")
+        want_b1 = 2 * len(batches) if optimizer == "cs_adam" else 0
+        if counts["cs_adam_tiled"] != want_b1:
+            raise AssertionError(f"{optimizer}: B1 launched "
+                                 f"{counts['cs_adam_tiled']} times")
+        if not last < first:
+            raise AssertionError(f"{optimizer}: the loss did not fall")
+        if not all(torch.isfinite(t).all() for t in tables_of(params)):
+            raise AssertionError(f"{optimizer}: non-finite table")
+        if optimizer == "cs_adam":
+            out[optimizer] = state
+        del params, state
+    return out
+
+
+def phase_extreme_memory(cfg, dev, cmap, seed: int) -> None:
+    """8e: the peak device memory of a step of ``dense_adam`` and of
+    ``cs_rmsprop`` at batch 1,024 and 8,192: the arm's tables, state and
+    the step's transients, above what the card held before the arm was
+    built (Tab. 8's memory story on this card)."""
+    import torch
+    from repro_torch.core.optimizers import state_bytes
+    from repro_torch.train.extreme import make_extreme_step
+    for optimizer in ("dense_adam", "cs_rmsprop"):
+        for batch in (X_BATCH, X_BIG_BATCH):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            init_fn, step_fn, opts = make_extreme_step(
+                cfg, optimizer=optimizer, lr=X_LR, device=dev)
+            params = init_fn(torch.Generator(device=dev).manual_seed(seed))
+            state = {p: o.init() for p, o in opts.items()}
+            batches = extreme_batches(cfg, cmap, batch, 2, dev)
+            params, state, m = step_fn(params, state, batches[0])
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            params, state, m = step_fn(params, state, batches[1])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            log(f"phase 8e: {optimizer} batch {batch}: peak device memory "
+                f"of a step {peak} B above the card's {base} B before the "
+                f"arm; resident after a step {resident} B (params "
+                f"{state_bytes(params)} B, optimizer state "
+                f"{state_bytes(state)} B); loss {float(m['loss'])}")
+            del params, state, batches, m
+    torch.cuda.empty_cache()
+
+
+def phase_extreme_sites(cfg, dev, params, batch) -> None:
+    """8f, C1's last sites at the extreme step's shapes: each gives the
+    same bits twice on the card and the bits of a CPU copy.  The ordered
+    table add of both tables' raw (ids, rows) gradients (every occurrence
+    carries a row, as under ``stream``/``ref``), and the ``tiled``
+    updates through it equal to one ``index_add_``; the dense path's
+    plain routes (``ema_update_read_xla`` f32 and bf16,
+    ``ema_update_read_ref`` bf16, int8 cells) over the class head's
+    gradient into its (3, 7,168, 64) sketch; a 1-D ``DenseStore``."""
+    import torch
+    from repro_torch.core import sketch as cs
+    from repro_torch.core.optimizers import (SketchHParams,
+                                             apply_sparse_updates)
+    from repro_torch.core.quantize import QuantState
+    from repro_torch.core.stores import DenseStore
+    from repro_torch.kernels import ops
+    from repro_torch.train.extreme import extreme_grads
+    _loss, grads = extreme_grads(params, batch)
+    host_params = {k: {"table": v["table"].cpu()} for k, v in params.items()}
+
+    def bits(xs):
+        return [x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+                for x in xs]
+
+    def check(name, run):
+        before = read_counts()["cs_update"]
+        a, b = run(dev), run(dev)
+        used = read_counts()["cs_update"] - before
+        h = run(torch.device("cpu"))
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(bits(a), bits(b)))
+        cpu = all(torch.equal(x.cpu(), y) for x, y in zip(bits(a), bits(h)))
+        log(f"phase 8f: {name}: two runs equal to the bit {same}, equal to a "
+            f"CPU copy {cpu} ({used} B5 launches)")
+        if not (same and cpu and used):
+            raise AssertionError(f"{name}: same {same}, cpu {cpu}, B5 {used}")
+
+    for path, g in grads.items():
+        top = path.split("/")[0]
+
+        def ordered(d, top=top, g=g):
+            table = (params if d.type == "cuda" else host_params)[top]["table"]
+            return [apply_sparse_updates(table.clone(), {
+                "ids": g["ids"].to(d), "rows": g["rows"].to(d)})]
+        check(f"apply_sparse_updates {path} ({g['ids'].numel()} "
+              f"occurrences, {int(g['ids'].unique().numel())} ids)", ordered)
+    step_fn, opts, state = extreme_step(cfg, dev, optimizer="cs_rmsprop")
+    cost = {}
+    for path, opt in opts.items():
+        upd, _ = opt.update(grads[path], state[path])
+        table = params[path.split("/")[0]]["table"]
+        a = apply_sparse_updates(table.clone(), upd)
+        b = apply_sparse_updates(table.clone(), upd, first_only=True)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{path}: tiled updates through the ordered "
+                                 f"add differ from one index_add_")
+        cost[path] = [cuda_ms(lambda f=f: apply_sparse_updates(
+            a, upd, first_only=f), reps=20, warmup=2) for f in (False, True)]
+    log(f"phase 8f: tiled updates of both tables: the ordered add equal to "
+        f"the bit to one index_add_ (later occurrences carry zeros); ms a "
+        f"call [ordered, one index_add_] {json.dumps(cost)}")
+    g = grads["class_head/table"]
+    for name, dtype, fn in (("ema_update_read_xla f32", "float32",
+                             ops.ema_update_read_xla),
+                            ("ema_update_read_xla bf16", "bfloat16",
+                             ops.ema_update_read_xla),
+                            ("ema_update_read_ref bf16", "bfloat16",
+                             ops.ema_update_read_ref),
+                            ("ema_update_read_xla int8", "int8",
+                             ops.ema_update_read_xla)):
+        spec = SketchHParams(compression=100.0, dtype=dtype).spec(
+            "class_head/table", (cfg.n_meta, cfg.dim), signed=True)
+
+        def route(d, spec=spec, fn=fn):
+            ids, rows = g["ids"].to(d), g["rows"].to(d)
+            S = cs.update(spec, cs.init(spec, d), ids, rows * 3.0, sr_seed=5)
+            S, est = fn(spec, S, ids, rows, beta=0.999, scale=1.0 - 0.999,
+                        sr_seed=9)
+            return (list(S) if isinstance(S, QuantState) else [S]) + [est]
+        check(f"{name} into {spec.shape}", route)
+    store = DenseStore().bind("s", (cfg.n_meta,), torch.float32)
+
+    def dense_1d(d):
+        return [store.accumulate(store.init(d) + 1.0, g["rows"][:, 0].to(d),
+                                 g["ids"].to(d), scale=0.5)]
+    check(f"DenseStore.accumulate 1-D ({cfg.n_meta},)", dense_1d)
+
+
+def time_b1_extreme(dev, states, params, batch) -> list:
+    """Phase 5 at the extreme step's shapes (8f for B1): B1 as the step
+    calls it on both tables, without M (8a's ``cs_rmsprop`` state) and
+    with M (8d's ``cs_adam`` state), on the last batch's gradient: held
+    to the plain version on the card (M and V within atol 2e-5, upd
+    bit-equal at each first position) and to a CPU copy (M and V
+    bit-equal, upd within rtol 1e-6); its time beside its byte bound."""
+    import torch
+    from repro_torch.kernels import dedup as dd, ops
+    from repro_torch.kernels.cs_adam_tiled import (at_positions,
+                                                   cs_adam_tiled,
+                                                   cs_adam_tiled_plain)
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.train.extreme import extreme_grads
+    _loss, grads = extreme_grads(params, batch)
+    eta, bc1, bc2 = ops._adam_hypers(X_STEPS, -1.0, 0.9, 0.999)
+    hp = SketchHParams(compression=100.0)
+    rows_out = []
+    for optimizer, track in (("cs_rmsprop", False), ("cs_adam", True)):
+        for path, g in grads.items():
+            shape = tuple(params[path.split("/")[0]]["table"].shape)
+            spec_m = hp.spec(path, shape, signed=True) if track else None
+            spec_v = hp.spec(path, shape, signed=False)
+            st = states[optimizer][path]
+            kw = dict(lr=eta, b1=0.9 if track else 0.0, b2=0.999, eps=1e-8,
+                      bc1=bc1, bc2=bc2)
+            batch_u = dd.dedup_rows(g["ids"], g["rows"])
+            bm, sm, bv = ops._adam_addressing(spec_m, spec_v,
+                                              batch_u.unique_ids)
+            args = (st["m"], st["v"], bm, sm, bv, batch_u.rows)
+            pos = (batch_u.inv, batch_u.first_pos)
+            b1kw = dict(n_valid=batch_u.n_unique, positions=pos, **kw)
+            want = cs_adam_tiled_plain(*clone(args),
+                                       n_valid=batch_u.n_unique, **kw)
+            got = cs_adam_tiled(*clone(args), **b1kw)
+            err = max_err([w for w in want[:2] if w is not None],
+                          [c for c in got[:2] if c is not None])
+            upd_bit = torch.equal(at_positions(want[2], batch_u.first_pos),
+                                  got[2])
+            host = cs_adam_tiled(*on_cpu(args),
+                                 n_valid=batch_u.n_unique.cpu(),
+                                 positions=on_cpu(pos), **kw)
+            line = b1_vs_cpu(host, got)
+            if not (upd_bit and err <= COLLISION_ATOL):
+                raise AssertionError(f"B1 at {path} {optimizer}: upd "
+                                     f"bit-equal {upd_bit}, M/V err {err}")
+            scratch = clone(args)
+            ms = cuda_ms(lambda: cs_adam_tiled(*scratch, **b1kw), reps=20,
+                         warmup=3)
+            parts = {name[:60]: t / 5 for t, _c, name in kernel_profile(
+                lambda: [cs_adam_tiled(*scratch, **b1kw) for _ in range(5)]
+                + [torch.cuda.synchronize()])[2]}
+            plain_ms = cuda_ms(lambda: cs_adam_tiled_plain(
+                *scratch, n_valid=batch_u.n_unique, **kw), reps=5)
+            k, k_u, d = g["ids"].numel(), int(batch_u.n_unique), shape[1]
+            depth = spec_v.depth
+            rows_m = unique_rows(bm, k_u, spec_m.width) if track else 0
+            rows_v = unique_rows(bv, k_u, spec_v.width)
+            nbytes = b1_bytes(d, k, k_u, rows_m, rows_v, depth, track)
+            row = dict(table=path, optimizer=optimizer, width=spec_v.width,
+                       d=d, k=k, k_unique=k_u, touched_rows_m=rows_m,
+                       touched_rows_v=rows_v, bytes=nbytes, ms=ms,
+                       plain_ms=plain_ms, max_abs_err=err,
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       device_ms_by_kernel=parts)
+            rows_out.append(row)
+            log(f"phase 8f: B1 at {path} ({optimizer}, sketches "
+                f"{spec_v.shape}) k_u={k_u} (of {k}): {line}; M/V "
+                f"max_abs_err {err} vs the plain version on the card, upd "
+                f"bit-equal to it")
+            log(f"phase 5 (extreme): B1 {path} {optimizer} d={d} width "
+                f"{spec_v.width}: {ms} ms, plain {plain_ms} ms, bound "
+                f"{row['bound_ms']} ms ({nbytes} B at 3.35 TB/s; touched "
+                f"rows M {rows_m} V {rows_v}); device ms a call by kernel "
+                f"{json.dumps(parts)}")
+            del scratch, want, got, host
+    return rows_out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1819,29 +2282,40 @@ def main(argv=None) -> int:
         ("7b", lambda: phase_dense_int8(dev, out["6"][1])),
         ("7c", lambda: phase_sparse_bf16(dev, args.seed, out["3"][5])),
         ("7d", lambda: phase_async_clean(dev, out["6"][1])),
+        ("8", lambda: phase_extreme(dev, args.seed)),
+        ("5 (extreme)", lambda: time_b1_extreme(dev, *out["8"][1:4])),
     ]
-    out = {}
+    out, peak = {}, 0
     for name, run in phases:
         t0 = time.perf_counter()
         out[name] = run()
+        peak = max(peak, torch.cuda.max_memory_allocated())
         log(f"phase {name}: wall {time.perf_counter() - t0:.1f} s")
     kernels = out["5"]
-    launches = {"cs_adam_tiled": out["3"][4]["cs_adam_tiled"],
+    extreme = out["8"][0]       # 8a's cs_rmsprop runs, both replicas
+    launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
+                                  + extreme["cs_adam_tiled"]),
                 "cs_adam_fused": out["4"]["cs_adam_fused"],
                 "cs_ema_tiled": out["6"][0]["cs_ema_tiled"],
                 "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"],
-                # the main path's dedup sums, and the sketch ops' update
+                # the main and extreme paths' dedup sums, and the sketch
+                # ops' update
                 "cs_update": (out["3"][4]["cs_update"]
+                              + extreme["cs_update"]
                               + out["4 (sketch ops)"][4]["cs_update"]),
-                # B1's CSR on the main path, prev for B2, B5's CSR in the
-                # sketch ops, and B3's cached dense-row CSR
+                # B1's CSR on the main and extreme paths, prev for B2,
+                # B5's CSR in the sketch ops, and B3's cached dense-row CSR
                 "bucket_csr": (out["3"][4]["bucket_csr"]
+                               + extreme["bucket_csr"]
                                + out["4"]["bucket_csr"]
                                + out["4 (sketch ops)"][4]["bucket_csr"]
                                + out["6"][0]["bucket_csr"])}
     for row in kernels:
         row.setdefault("launches", launches.get(row["name"]))
-    log(f"peak device memory {torch.cuda.max_memory_allocated()} B")
+        if row["name"] == "cs_adam_tiled":
+            row["at_extreme_shapes"] = out["5 (extreme)"]
+            row["launches_extreme_path"] = extreme["cs_adam_tiled"]
+    log(f"peak device memory of the whole run {max(peak, out['8'][4])} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

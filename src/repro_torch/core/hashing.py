@@ -12,7 +12,8 @@ here is a ``uint32`` held in an ``int64`` tensor and masked with
 so that no ``int64`` product overflows.  Hashing runs on the device of
 ``ids``; each family's (a, b) parameters are drawn once and kept on each
 device that hashes with them, so a call copies nothing from the host and
-never waits for the device.
+never waits for the device.  ``mach_class_hash`` builds MACH's class maps
+on the host.
 """
 from __future__ import annotations
 
@@ -147,3 +148,22 @@ def _params_on(family: HashFamily, device: torch.device):
     so it must not happen inside a step."""
     p = torch.as_tensor(family.params.astype(np.int64), device=device)
     return p[:, 0].contiguous(), p[:, 1].contiguous()
+
+
+# classes hashed at a time by mach_class_hash: its int64 temporaries stay
+# near 8 MB each
+MACH_CHUNK = 1 << 20
+
+
+def mach_class_hash(seed: int, num_classes: int, num_buckets: int,
+                    num_hashes: int) -> np.ndarray:
+    """MACH meta-class assignment (paper §7.3): ``num_hashes`` independent
+    maps [num_classes] -> [num_buckets] as (num_hashes, num_classes)
+    int32, hashed on the host in chunks of ``MACH_CHUNK`` classes."""
+    fam = HashFamily(seed=seed, depth=num_hashes, width=num_buckets)
+    out = np.empty((num_hashes, num_classes), dtype=np.int32)
+    for lo in range(0, num_classes, MACH_CHUNK):
+        hi = min(num_classes, lo + MACH_CHUNK)
+        ids = torch.arange(lo, hi, dtype=torch.int32)
+        out[:, lo:hi] = fam.bucket(ids).numpy()
+    return out

@@ -11,25 +11,34 @@ rule, scale_by_lr(lr))`` presented in the reference's ``{"step", "m",
     params = apply_updates(params, updates)              # in place
 
 ``sparse_rows_adam`` is the same rule for one table fed ``{"ids",
-"rows"}`` gradients, applied with ``apply_sparse_updates``.  The legacy
-``policy``/``hparams.overrides`` dispatch is bridged onto a ``StoreTree``
-by ``stores_from_policy``.
+"rows"}`` gradients, applied with ``apply_sparse_updates``;
+``adam_sparse_rows`` and ``momentum_sparse_rows`` are the functional
+steps on sketch states (the former also the only 3-pass
+``strict_paper`` sparse path).  The legacy ``policy``/
+``hparams.overrides`` dispatch is bridged onto a ``StoreTree`` by
+``stores_from_policy``.  ``linear_decay`` is a schedule and
+``state_bytes`` counts a state's bytes.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import sketch as cs
 from repro_torch.core import transforms as T
-from repro_torch.core.cleaning import CleaningSchedule
+from repro_torch.core.cleaning import CleaningSchedule, maybe_clean
 from repro_torch.core.partition import PolicyFn, nothing_policy
 from repro_torch.core.stores import (CountMinStore, CountSketchStore,
-                                     DenseStore, StoreTree, leaf_seed)
+                                     DenseStore, StoreTree, leaf_seed,
+                                     tree_bytes)
 from repro_torch.core.transforms import Schedule, Transform
-from repro_torch.kernels import registry
+from repro_torch.kernels import dedup, registry
+from repro_torch.kernels.ops import bias_correction
+from repro_torch.kernels.ref import true_div
 
 
 def apply_updates(params, updates):
@@ -273,6 +282,50 @@ def countsketch_rmsprop(lr: Schedule, b2: float = 0.999, eps: float = 1e-8,
         lazy=hparams.lazy, strict_paper=hparams.strict_paper), lr)
 
 
+def _eta(lr: Schedule, step) -> float:
+    """The learning rate at ``step`` as a float32 value."""
+    return float(np.float32(T._lr_at(lr, step)))
+
+
+def adam_sparse_rows(spec_m: Optional[cs.SketchSpec], spec_v: cs.SketchSpec,
+                     M, V, ids: torch.Tensor, g: torch.Tensor, step, *,
+                     lr: Schedule, b1: float = 0.9, b2: float = 0.999,
+                     eps: float = 1e-8,
+                     cleaning: Optional[CleaningSchedule] = None,
+                     strict_paper: bool = False,
+                     backend: Optional[str] = None):
+    """CS-Adam on ``k`` touched rows, lr fused: ``(M', V', row_updates)``,
+    the sketches updated IN PLACE; ``spec_m``/``M`` None is the β₁=0
+    variant.  ``step`` is the host step counter.
+
+    ``backend`` runs the step through ``kernels.adam_rows`` after the
+    cleaning hook ('ref' | 'xla' | 'stream' | 'tiled' | 'auto'), which
+    handles duplicate ids itself.  ``backend=None`` is the in-graph batch
+    path, where ``ids`` must already be unique (``dedup.dedup_rows``);
+    ``strict_paper`` (3-pass: update, then query) exists only there."""
+    if backend is not None:
+        if strict_paper:
+            raise ValueError("strict_paper is only supported on the "
+                             "default (backend=None) path")
+        V_in = maybe_clean(cleaning, V, step)
+        return kernels.adam_rows(spec_m, spec_v, M, V_in, ids, g, step,
+                                 lr=lr, b1=b1, b2=b2, eps=eps,
+                                 backend=backend)
+    eta, t = _eta(lr, step), int(step)
+    write = cs.query_after_update if strict_paper else cs.update_and_query
+    if spec_m is not None:
+        m_old = cs.query(spec_m, M, ids)
+        M, m_new = write(spec_m, M, ids, (1.0 - b1) * (g - m_old))
+        mhat = true_div(m_new, bias_correction(b1, t))
+    else:
+        mhat = g
+    V = maybe_clean(cleaning, V, step)
+    v_old = cs.query(spec_v, V, ids)
+    V, v_new = write(spec_v, V, ids, (1.0 - b2) * (g * g - v_old))
+    vhat = true_div(torch.clamp_min(v_new, 0.0), bias_correction(b2, t))
+    return M, V, -eta * mhat / (torch.sqrt(vhat) + eps)
+
+
 def sparse_rows_adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
                      eps: float = 1e-8, *, shape: Tuple[int, int],
                      path: str = "sparse_rows",
@@ -287,8 +340,10 @@ def sparse_rows_adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
     neither names one).  ``track_first_moment=False`` is the β₁=0 variant
     (Theorem 5.1)."""
     if hparams.strict_paper:
-        raise ValueError("sparse_rows_adam runs through the kernel "
-                         "registry, which has no strict_paper (3-pass) path")
+        raise ValueError("sparse_rows_adam always runs through the kernel "
+                         "registry, which has no strict_paper (3-pass) "
+                         "path: use adam_sparse_rows(backend=None, "
+                         "strict_paper=True) instead")
     m_store, v_store = _sparse_rows_stores(
         shape, path, hparams, track_first_moment=track_first_moment,
         cleaning=cleaning, m_store=m_store, v_store=v_store)
@@ -342,8 +397,59 @@ def sparse_rows_stores(shape: Tuple[int, int], path: str = "sparse_rows",
                                v_store=v_store)
 
 
-def apply_sparse_updates(table: torch.Tensor, updates) -> torch.Tensor:
+# backends whose row updates carry each id's whole update at its first
+# occurrence and zeros at later ones (the dedup pre-pass)
+FIRST_OCCURRENCE_BACKENDS = ("xla", "tiled")
+
+
+def first_occurrence_only(hparams: SketchHParams, v_store=None,
+                          device="cuda") -> bool:
+    """True when the backend ``sparse_rows_adam`` binds for ``hparams``
+    and ``v_store`` on ``device`` is one of ``FIRST_OCCURRENCE_BACKENDS``:
+    its updates may then be applied with ``first_only=True``."""
+    backend = getattr(v_store, "backend", None) or hparams.backend
+    return registry.resolve("pair", "adam_rows", backend, device) \
+        in FIRST_OCCURRENCE_BACKENDS
+
+
+def apply_sparse_updates(table: torch.Tensor, updates, *,
+                         first_only: bool = False) -> torch.Tensor:
     """Add ``sparse_rows_adam`` row updates at their ids, IN PLACE
-    (correct under every backend).  Returns ``table``."""
-    return table.index_add_(0, updates["ids"].long(),
-                            updates["rows"].to(table.dtype))
+    (correct under every backend), each id's rows added in item order
+    from the table's value, as the reference's ``table.at[ids].add``
+    (``dedup.index_add_rows``).  ``first_only``: the caller knows later
+    occurrences carry zeros, so no order can change the bits and one
+    ``index_add_`` applies them.  Returns ``table``."""
+    if first_only:
+        return table.index_add_(0, updates["ids"].long(),
+                                updates["rows"].to(table.dtype))
+    return dedup.index_add_rows(table, updates["ids"], updates["rows"])
+
+
+def momentum_sparse_rows(spec: cs.SketchSpec, M, ids: torch.Tensor,
+                         g: torch.Tensor, step, *, lr: Schedule,
+                         gamma: float = 0.9, strict_paper: bool = False):
+    """Sketched momentum (paper Alg. 2) on ``k`` unique rows: ``(M',
+    row_updates)``, M updated IN PLACE."""
+    eta = _eta(lr, step)
+    m_old = cs.query(spec, M, ids)
+    write = cs.query_after_update if strict_paper else cs.update_and_query
+    M, m_new = write(spec, M, ids, (gamma - 1.0) * m_old + g)
+    return M, -eta * m_new
+
+
+def linear_decay(base_lr: float, total_steps: int,
+                 floor: float = 0.0) -> Schedule:
+    """``base_lr`` falling linearly to ``floor`` over ``total_steps``, in
+    float32 over the host step counter."""
+    def sched(step):
+        t = torch.as_tensor(step).to(torch.float32)
+        frac = torch.clamp(true_div(t, float(total_steps)), 0.0, 1.0)
+        return base_lr * (1.0 - frac) + floor * frac
+    return sched
+
+
+def state_bytes(state) -> int:
+    """Total bytes of optimizer state (the paper's Tables 5/6):
+    ``stores.tree_bytes``."""
+    return tree_bytes(state)

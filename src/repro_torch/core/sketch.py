@@ -306,6 +306,27 @@ def query_after_update(spec: SketchSpec, S, ids: torch.Tensor,
     return S, query(spec, S, ids)
 
 
+def query_dense(spec: SketchSpec, S, n: int) -> torch.Tensor:
+    """QUERY every row ``0 .. n-1``: (n, dim) f32."""
+    return query(spec, S, torch.arange(n, dtype=torch.int32,
+                                       device=device_of(S)))
+
+
+def update_dense(spec: SketchSpec, S, delta: torch.Tensor, sr_seed=None):
+    """UPDATE rows ``0 .. n-1`` with ``delta`` (n, dim), IN PLACE."""
+    ids = torch.arange(delta.shape[0], dtype=torch.int32,
+                       device=delta.device)
+    return update(spec, S, ids, delta, sr_seed=sr_seed)
+
+
+def update_and_query_dense(spec: SketchSpec, S, delta: torch.Tensor,
+                           sr_seed=None):
+    """``update_and_query`` over rows ``0 .. n-1``: ``(S', est)``."""
+    ids = torch.arange(delta.shape[0], dtype=torch.int32,
+                       device=delta.device)
+    return update_and_query(spec, S, ids, delta, sr_seed=sr_seed)
+
+
 def decay(S, alpha: float):
     """Cleaning heuristic (paper §4): multiply the sketch by ``alpha`` IN
     PLACE.  int8 folds ``alpha`` into the block scales and touches no

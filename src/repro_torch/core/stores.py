@@ -32,7 +32,7 @@ buckets.  A sketch store's ``dtype`` names its cells ('float32' |
 'bfloat16' | 'int8'); an int8 state is a ``quantize.QuantState``.  Every
 state is updated IN PLACE and returned.  ``Rank1Store`` waits for the
 planner (ROADMAP A9), ``stats`` for telemetry (A11), the JSON round-trip
-for A9.
+for A9.  ``tree_bytes`` counts a state tree's bytes.
 """
 from __future__ import annotations
 
@@ -112,15 +112,17 @@ class DenseStore(AuxStore):
 
     def accumulate(self, state, delta, rows=None, *, scale: float = 1.0):
         """Add ``scale*delta`` IN PLACE, at ``rows`` when given (repeated
-        rows accumulate in batch order).  An f32 state of two or more
-        dimensions on CUDA adds its rows by B5's run scatter, with no
-        atomics: the CPU ``index_add_``'s bits on every run."""
+        rows accumulate in batch order).  An f32 state on CUDA adds its
+        rows by B5's run scatter (a 1-D state as (n, 1)), with no
+        atomics: the CPU ``index_add_``'s bits on every run.  Other
+        dtypes on CUDA sum repeated rows with atomics; the port's steps
+        give this store f32 states, or distinct rows."""
         if scale != 1.0:
             delta = scale * delta
         if rows is None:
             return state.add_(delta)
         if state.device.type == "cuda" and state.dtype == torch.float32 \
-                and state.dim() >= 2:
+                and state.dim() >= 1:
             from repro_torch.kernels.cs_update import cs_update
             n, k = state.shape[0], rows.numel()
             cs_update(state.view(1, n, -1),
@@ -389,3 +391,21 @@ class StoreTree:
             return None if pair is None else (None, pair[1])
 
         return dataclasses.replace(out, resolver=resolver)
+
+
+def tree_bytes(state) -> int:
+    """Exact bytes of a state tree (nested dicts, lists and tuples): every
+    tensor or array leaf counted as numel x itemsize, a ``QuantState``'s
+    cells and scales both, the host int32 ``step`` as 4 B; ``None`` and
+    Python scalars count 0."""
+    if state is None:
+        return 0
+    if isinstance(state, dict):
+        return sum(tree_bytes(v) for v in state.values())
+    if isinstance(state, (list, tuple)):        # QuantState included
+        return sum(tree_bytes(v) for v in state)
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size()
+    if hasattr(state, "shape") and hasattr(state, "dtype"):
+        return int(getattr(state, "nbytes", 0))
+    return 0

@@ -102,21 +102,24 @@ def _bf16(S: torch.Tensor, sr_seed) -> bool:
 def cs_ema_tiled_plain(S: torch.Tensor, b: torch.Tensor,
                        s: Optional[torch.Tensor], x: torch.Tensor,
                        mask: Optional[torch.Tensor], *, beta: float,
-                       scale: float, sr_seed: Optional[int] = None
+                       scale: float, sr_seed: Optional[int] = None,
+                       scatter=ref.cs_update_ref
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of B3 on any device; updates S in place.  A bf16
     ``S`` takes the reference's low-precision form: increments summed
     from zero in f32, added to the widened sketch, every cell re-rounded
-    with ``sr_seed``."""
+    with ``sr_seed``.  ``scatter(S, b, s, d)`` adds the increments; the
+    backends' plain routes pass ``cs_update``, which adds in the CPU's
+    order on the card too."""
     est_old = ref.cs_query_ref(S, b, s)
     d = ema_delta(est_old, x, beta, scale)
     if mask is not None:
         d = d * mask
     if not _bf16(S, sr_seed):
-        ref.cs_update_ref(S, b, s, d)
+        scatter(S, b, s, d)
         return S, est_old + d
-    inc = ref.cs_update_ref(torch.zeros(S.shape, dtype=torch.float32,
-                                        device=S.device), b, s, d)
+    inc = scatter(torch.zeros(S.shape, dtype=torch.float32,
+                              device=S.device), b, s, d)
     bits = qz.cell_bits(sr_seed, qz._lin_index(tuple(S.shape),
                                                device=S.device))
     S.copy_(qz.sr_bfloat16(S.to(torch.float32) + inc, bits))

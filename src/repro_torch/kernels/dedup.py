@@ -18,12 +18,17 @@ summed by B5's run scatter at depth 1 over the sort itself (a slot's
 rows are its run of sorted positions, added in that order from zero):
 no atomics, the same bits as the CPU and the same bits from run to run.
 Other dtypes on CUDA still go through ``index_add_``, whose atomics
-order duplicates differently from run to run.  The integer outputs are
-exact on every device.
+order duplicates differently from run to run; no entry point of the port
+builds such rows (its gradients are f32).  The integer outputs are exact
+on every device.
+
+``index_add_rows`` is ``table.index_add_(0, ids, rows)`` in the same
+order on every device: on CUDA the same sort and run scatter, into the
+touched table rows gathered into a slab rather than into zeros.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -60,18 +65,10 @@ def dedup_rows(ids: torch.Tensor, rows: torch.Tensor,
         return DedupBatch(unique_ids=z, rows=rows, inv=z, first_pos=z,
                           n_unique=torch.zeros((), dtype=torch.int32,
                                                device=dev))
-    ids = ids.to(torch.int32)
-    sorted_ids, order = torch.sort(ids, stable=True)
-    is_start = torch.ones((k,), dtype=torch.int64, device=dev)
-    is_start[1:] = (sorted_ids[1:] != sorted_ids[:-1]).to(torch.int64)
-    seg = torch.cumsum(is_start, 0) - 1                    # (k,) segment index
-    n_unique = (seg[-1] + 1).to(torch.int32)
-    unique_ids = torch.full((k,), fill_id, dtype=torch.int32, device=dev)
-    unique_ids.scatter_(0, seg, sorted_ids)
-    inv = torch.empty((k,), dtype=torch.int64, device=dev)
-    inv.scatter_(0, order, seg)
+    order, seg, unique_ids, inv, n_unique = _segments(ids, fill_id)
     if dev.type == "cuda" and rows.dtype == torch.float32:
-        summed = _segment_sum_runs(rows, seg, order, inv)
+        summed = _segment_sum_runs(rows, seg, order, inv, torch.zeros(
+            rows.shape, dtype=rows.dtype, device=dev))
     else:
         summed = torch.zeros_like(rows).index_add_(0, seg, rows[order])
     # stable sort: within a segment `order` ascends, so the min is the
@@ -84,22 +81,76 @@ def dedup_rows(ids: torch.Tensor, rows: torch.Tensor,
                       n_unique=n_unique)
 
 
+def _segments(ids: torch.Tensor, fill_id: int = -1):
+    """The stable sort of ``ids`` (k > 0) as segments: ``(order, seg,
+    unique_ids, inv, n_unique)``, ``order`` and ``seg`` (segment of each
+    sorted position) and ``inv`` (segment of each input position) int64,
+    ``unique_ids`` (k,) int32 padded with ``fill_id``, ``n_unique`` a
+    device scalar."""
+    k, dev = ids.shape[0], ids.device
+    sorted_ids, order = torch.sort(ids.to(torch.int32), stable=True)
+    is_start = torch.ones((k,), dtype=torch.int64, device=dev)
+    is_start[1:] = (sorted_ids[1:] != sorted_ids[:-1]).to(torch.int64)
+    seg = torch.cumsum(is_start, 0) - 1                    # (k,) segment index
+    n_unique = (seg[-1] + 1).to(torch.int32)
+    unique_ids = torch.full((k,), fill_id, dtype=torch.int32, device=dev)
+    unique_ids.scatter_(0, seg, sorted_ids)
+    inv = torch.empty((k,), dtype=torch.int64, device=dev)
+    inv.scatter_(0, order, seg)
+    return order, seg, unique_ids, inv, n_unique
+
+
 def _segment_sum_runs(rows: torch.Tensor, seg: torch.Tensor,
-                      order: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
-    """The segment sums of CUDA f32 rows: B5 at depth 1, where slot u is
-    a bucket whose run is the sorted positions ``starts[u] ..
+                      order: torch.Tensor, inv: torch.Tensor,
+                      into: torch.Tensor) -> torch.Tensor:
+    """Add each segment's CUDA f32 rows into its slot of ``into`` (k, ...)
+    IN PLACE, in sorted order from the slot's value: B5 at depth 1, where
+    slot u is a bucket whose run is the sorted positions ``starts[u] ..
     starts[u+1]`` of ``order``; B5 reads the rows in place.  ``starts``
     is found on the device (padding slots: empty runs at k)."""
     k = rows.shape[0]
     starts = torch.full((k + 1,), k, dtype=torch.int64, device=rows.device)
     starts.scatter_reduce_(0, seg, torch.arange(k, device=rows.device),
                            reduce="amin")
-    flat = rows.reshape(k, -1).contiguous()
-    summed = torch.zeros_like(flat)
-    cs_update(summed.view(1, k, -1), inv.to(torch.int32).view(1, k), None,
-              flat, csr=(order.to(torch.int32).view(1, k),
-                         starts.to(torch.int32).view(1, k + 1)))
-    return summed.view(rows.shape)
+    cs_update(into.view(1, k, -1), inv.to(torch.int32).view(1, k), None,
+              rows.reshape(k, -1).contiguous(),
+              csr=(order.to(torch.int32).view(1, k),
+                   starts.to(torch.int32).view(1, k + 1)))
+    return into
+
+
+def live_slots(unique_ids: torch.Tensor, n_unique: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(slot, target)`` (k,) int64: each slot, padding slots replaced by
+    the last live one, and the id it names.  Copying per-slot values
+    ``vals[slot]`` to rows ``target`` writes each touched row once with
+    its live slot's value (padding slots repeat the last live slot's
+    write), with no ``n_unique`` read on the host."""
+    k = unique_ids.shape[0]
+    slot = torch.minimum(torch.arange(k, device=unique_ids.device),
+                         n_unique.long() - 1)
+    return slot, unique_ids.long()[slot]
+
+
+def index_add_rows(table: torch.Tensor, ids: torch.Tensor,
+                   rows: torch.Tensor) -> torch.Tensor:
+    """``table.index_add_(0, ids, rows)`` IN PLACE, every occurrence of
+    an id added in item order from the table's own value, ((t+u1)+u2) as
+    the reference's ``table.at[ids].add(rows)`` adds.  On a CUDA f32
+    table the touched rows are gathered into a (k, ...) slab, B5's run
+    scatter adds each id's rows into its slot, and the slots are copied
+    back: O(k·d) work, no atomics, the CPU's bits.  Padding slots hold a
+    copy of the last live slot, so every copy to a row writes the same
+    bits.  Elsewhere one ``index_add_``."""
+    rows = rows.to(table.dtype)
+    if table.device.type != "cuda" or table.dtype != torch.float32 \
+            or ids.shape[0] == 0:
+        return table.index_add_(0, ids.long(), rows)
+    order, seg, unique_ids, inv, n_unique = _segments(ids)
+    slot, target = live_slots(unique_ids, n_unique)
+    slab = table[target]
+    _segment_sum_runs(rows, seg, order, inv, slab)
+    return table.index_copy_(0, target, slab[slot])
 
 
 def scatter_back(batch: DedupBatch, unique_out: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ The dense path's fused ``update_read``, ``ref | xla | tiled``: each takes
 is hashed once per (spec, n, device) and kept on the device.
 
 ``sketch_query``/``sketch_update``: B4/B5 for CUDA tensors, the plain
-``ref`` forms for CPU tensors.
+``ref`` forms for CPU tensors.  The dense path's plain routes sum through
+``cs_update`` too (``_ordered_scatter``): on a card B5, in the CPU
+``index_add_``'s order.
 
 Low-precision cells (bf16, int8; ``_lowp``) follow the reference's
 routes: the batch sketch ops and every sparse-rows backend run the
@@ -214,6 +216,18 @@ def _ema_addressing(spec: SketchSpec, ids: Optional[torch.Tensor], n: int,
     return _addressing(spec, ids)
 
 
+def _ordered_scatter(spec: SketchSpec, ids, x: torch.Tensor):
+    """The plain routes' scatter ``(S, b, s, d) -> S``: ``cs_update``,
+    which adds in the CPU ``index_add_``'s order on every device (B5 on
+    the card, with the dense row set's cached CSR)."""
+    csr = _cached_csr(spec, x.shape[0], x.device) \
+        if ids is None and x.device.type == "cuda" else None
+
+    def scatter(S, b, s, d):
+        return cs_update(S, b, s, d.contiguous(), csr=csr)
+    return scatter
+
+
 def _ema_update_read_lowp(spec: SketchSpec, S, ids, x, *, beta: float,
                           scale: float, mask, sr_seed):
     """The low-precision ``update_read`` shared by 'ref' and 'xla' (and
@@ -225,14 +239,16 @@ def _ema_update_read_lowp(spec: SketchSpec, S, ids, x, *, beta: float,
     b, s = _ema_addressing(spec, ids, x.shape[0], x.device)
     if not spec.quantized:
         return cs_ema_tiled_plain(S, b, s, x, mask, beta=beta, scale=scale,
-                                  sr_seed=sr_seed)
+                                  sr_seed=sr_seed,
+                                  scatter=_ordered_scatter(spec, ids, x))
     rows = cs.gather_rows(spec, S, b, s)
     est_old = cs.median_rows(rows) if spec.signed else cs.min_rows(rows)
     d = cs.ema_delta(est_old, x, beta, scale)
     if mask is not None:
         d = d * mask
-    inc = ref.cs_update_ref(torch.zeros(spec.shape, dtype=torch.float32,
-                                        device=x.device), b, s, d)
+    inc = _ordered_scatter(spec, ids, x)(
+        torch.zeros(spec.shape, dtype=torch.float32, device=x.device),
+        b, s, d)
     new = qz.quantize(qz.dequantize(S, spec.scale_block) + inc, sr_seed,
                       scale_block=spec.scale_block)
     S.cells.copy_(new.cells)
@@ -267,7 +283,8 @@ def ema_update_read_xla(spec: SketchSpec, S, ids, x, *, beta: float,
         return _ema_update_read_lowp(spec, S, ids, x, beta=beta,
                                      scale=scale, mask=mask, sr_seed=sr_seed)
     b, s = _ema_addressing(spec, ids, x.shape[0], S.device)
-    return cs_ema_tiled_plain(S, b, s, x, mask, beta=beta, scale=scale)
+    return cs_ema_tiled_plain(S, b, s, x, mask, beta=beta, scale=scale,
+                              scatter=_ordered_scatter(spec, ids, x))
 
 
 def ema_update_read_tiled(spec: SketchSpec, S, ids, x, *, beta: float,

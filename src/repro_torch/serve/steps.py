@@ -46,9 +46,12 @@ def make_online_adapt_step(n_rows: int, dim: int, *, lr=1e-4,
     def init_state_fn():
         return opt.init()
 
+    first_only = opt_lib.first_occurrence_only(hp, v_store, device)
+
     def adapt_fn(table, opt_state, ids, grad_rows):
         updates, opt_state = opt.update(
             {"ids": ids, "rows": grad_rows}, opt_state)
-        return opt_lib.apply_sparse_updates(table, updates), opt_state
+        return opt_lib.apply_sparse_updates(
+            table, updates, first_only=first_only), opt_state
 
     return init_state_fn, adapt_fn

@@ -96,9 +96,12 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
                             dtype=torch.float32, device=device)
         return table * scale.to(device)
 
+    first_only = opt_lib.first_occurrence_only(hp, v_store, device)
+
     def step_fn(table, opt_state, ids, grad_rows):
         updates, opt_state = opt.update(
             {"ids": ids, "rows": grad_rows}, opt_state)
-        return opt_lib.apply_sparse_updates(table, updates), opt_state
+        return opt_lib.apply_sparse_updates(
+            table, updates, first_only=first_only), opt_state
 
     return init_fn, step_fn, opt

@@ -664,3 +664,109 @@ def test_tiled_full_width_in_cpu_order(cuda_device):
     assert torch.equal(got[0].cpu(), host[0])
     assert torch.equal(got[1].cpu(), host[1])
     torch.testing.assert_close(got[2].cpu(), host[2], rtol=1e-6, atol=0)
+
+
+# ------------------------------ the extreme step's shapes and C1's last sites
+EXTREME_TABLES = {256: (65_536, 16_384), 7_168: (2_097_152, 2_048)}
+
+
+@pytest.mark.parametrize("width", sorted(EXTREME_TABLES))
+@pytest.mark.parametrize("track_m", [True, False])
+def test_b1_at_extreme_shapes(cuda_device, width, track_m):
+    """B1 at d=64 as the extreme step calls it: the feature table's
+    (3, 256, 64) sketches under 16,384 zipf(1.05) ids, the class head's
+    (3, 7,168, 64) under 2,048.  Against the plain version on the card (M
+    and V within atol 2e-5, upd bit-equal at each first position), a CPU
+    copy (M and V bit-equal, upd within rtol 1e-6) and a second run (the
+    same bits)."""
+    from repro_torch.kernels import dedup as dd, ops
+    from repro_torch.kernels.cs_adam_tiled import at_positions
+    n, k = EXTREME_TABLES[width]
+    rng = np.random.RandomState(width)
+    ids = torch.from_numpy(((rng.zipf(1.05, k) - 1) % n).astype(np.int32)
+                           ).to(cuda_device)
+    spec_m = cs.SketchSpec(depth=3, width=width, dim=64, signed=True, seed=1)
+    spec_v = cs.SketchSpec(depth=3, width=width, dim=64, signed=False,
+                           seed=2)
+    g = torch.randn((k, 64), device=cuda_device) * 1e-2
+    M = torch.randn(spec_m.shape, device=cuda_device) * 1e-3 \
+        if track_m else None
+    V = torch.rand(spec_v.shape, device=cuda_device) * 1e-4
+    batch = dd.dedup_rows(ids, g)
+    bm, sm, bv = ops._adam_addressing(spec_m if track_m else None, spec_v,
+                                      batch.unique_ids)
+    kw = dict(KW, b1=0.9 if track_m else 0.0)
+    args = (M, V, bm, sm, bv, batch.rows)
+    want = cs_adam_tiled_plain(*_clone(args), n_valid=batch.n_unique, **kw)
+    runs = [cs_adam_tiled(*_clone(args), n_valid=batch.n_unique,
+                          positions=(batch.inv, batch.first_pos), **kw)
+            for _ in range(2)]
+    host = cs_adam_tiled(*_cpu(args), n_valid=batch.n_unique.cpu(),
+                         positions=(batch.inv.cpu(), batch.first_pos.cpu()),
+                         **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(at_positions(want[2], batch.first_pos), runs[0][2])
+    for a, c in zip(want[:2], runs[0][:2]):
+        if a is not None:
+            torch.testing.assert_close(c, a, rtol=0, atol=2e-5)
+    for a, b, h in zip(runs[0], runs[1], host):
+        if h is not None:
+            assert torch.equal(a, b)
+    for a, h in zip(runs[0][:2], host[:2]):
+        if h is not None:
+            assert torch.equal(a.cpu(), h)
+    torch.testing.assert_close(runs[0][2].cpu(), host[2], rtol=1e-6, atol=0)
+
+
+def _part1_site(name, dev):
+    """One repaired C1 site on ``dev``: a function of nothing that returns
+    its outputs, on inputs made from one seed (duplicate-heavy ids)."""
+    from repro_torch.core import optimizers as opt_lib
+    from repro_torch.core.stores import DenseStore
+    from repro_torch.kernels import ops
+    rng = np.random.RandomState(len(name))
+    n, k, d = 3_000, 4_000, 40
+    ids = torch.from_numpy(((rng.zipf(1.1, k) - 1) % n).astype(np.int32)
+                           ).to(dev)
+    rows = torch.from_numpy((rng.randn(k, d) * 10.0 ** rng.randint(
+        -3, 3, (k, 1))).astype(np.float32)).to(dev)
+    table = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev)
+    if name == "apply_sparse_updates":
+        return lambda: [opt_lib.apply_sparse_updates(
+            table.clone(), {"ids": ids, "rows": rows})]
+    if name == "dense_store_1d":
+        store = DenseStore().bind("s", (n,), torch.float32)
+        return lambda: [store.accumulate(table[:, 0].clone(), rows[:, 0],
+                                         ids, scale=0.5)]
+    dtype, fn = {"ema_xla_f32": ("float32", ops.ema_update_read_xla),
+                 "ema_xla_bf16": ("bfloat16", ops.ema_update_read_xla),
+                 "ema_ref_bf16": ("bfloat16", ops.ema_update_read_ref),
+                 "ema_int8": ("int8", ops.ema_update_read_xla)}[name]
+    spec = cs.SketchSpec(depth=3, width=64, dim=d, signed=True, seed=4,
+                         dtype=dtype)
+    S0 = cs.update(spec, cs.init(spec, dev), ids, rows, sr_seed=3)
+
+    def run():
+        S, est = fn(spec, cs.clone(S0), ids, rows, beta=0.9, scale=0.1,
+                    sr_seed=11)
+        leaves = list(S) if isinstance(S, QuantState) else [S]
+        return [_bits(x) for x in leaves] + [est]
+    return run
+
+
+PART1_SITES = ["apply_sparse_updates", "dense_store_1d", "ema_xla_f32",
+               "ema_xla_bf16", "ema_ref_bf16", "ema_int8"]
+
+
+@pytest.mark.parametrize("name", PART1_SITES)
+def test_part1_sites_in_cpu_order(cuda_device, name):
+    """Each colliding sum repaired for the extreme slice adds in the CPU
+    ``index_add_``'s order through B5: two runs on the card and a CPU copy
+    give the same bits."""
+    before = cs_update.launches
+    runs = [_part1_site(name, cuda_device)() for _ in range(2)]
+    host = _part1_site(name, torch.device("cpu"))()
+    torch.cuda.synchronize()
+    assert cs_update.launches > before
+    for a, b, h in zip(runs[0], runs[1], host):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), h)

@@ -113,6 +113,32 @@ own line; any failure raises and the exit code is not 0:
      ``DenseStore``) give the same bits twice and a CPU copy's; B1 at both
      tables' shapes, with and without M, held to its plain version and a
      CPU copy, and timed beside its bound (printed as phase 5 rows).
+  9. planned, resumable training.  9a: phase 8's workload (replica 0's
+     class map, batch 1,024, lr 1e-2) under ``plan_extreme(cfg,
+     5,701,632, optimizer="cs_rmsprop", backend="auto")``, the bytes
+     phase 8's compression 100 spends, which the planner splits as V
+     (3, 5,376, 64) on the class head and (3, 2,048, 64) on the
+     features: 20 steps; ``measure_aux_bytes`` of the state must equal
+     the plan's 5,701,632 B, B1, its CSR and the dedup sum must launch
+     twice a step, the loss must fall by 8a's window check; five more
+     steps under the profiler; B1 timed at both planned shapes (phase 5
+     rows).  9b: 10 steps from 9a's start, an async ``checkpoint.save``
+     with the plan and its StoreTree in the manifest, step 11 run in
+     place before the writer is joined, a restore into new tensors from
+     the manifest's own plan, and steps 11..20: tables, state and losses
+     equal to 9a's to the bit (the checkpoint lives under ``build/`` and
+     is removed).  9e: that checkpoint restored through ``fold_sketches``
+     under the manifest's fold predicate, V (3, 2,688, 64) and (3, 1,024,
+     64), each the sum of the saved V's halves, then 5 steps under
+     ``plan.fold()`` with a finite loss.  9c: phase 6's layer under
+     ``plan_for_params(…, 200,000,000)`` (the table at (3, 9,216)),
+     ``plan.make_optimizer(backend="auto")``, 5 steps: B3 twice a step,
+     the loss on batch 0's tokens must fall, the plain ``xla`` witness
+     within rtol 1e-4, and the state saved and restored equal to the
+     bit.  9d: the CS-V floor plan of the same layer (dense m, the
+     table's v a ``Rank1Store``: LR-NMF-V), 5 steps: the loss must fall,
+     the state stay finite, and its ``.r``/``.c`` leaves round-trip a
+     checkpoint to the bit.
 
 Phase 2 also holds B3's bf16 branch to its plain version (bit-equal on a
 CPU copy; within one bf16 ulp plus the f32 collision envelope of the
@@ -1949,7 +1975,7 @@ def phase_extreme(dev, seed: int):
     phase_extreme_memory(cfg, dev, maps[0], seed)
     phase_extreme_sites(cfg, dev, params_from(final), batches0[0])
     return counts_8a, {"cs_rmsprop": state0, **states}, params_from(final), \
-        batches0[-1], peak
+        batches0[-1], peak, maps
 
 
 def phase_extreme_witness(cfg, dev, start, batches, final, losses):
@@ -2165,13 +2191,16 @@ def phase_extreme_sites(cfg, dev, params, batch) -> None:
     check(f"DenseStore.accumulate 1-D ({cfg.n_meta},)", dense_1d)
 
 
-def time_b1_extreme(dev, states, params, batch) -> list:
+def time_b1_extreme(dev, states, params, batch, specs=None,
+                    tag: str = "extreme") -> list:
     """Phase 5 at the extreme step's shapes (8f for B1): B1 as the step
     calls it on both tables, without M (8a's ``cs_rmsprop`` state) and
     with M (8d's ``cs_adam`` state), on the last batch's gradient: held
     to the plain version on the card (M and V within atol 2e-5, upd
     bit-equal at each first position) and to a CPU copy (M and V
-    bit-equal, upd within rtol 1e-6); its time beside its byte bound."""
+    bit-equal, upd within rtol 1e-6); its time beside its byte bound.
+    ``specs`` (a plan's ``specs()``) sizes the sketches in place of
+    ``SketchHParams(compression=100.0)``; ``states`` may hold one arm."""
     import torch
     from repro_torch.kernels import dedup as dd, ops
     from repro_torch.kernels.cs_adam_tiled import (at_positions,
@@ -2184,10 +2213,16 @@ def time_b1_extreme(dev, states, params, batch) -> list:
     hp = SketchHParams(compression=100.0)
     rows_out = []
     for optimizer, track in (("cs_rmsprop", False), ("cs_adam", True)):
+        if optimizer not in states:
+            continue
         for path, g in grads.items():
             shape = tuple(params[path.split("/")[0]]["table"].shape)
-            spec_m = hp.spec(path, shape, signed=True) if track else None
-            spec_v = hp.spec(path, shape, signed=False)
+            if specs is None:
+                spec_m = hp.spec(path, shape, signed=True) if track else None
+                spec_v = hp.spec(path, shape, signed=False)
+            else:
+                spec_m = specs[path]["m"] if track else None
+                spec_v = specs[path]["v"]
             st = states[optimizer][path]
             kw = dict(lr=eta, b1=0.9 if track else 0.0, b2=0.999, eps=1e-8,
                       bc1=bc1, bc2=bc2)
@@ -2231,17 +2266,343 @@ def time_b1_extreme(dev, states, params, batch) -> list:
                        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                        device_ms_by_kernel=parts)
             rows_out.append(row)
-            log(f"phase 8f: B1 at {path} ({optimizer}, sketches "
+            log(f"phase {'8f' if specs is None else '9a'}: B1 at {path} "
+                f"({optimizer}, sketches "
                 f"{spec_v.shape}) k_u={k_u} (of {k}): {line}; M/V "
                 f"max_abs_err {err} vs the plain version on the card, upd "
                 f"bit-equal to it")
-            log(f"phase 5 (extreme): B1 {path} {optimizer} d={d} width "
+            log(f"phase 5 ({tag}): B1 {path} {optimizer} d={d} width "
                 f"{spec_v.width}: {ms} ms, plain {plain_ms} ms, bound "
                 f"{row['bound_ms']} ms ({nbytes} B at 3.35 TB/s; touched "
                 f"rows M {rows_m} V {rows_v}); device ms a call by kernel "
                 f"{json.dumps(parts)}")
             del scratch, want, got, host
     return rows_out
+
+
+# ---------------------------------------------------------------- phase 9
+X_BUDGET = 5_701_632          # the V bytes of phase 8's compression 100
+X_FOLDED = {"class_head/table": (3, 2_688, 64),     # V after 9e's fold
+            "tok_embed/table": (3, 1_024, 64)}
+DENSE_BUDGET, DENSE_WIDTH = 200_000_000, 9_216      # phase 6's layer
+P_STEPS, P_SAVE_AT, P_DENSE_STEPS = 20, 10, 5
+
+
+def moment_major(state) -> dict:
+    """The extreme step's per-table states ``{path: {"step", "m", "v"}}``
+    as one ``{"step", "m": {path}, "v": {path}}`` state: its leaf paths
+    (``opt_state/v/<param path>``) are the ones the manifest's fold
+    predicate names.  The tables' step counters are equal."""
+    steps = {int(s["step"]) for s in state.values()}
+    if len(steps) != 1:
+        raise AssertionError(f"the tables' steps differ: {steps}")
+    return {"step": next(iter(state.values()))["step"],
+            "m": {p: s["m"] for p, s in state.items()},
+            "v": {p: s["v"] for p, s in state.items()}}
+
+
+def per_table(opt_state) -> dict:
+    """The reverse of ``moment_major``."""
+    return {p: {"step": opt_state["step"].clone(), "m": opt_state["m"][p],
+                "v": opt_state["v"][p]} for p in opt_state["v"]}
+
+
+def leaves_equal(a, b) -> bool:
+    """Two trees of tensors (None, dicts, tuples) equal to the bit."""
+    import torch
+    from repro_torch.checkpoint.store import _flatten
+    fa, fb = _flatten(a), _flatten(b)
+    return [p for p, _ in fa] == [p for p, _ in fb] and all(
+        (x is None and y is None) or (
+            x is not None and y is not None and x.dtype == y.dtype
+            and torch.equal(x.detach(), y.detach()))
+        for (_, x), (_, y) in zip(fa, fb))
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_planned_extreme(dev, seed: int, maps):
+    """Phase 9a, 9b and 9e: phase 8's workload under ``plan_extreme(cfg,
+    5,701,632, optimizer="cs_rmsprop", backend="auto")`` (see the module
+    docstring).  Returns (9a's launch counts, the B1 rows at the planned
+    shapes)."""
+    import tempfile
+    import torch
+    from repro_torch import kernels
+    from repro_torch.plan import measure_aux_bytes
+    from repro_torch.train.extreme import (MachConfig, make_extreme_step,
+                                           plan_extreme)
+    cfg = MachConfig(**EXTREME)
+    plan = plan_extreme(cfg, X_BUDGET, optimizer="cs_rmsprop",
+                        backend="auto")
+    backend = kernels.resolve_backend(plan.backend, dev)
+    log(f"phase 9a: plan_extreme(MachConfig {EXTREME}, {X_BUDGET}, "
+        f"optimizer='cs_rmsprop', backend='auto' -> {backend}):")
+    for line in plan.table().splitlines():
+        log(f"phase 9a:   {line}")
+    if backend != "tiled" or plan.predicted_aux_bytes != X_BUDGET:
+        raise AssertionError(f"backend {backend}, predicted "
+                             f"{plan.predicted_aux_bytes} B")
+
+    def fresh(p):
+        init_fn, step_fn, opts = make_extreme_step(
+            cfg, optimizer="cs_rmsprop", lr=X_LR, plan=p, device=dev)
+        return init_fn, step_fn, {q: o.init() for q, o in opts.items()}
+
+    init_fn, step_fn, state = fresh(plan)
+    measured = sum(measure_aux_bytes(s) for s in state.values())
+    log(f"phase 9a: measure_aux_bytes of the state {measured} B, plan "
+        f"{plan.predicted_aux_bytes} B; V "
+        + ", ".join(f"{p} {tuple(s['v'].shape)}" for p, s in state.items()))
+    if measured != plan.predicted_aux_bytes:
+        raise AssertionError("the planned state's bytes differ from the plan")
+    params = init_fn(torch.Generator(device=dev).manual_seed(seed))
+    start = [t.clone() for t in tables_of(params)]
+    batches = extreme_batches(cfg, maps[0], X_BATCH, P_STEPS, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    params, state, losses, ms = run_extreme(step_fn, params, state, batches)
+    counts = read_counts()
+    first, last = loss_windows(losses)
+    step_ms = statistics.median(ms[1:])
+    log(f"phase 9a: replica 0 cs_rmsprop under the plan, {P_STEPS} steps: "
+        f"ms/step median of steps 2..{P_STEPS} {step_ms} (first {ms[0]}); "
+        f"loss first {losses[0]} last {losses[-1]}; window means {first} -> "
+        f"{last}; launches {counts} ({ {k: v / P_STEPS for k, v in counts.items()} } a step)")
+    for name in ("cs_adam_tiled", "cs_update", "bucket_csr"):
+        if counts[name] != 2 * P_STEPS:
+            raise AssertionError(f"the planned step launched {name} "
+                                 f"{counts[name]} times, not {2 * P_STEPS}")
+    if not last < first:
+        raise AssertionError("the planned extreme step's loss did not fall")
+    if not all(torch.isfinite(t).all() for t in tables_of(params)):
+        raise AssertionError("non-finite table under the plan")
+    final = params_from(tables_of(params))
+    final_state = {p: {"step": s["step"].clone(), "m": None,
+                       "v": s["v"].clone()} for p, s in state.items()}
+    more = extreme_batches(cfg, maps[0], X_BATCH, 5, dev, first=P_STEPS)
+    profile_steps("phase 9a", lambda: run_extreme(step_fn, params, state,
+                                                  more), step_ms,
+                  by_name=True)
+    del params, state
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                     prefix="ckpt-") as tmp:
+        like = phase_resume(cfg, dev, plan, start, batches, final,
+                            final_state, losses, Path(tmp), fresh)
+        phase_fold(cfg, dev, plan, batches, Path(tmp), like, fresh)
+    rows = time_b1_extreme(dev, {"cs_rmsprop": final_state}, final,
+                           batches[-1], specs=plan.specs(),
+                           tag="planned extreme")
+    return counts, rows
+
+
+def phase_resume(cfg, dev, plan, start, batches, final, final_state, losses,
+                 tmp: Path, fresh):
+    """9b: 10 steps from 9a's start, an async save of the tables and state
+    with the plan and StoreTree in the manifest, step 11 in place before
+    the writer is joined; then a restore from the manifest's own plan into
+    new tensors and steps 11..20: the tables, every state leaf and the
+    losses must be 9a's to the bit.  Returns the restore's template."""
+    import torch
+    from repro_torch.checkpoint import store as ckpt
+    from repro_torch.plan import Plan
+    _init, step_fn, state = fresh(plan)
+    params, state, first, _ = run_extreme(step_fn, params_from(start), state,
+                                          batches[:P_SAVE_AT])
+    saved = [t.clone() for t in tables_of(params)]
+    torch.cuda.synchronize()
+    extra = {"plan": plan.to_json(),
+             "store_tree": plan.store_tree().to_json()}
+    t0 = time.perf_counter()
+    writer = ckpt.save(tmp, P_SAVE_AT,
+                       {"params": params, "opt_state": moment_major(state)},
+                       async_=True, extra=extra)
+    block_s = time.perf_counter() - t0
+    step_fn(params, state, batches[P_SAVE_AT])      # in place, mid-write
+    torch.cuda.synchronize()
+    writer.join()
+    writer_s = time.perf_counter() - t0
+    nbytes = dir_bytes(tmp / f"step-{P_SAVE_AT}")
+    manifest = ckpt.read_manifest(tmp)
+    rplan = Plan.from_json(manifest["extra"]["plan"])
+    if rplan != plan:
+        raise AssertionError("the manifest's plan differs from the run's")
+    _init, r_step, r_state = fresh(rplan)
+    like = {"params": params_from(start), "opt_state": moment_major(r_state)}
+    t1 = time.perf_counter()
+    step, tree = ckpt.restore(tmp, like, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    r_params, r_state = tree["params"], per_table(tree["opt_state"])
+    at_save = [torch.equal(a, b) for a, b in zip(tables_of(r_params), saved)]
+    moved = [not torch.equal(a, b)
+             for a, b in zip(tables_of(r_params), tables_of(params))]
+    log(f"phase 9b: async save at step {P_SAVE_AT}: blocked {block_s} s "
+        f"(the copy to the host), writer {writer_s} s, {nbytes} B in "
+        f"{len(manifest['leaves'])} leaves; restore {restore_s} s from the "
+        f"manifest's own plan; restored tables equal to the step-{P_SAVE_AT}"
+        f" tables {at_save}, differ from the live ones after the in-place "
+        f"step {moved}")
+    if step != P_SAVE_AT or not all(at_save) or not all(moved) or any(
+            int(s["step"]) != P_SAVE_AT for s in r_state.values()):
+        raise AssertionError("the checkpoint holds another step's state")
+    del params, state
+    r_params, r_state, rest, _ = run_extreme(r_step, r_params, r_state,
+                                             batches[P_SAVE_AT:])
+    same = {"tables": all(torch.equal(a, b) for a, b in
+                          zip(tables_of(r_params), tables_of(final))),
+            "state": leaves_equal(r_state, final_state),
+            "losses": first + rest == losses}
+    log(f"phase 9b: steps {P_SAVE_AT + 1}..{P_STEPS} from the restore: "
+        f"equal to the bit to 9a's {P_STEPS} uninterrupted steps {same}")
+    if not all(same.values()):
+        raise AssertionError(f"the resumed run differs from 9a: {same}")
+    return like
+
+
+def phase_fold(cfg, dev, plan, batches, tmp: Path, like, fresh):
+    """9e: 9b's checkpoint restored through ``fold_sketches`` under the
+    manifest's fold predicate: V at half width, equal to ``S[:, :w/2] +
+    S[:, w/2:]`` of the saved V, and 5 steps under ``plan.fold()``."""
+    import torch
+    from repro_torch.checkpoint import store as ckpt
+    from repro_torch.plan import measure_aux_bytes
+    manifest = ckpt.read_manifest(tmp)
+    _step, tree = ckpt.restore(tmp, like, device=dev)
+    folded = ckpt.fold_sketches(tree, ckpt.fold_predicate_from_manifest(
+        manifest))
+    fplan = plan.fold()
+    shapes, halves = {}, {}
+    for p, v in tree["opt_state"]["v"].items():
+        w = v.shape[1]
+        fv = folded["opt_state"]["v"][p]
+        shapes[p] = tuple(fv.shape)
+        halves[p] = torch.equal(fv, v[:, :w // 2] + v[:, w // 2:])
+    want = {p: d["v"].shape for p, d in fplan.specs().items()}
+    state = per_table(folded["opt_state"])
+    nbytes = sum(measure_aux_bytes(s) for s in state.values())
+    log(f"phase 9e: folded V {shapes} (plan.fold() {want}), each the sum of "
+        f"the saved V's halves {halves}; {nbytes} B against "
+        f"plan.fold()'s {fplan.predicted_aux_bytes}; tables unfolded "
+        f"{[tuple(t.shape) for t in tables_of(folded['params'])]}")
+    if shapes != want or shapes != X_FOLDED or not all(halves.values()) \
+            or nbytes != fplan.predicted_aux_bytes:
+        raise AssertionError("the folded restore is not plan.fold()'s state")
+    _init, step_fn, _ = fresh(fplan)
+    params, state, losses, ms = run_extreme(
+        step_fn, folded["params"], state,
+        batches[P_SAVE_AT:P_SAVE_AT + P_DENSE_STEPS])
+    log(f"phase 9e: {len(losses)} steps under plan.fold(): losses {losses}, "
+        f"ms/step {ms}")
+    if not all(np.isfinite(losses)) or not all(
+            torch.isfinite(t).all() for t in tables_of(params)):
+        raise AssertionError("non-finite loss or table after the fold")
+
+
+def softmax_shapes() -> dict:
+    from repro_torch.plan import ShapeDtype
+    return {"tok_embed": {"table": ShapeDtype((VOCAB, D_MODEL))},
+            "final_norm": {"scale": ShapeDtype((D_MODEL,))}}
+
+
+def round_trip(dev, state, tag: str) -> list:
+    """Save ``state`` and restore it into new tensors on the card: equal
+    to the bit, or raise.  Returns the manifest's leaf paths."""
+    import tempfile
+    from repro_torch.checkpoint import store as ckpt
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                     prefix="ckpt-") as tmp:
+        t0 = time.perf_counter()
+        ckpt.save(tmp, int(state["step"]), {"opt_state": state})
+        save_s = time.perf_counter() - t0
+        _, back = ckpt.restore(tmp, {"opt_state": state}, device=dev)
+        paths = [e["path"] for e in ckpt.read_manifest(tmp)["leaves"]]
+        nbytes = dir_bytes(Path(tmp))
+    same = leaves_equal(back["opt_state"], state)
+    log(f"{tag}: state saved ({nbytes} B, {save_s} s) and restored: equal "
+        f"to the bit {same}; leaves {paths}")
+    if not same:
+        raise AssertionError(f"{tag}: the restored state differs")
+    return paths
+
+
+def phase_planned_dense(dev, task):
+    """9c and 9d on phase 6's softmax layer (see the module docstring).
+    Returns 9c's launch counts."""
+    import torch
+    from repro_torch.plan import (measure_aux_bytes, min_budget_bytes,
+                                  plan_for_params)
+    shapes = softmax_shapes()
+    plan = plan_for_params(shapes, DENSE_BUDGET)
+    log(f"phase 9c: plan_for_params(qwen2-0.5b softmax layer, "
+        f"{DENSE_BUDGET}):")
+    for line in plan.table().splitlines():
+        log(f"phase 9c:   {line}")
+    if plan.leaf("tok_embed/table").width != DENSE_WIDTH:
+        raise AssertionError(f"the {DENSE_BUDGET} B plan is not width "
+                             f"{DENSE_WIDTH}")
+    held0, _ = task.held_fresh()
+    reset_counts()
+    params, state, losses, ms, _step, _d = task.run(
+        plan.make_optimizer(DENSE_LR, backend="auto"), DENSE_LR,
+        steps=P_DENSE_STEPS)
+    counts = read_counts()
+    held, _ = task.held_fresh(params)
+    nbytes = measure_aux_bytes(state)
+    log(f"phase 9c: {P_DENSE_STEPS} steps at lr {DENSE_LR}, backend auto: "
+        f"ms/step median of steps 2..{P_DENSE_STEPS} "
+        f"{statistics.median(ms[1:])}; loss on batch 0's tokens {held0} -> "
+        f"{held}; per-step {losses}; aux {nbytes} B (plan "
+        f"{plan.predicted_aux_bytes}); launches {counts}")
+    if counts["cs_ema_tiled"] != 2 * P_DENSE_STEPS:
+        raise AssertionError(f"B3 launched {counts['cs_ema_tiled']} times, "
+                             f"not {2 * P_DENSE_STEPS}")
+    if not held < held0 or nbytes != plan.predicted_aux_bytes:
+        raise AssertionError("the planned dense layer did not learn, or "
+                             "its bytes differ from the plan")
+    w_params, _, w_losses, _, _, _ = task.run(
+        plan.make_optimizer(DENSE_LR, backend="xla"), DENSE_LR,
+        steps=P_DENSE_STEPS)
+    table, w_table = (params["tok_embed"]["table"].detach(),
+                      w_params["tok_embed"]["table"].detach())
+    log(f"phase 9c: plain xla witness: losses {w_losses}; table max_abs_err "
+        f"{float((table - w_table).abs().max())}")
+    torch.testing.assert_close(torch.tensor(losses), torch.tensor(w_losses),
+                               rtol=WITNESS_TOL["rtol"], atol=0.0)
+    torch.testing.assert_close(table, w_table, **WITNESS_TOL)
+    del w_params, w_table
+    round_trip(dev, state, "phase 9c")
+    del params, state
+    floor = min_budget_bytes(shapes, sketch_first_moment=False)
+    plan = plan_for_params(shapes, floor, sketch_first_moment=False)
+    leaf = plan.leaf("tok_embed/table")
+    log(f"phase 9d: CS-V floor {floor} B: tok_embed/table {leaf.mode}, v "
+        f"{leaf.bytes_v} B beside a dense m of {leaf.bytes_m} B")
+    if leaf.mode != "rank1" or leaf.bytes_v != (VOCAB + D_MODEL) * 4:
+        raise AssertionError("the CS-V floor is not LR-NMF-V")
+    params, state, losses, ms, _step, _d = task.run(
+        plan.make_optimizer(DENSE_LR), DENSE_LR, steps=P_DENSE_STEPS)
+    held, _ = task.held_fresh(params)
+    v = state["v"]["tok_embed"]["table"]
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        v.r, v.c, state["m"]["tok_embed"]["table"],
+        params["tok_embed"]["table"]))
+    log(f"phase 9d: {P_DENSE_STEPS} steps: ms/step median "
+        f"{statistics.median(ms[1:])}; loss on batch 0's tokens {held0} -> "
+        f"{held}; per-step {losses}; state finite {finite}; aux "
+        f"{measure_aux_bytes(state)} B")
+    if not held < held0 or not finite \
+            or measure_aux_bytes(state) != plan.predicted_aux_bytes:
+        raise AssertionError("LR-NMF-V did not train, or its bytes differ")
+    paths = round_trip(dev, state, "phase 9d")
+    for name in (".r", ".c"):
+        if f"opt_state/v/tok_embed/table/{name}" not in paths:
+            raise AssertionError(f"no {name} leaf in the manifest")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -2284,6 +2645,8 @@ def main(argv=None) -> int:
         ("7d", lambda: phase_async_clean(dev, out["6"][1])),
         ("8", lambda: phase_extreme(dev, args.seed)),
         ("5 (extreme)", lambda: time_b1_extreme(dev, *out["8"][1:4])),
+        ("9", lambda: phase_planned_extreme(dev, args.seed, out["8"][5])),
+        ("9c", lambda: phase_planned_dense(dev, out["6"][1])),
     ]
     out, peak = {}, 0
     for name, run in phases:
@@ -2293,28 +2656,38 @@ def main(argv=None) -> int:
         log(f"phase {name}: wall {time.perf_counter() - t0:.1f} s")
     kernels = out["5"]
     extreme = out["8"][0]       # 8a's cs_rmsprop runs, both replicas
+    planned, planned_dense = out["9"][0], out["9c"]     # 9a, 9c
     launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
-                                  + extreme["cs_adam_tiled"]),
+                                  + extreme["cs_adam_tiled"]
+                                  + planned["cs_adam_tiled"]),
                 "cs_adam_fused": out["4"]["cs_adam_fused"],
-                "cs_ema_tiled": out["6"][0]["cs_ema_tiled"],
+                "cs_ema_tiled": (out["6"][0]["cs_ema_tiled"]
+                                 + planned_dense["cs_ema_tiled"]),
                 "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"],
-                # the main and extreme paths' dedup sums, and the sketch
-                # ops' update
+                # the main, extreme and planned paths' dedup sums, and the
+                # sketch ops' update
                 "cs_update": (out["3"][4]["cs_update"]
                               + extreme["cs_update"]
+                              + planned["cs_update"]
+                              + planned_dense["cs_update"]
                               + out["4 (sketch ops)"][4]["cs_update"]),
-                # B1's CSR on the main and extreme paths, prev for B2,
-                # B5's CSR in the sketch ops, and B3's cached dense-row CSR
+                # B1's CSR on the main, extreme and planned paths, prev for
+                # B2, B5's CSR in the sketch ops, and B3's cached dense-row
+                # CSRs
                 "bucket_csr": (out["3"][4]["bucket_csr"]
                                + extreme["bucket_csr"]
+                               + planned["bucket_csr"]
                                + out["4"]["bucket_csr"]
                                + out["4 (sketch ops)"][4]["bucket_csr"]
-                               + out["6"][0]["bucket_csr"])}
+                               + out["6"][0]["bucket_csr"]
+                               + planned_dense["bucket_csr"])}
     for row in kernels:
         row.setdefault("launches", launches.get(row["name"]))
         if row["name"] == "cs_adam_tiled":
             row["at_extreme_shapes"] = out["5 (extreme)"]
+            row["at_planned_extreme_shapes"] = out["9"][1]
             row["launches_extreme_path"] = extreme["cs_adam_tiled"]
+            row["launches_planned_extreme_path"] = planned["cs_adam_tiled"]
     log(f"peak device memory of the whole run {max(peak, out['8'][4])} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

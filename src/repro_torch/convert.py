@@ -8,7 +8,9 @@ step counter stays on the host as an int32 scalar, where the port keeps
 it.  Float leaves become float32 tensors, except bfloat16 ones (numpy
 arrays of ``ml_dtypes.bfloat16``), which stay bfloat16 bit for bit; an
 int8 sketch state (any ``(cells, scales)`` NamedTuple, as the reference's
-``QuantState``) becomes the port's ``QuantState``.  Tests and the chip
+``QuantState``) becomes the port's ``QuantState``, and a rank-1 state
+(any ``(r, c)`` NamedTuple, as the reference's ``Rank1Moment``) the
+port's ``Rank1Moment``.  Tests and the chip
 smoke script start both packages from one state this way, since the port
 draws its initial numbers from other generators than ``jax.random``.
 """
@@ -20,11 +22,18 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantize import QuantState
+from repro_torch.core.stores import Rank1Moment
 
 
-def _is_quant(tree) -> bool:
-    return isinstance(tree, tuple) and getattr(tree, "_fields", None) == \
-        QuantState._fields
+def _port_named(tree):
+    """The port's NamedTuple class with ``tree``'s fields (``QuantState``,
+    ``Rank1Moment``), or None."""
+    fields = getattr(tree, "_fields", None) if isinstance(tree, tuple) \
+        else None
+    for cls in (QuantState, Rank1Moment):
+        if fields == cls._fields:
+            return cls
+    return None
 
 
 def _leaf_from_numpy(a, device, exact: bool = False) -> torch.Tensor:
@@ -42,16 +51,18 @@ def tree_from_numpy(tree, device="cuda"):
     """Nested dicts/lists/tuples of arrays -> the same tree of tensors on
     ``device`` (float32, or bfloat16 for bfloat16 arrays; int8 cells stay
     int8); None stays None, a ``"step"`` entry becomes a host int32
-    scalar, and a ``(cells, scales)`` NamedTuple a ``QuantState``."""
+    scalar, a ``(cells, scales)`` NamedTuple a ``QuantState`` and an
+    ``(r, c)`` NamedTuple a ``Rank1Moment``."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: (torch.tensor(int(np.asarray(v)), dtype=torch.int32)
                     if k == "step" else tree_from_numpy(v, device))
                 for k, v in tree.items()}
-    if _is_quant(tree):
-        return QuantState(*(_leaf_from_numpy(a, device, exact=True)
-                            for a in tree))
+    named = _port_named(tree)
+    if named is not None:
+        return named(*(_leaf_from_numpy(a, device, exact=True)
+                       for a in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_from_numpy(v, device) for v in tree)
     return _leaf_from_numpy(tree, device)
@@ -69,14 +80,14 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 def tree_to_numpy(tree):
     """The reverse of ``tree_from_numpy``: numpy copies in the reference's
     layout (bfloat16 leaves as ``ml_dtypes.bfloat16`` arrays), the step an
-    int32 scalar, a ``QuantState`` a ``QuantState`` of arrays."""
+    int32 scalar, a ``QuantState`` or ``Rank1Moment`` one of arrays."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: (np.asarray(int(v), np.int32) if k == "step"
                     else tree_to_numpy(v)) for k, v in tree.items()}
-    if isinstance(tree, QuantState):
-        return QuantState(*(_leaf_to_numpy(t) for t in tree))
+    if isinstance(tree, (QuantState, Rank1Moment)):
+        return type(tree)(*(_leaf_to_numpy(t) for t in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_to_numpy(v) for v in tree)
     return _leaf_to_numpy(tree)

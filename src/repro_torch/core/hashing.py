@@ -140,6 +140,25 @@ class HashFamily:
         h = _mix((_mul32(x[None], b) + a) & _MASK)
         return torch.where((h >> 31) == 0, 1.0, -1.0).to(torch.float32)
 
+    def fold(self) -> "HashFamily":
+        """The family after a Hokusai fold: width halved, the same hash
+        taken mod the new width.  ``(h mod w) mod (w/2) == h mod (w/2)``
+        for even ``w``, so ``S[:, :w/2] + S[:, w/2:]`` is the state this
+        family addresses.  The hash layout's per-slab fold waits for the
+        sharded sketches (ROADMAP A13)."""
+        if self.layout == "hash" and self.shards > 1:
+            raise NotImplementedError(
+                "folding a hash-layout sharded family is not ported yet "
+                "(ROADMAP A13)")
+        if self.width % 2 != 0:
+            raise ValueError("fold requires an even sketch width")
+        if (self.width // 2) % self.shards != 0:
+            raise ValueError(
+                f"folding width {self.width} -> {self.width // 2} breaks "
+                f"the {self.shards}-shard partition (slab would be "
+                f"{self.local_width}/2 buckets)")
+        return dataclasses.replace(self, width=self.width // 2)
+
 
 @functools.lru_cache(maxsize=64)
 def _params_on(family: HashFamily, device: torch.device):

@@ -33,8 +33,8 @@ from repro_torch.core import transforms as T
 from repro_torch.core.cleaning import CleaningSchedule, maybe_clean
 from repro_torch.core.partition import PolicyFn, nothing_policy
 from repro_torch.core.stores import (CountMinStore, CountSketchStore,
-                                     DenseStore, StoreTree, leaf_seed,
-                                     tree_bytes)
+                                     DenseStore, Rank1Store, StoreTree,
+                                     leaf_seed, tree_bytes)
 from repro_torch.core.transforms import Schedule, Transform
 from repro_torch.kernels import dedup, registry
 from repro_torch.kernels.ops import bias_correction
@@ -139,12 +139,9 @@ def stores_from_policy(policy: PolicyFn = nothing_policy, *,
     """Bridge the legacy ``policy``/``overrides`` dispatch onto a
     ``StoreTree``; per-leaf specs are ``hparams.spec``'s, the reference's.
     ``rule``: 'adam' fills (m, v), 'momentum' a signed sketch in the m
-    slot only, 'adagrad' a count-min in the v slot only.  A
-    ``rank1_policy`` other than ``nothing_policy`` raises: rank-1 stores
-    arrive with ROADMAP A9."""
-    if rank1_policy is not nothing_policy:
-        raise NotImplementedError("rank1_policy needs Rank1Store, which is "
-                                  "not ported yet (ROADMAP A9)")
+    slot only, 'adagrad' a count-min in the v slot only.  Under 'adam',
+    ``rank1_policy`` (checked first) puts a leaf's 2nd moment in a
+    ``Rank1Store`` beside a dense 1st moment (LR-NMF-V)."""
     track = track_first_moment
     backend = _update_read_backend(hparams.backend)
 
@@ -171,6 +168,8 @@ def stores_from_policy(policy: PolicyFn = nothing_policy, *,
     dense_m = DenseStore() if track else None
 
     def resolver(path, shape):
+        if rank1_policy(path, shape):
+            return dense_m, Rank1Store()
         if not policy(path, shape):
             return None
         m = sketch(path, shape, True) if track and sketch_first_moment \

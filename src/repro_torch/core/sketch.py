@@ -112,6 +112,12 @@ class SketchSpec:
                                                     self.scale_block) * 4
         return cells
 
+    def fold(self) -> "SketchSpec":
+        """The spec after a Hokusai fold (width halved); the family's
+        ``fold`` owns the checks."""
+        self.family.fold()
+        return dataclasses.replace(self, width=self.width // 2)
+
 
 def for_param(shape: Tuple[int, ...], *, compression: float = 5.0,
               depth: int = 3, signed: bool = True, seed: int = 0,
@@ -132,6 +138,41 @@ def for_param(shape: Tuple[int, ...], *, compression: float = 5.0,
     w = min(w, max(n, width_multiple))
     return SketchSpec(depth=depth, width=w, dim=d, signed=signed, seed=seed,
                       dtype=dtype, identity=identity)
+
+
+def for_budget(shape: Tuple[int, ...], nbytes: int, *, depth: int = 3,
+               signed: bool = True, seed: int = 0, dtype=F32,
+               width_multiple: int = 256,
+               identity: bool = False) -> SketchSpec:
+    """The widest spec whose ``nbytes()`` fits a byte budget, the inverse
+    of ``for_param``: the width floored to ``width_multiple``, capped at
+    the identity point (``n`` rows rounded up), then shaved a stripe at a
+    time until the exact footprint fits (int8 adds its f32 block scales).
+    Raises ``ValueError`` when the budget funds no stripe."""
+    if len(shape) != 2:
+        raise ValueError(f"sketched params must be rank-2 (rows, dim), got {shape}")
+    n, d = shape
+    dtype = qz.cell_dtype_name(dtype)
+    itemsize = qz.torch_dtype(dtype).itemsize
+    w = int(nbytes) // (depth * d * itemsize)
+    w = (w // width_multiple) * width_multiple
+    if w < width_multiple:
+        need = depth * width_multiple * d * itemsize
+        raise ValueError(
+            f"budget {int(nbytes)} B funds no {width_multiple}-bucket stripe "
+            f"for shape {shape} at depth {depth} (needs ≥ {need} B)")
+    w = min(w, -(-n // width_multiple) * width_multiple)
+    spec = SketchSpec(depth=depth, width=w, dim=d, signed=signed, seed=seed,
+                      dtype=dtype, identity=identity)
+    while spec.nbytes() > int(nbytes):
+        w -= width_multiple
+        if w < width_multiple:
+            raise ValueError(
+                f"budget {int(nbytes)} B funds no {width_multiple}-bucket "
+                f"stripe for shape {shape} at depth {depth} once the "
+                f"int8 scale blocks are accounted")
+        spec = dataclasses.replace(spec, width=w)
+    return spec
 
 
 def init(spec: SketchSpec, device="cuda"):

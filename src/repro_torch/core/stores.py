@@ -23,6 +23,8 @@ keys the stochastic rounding of bf16 and int8 sketch cells
     Adam's 1st moment);
   * ``CountMinStore``    - unsigned Count-Min, min read, with the paper's
     §4 cleaning as its ``clean`` hook (Adagrad, Adam's 2nd moment);
+  * ``Rank1Store``       - the non-negative rank-1 (row x col) 2nd moment
+    of the LR-NMF-V baseline, a ``Rank1Moment``;
   * ``StoreTree``        - path -> (m_store, v_store).
 
 Stores are frozen dataclasses that double as factories: ``bind(path,
@@ -30,15 +32,16 @@ shape, dtype)`` sizes one leaf's state with the same per-leaf seed
 (``leaf_seed``) as the reference, so both packages address the same
 buckets.  A sketch store's ``dtype`` names its cells ('float32' |
 'bfloat16' | 'int8'); an int8 state is a ``quantize.QuantState``.  Every
-state is updated IN PLACE and returned.  ``Rank1Store`` waits for the
-planner (ROADMAP A9), ``stats`` for telemetry (A11), the JSON round-trip
-for A9.  ``tree_bytes`` counts a state tree's bytes.
+state is updated IN PLACE and returned.  A rule-based ``StoreTree``
+serialises to the reference's JSON (``to_json``/``from_json``, the form
+plans and checkpoint manifests carry); ``stats`` waits for telemetry
+(ROADMAP A11).  ``tree_bytes`` counts a state tree's bytes.
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,6 +50,13 @@ from repro_torch.core import quantize as qz
 from repro_torch.core import sketch as cs
 from repro_torch.core.cleaning import CleaningSchedule, maybe_clean
 from repro_torch.core.sketch import SketchSpec
+
+
+class Rank1Moment(NamedTuple):
+    """Non-negative rank-1 factors of a 2nd-moment leaf (LR-NMF-V):
+    ``V[i, j] = r[i]·c[j] / mean(r)``."""
+    r: torch.Tensor  # (n,) EMA of row means
+    c: torch.Tensor  # (d,) EMA of column means
 
 
 def leaf_seed(path: str, base_seed: int) -> int:
@@ -140,15 +150,56 @@ class DenseStore(AuxStore):
 
 @dataclasses.dataclass(frozen=True)
 class Rank1Store(AuxStore):
-    """The rank-1 (row x col) 2nd moment of the LR-NMF-V baseline: not
-    ported yet."""
+    """The rank-1 (row x col) 2nd moment of the LR-NMF-V baseline: a
+    ``Rank1Moment`` of f32 factors.  ``read`` reconstructs ``r⊗c /
+    (mean(r) + eps)`` (at ``rows`` when given); ``accumulate`` adds
+    ``scale·mean(delta)`` along each axis, so ``decay(β₂)`` then
+    ``accumulate`` is ``lowrank.nmf_rank1_adam``'s EMA."""
+
+    eps: float = 1e-30
+    shape: Optional[Tuple[int, int]] = None     # set by bind()
 
     kind = "rank1"
 
-    def __post_init__(self):
-        raise NotImplementedError(
-            "Rank1Store (core/lowrank.py, LR-NMF-V) is not ported yet: it "
-            "arrives with the planner, ROADMAP A9")
+    def accepts(self, shape) -> bool:
+        return len(shape) == 2
+
+    def bind(self, path, shape, dtype=None):
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != 2:
+            raise ValueError(f"Rank1Store needs a rank-2 (rows, dim) leaf, "
+                             f"got {shape} at {path!r}")
+        return dataclasses.replace(self, shape=shape)
+
+    def init(self, device="cuda") -> Rank1Moment:
+        n, d = self.shape
+        return Rank1Moment(torch.zeros((n,), dtype=torch.float32,
+                                       device=device),
+                           torch.zeros((d,), dtype=torch.float32,
+                                       device=device))
+
+    def accumulate(self, state, delta, rows=None, *, scale: float = 1.0):
+        if rows is not None:
+            raise ValueError("Rank1Store.accumulate takes full (n, d) "
+                             "deltas (rows=None)")
+        state.r.add_(scale * delta.mean(dim=1))
+        state.c.add_(scale * delta.mean(dim=0))
+        return state
+
+    def decay(self, state, beta):
+        state.r.mul_(beta)
+        state.c.mul_(beta)
+        return state
+
+    def read(self, state, rows=None):
+        r = state.r if rows is None else state.r[rows.long()]
+        return (r[:, None] * state.c[None, :]) / (state.r.mean() + self.eps)
+
+    def bytes(self, state=None) -> int:
+        if state is not None:
+            return tree_bytes(state)
+        n, d = self.shape
+        return (n + d) * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +251,18 @@ class _SketchStoreBase(AuxStore):
             spec = dataclasses.replace(spec, shards=int(self.shards),
                                        layout=self.shard_layout)
         return dataclasses.replace(self, spec=spec, shape=shape)
+
+    def with_sharding(self, shards: int,
+                      layout: str = "width") -> "_SketchStoreBase":
+        """The same store laid out over ``shards`` slabs under ``layout``,
+        as data: the factory fields and (when bound) the spec.  Running a
+        sharded store waits for ROADMAP A13."""
+        out = dataclasses.replace(self, shards=int(shards),
+                                  shard_layout=layout)
+        if self.spec is not None:
+            out = dataclasses.replace(out, spec=dataclasses.replace(
+                self.spec, shards=int(shards), layout=layout))
+        return out
 
     def _rows(self, rows, device) -> torch.Tensor:
         if rows is not None:
@@ -391,6 +454,131 @@ class StoreTree:
             return None if pair is None else (None, pair[1])
 
         return dataclasses.replace(out, resolver=resolver)
+
+    def to_json(self) -> Dict[str, Any]:
+        """The reference's JSON form (rule-based trees only)."""
+        if self.resolver is not None:
+            raise ValueError("only rule-based StoreTrees serialize; "
+                             "resolver-based trees (policy bridges) are "
+                             "programmatic-only")
+        return {
+            "version": 1,
+            "default_m": store_to_json(self.default_m),
+            "default_v": store_to_json(self.default_v),
+            "rules": [{"path": p, "m": store_to_json(m),
+                       "v": store_to_json(v)} for p, m, v in self.rules],
+        }
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "StoreTree":
+        if d.get("version") != 1:
+            raise ValueError(f"unknown StoreTree version {d.get('version')!r}")
+        return cls(
+            rules=tuple((e["path"], store_from_json(e["m"]),
+                         store_from_json(e["v"])) for e in d["rules"]),
+            default_m=store_from_json(d["default_m"]),
+            default_v=store_from_json(d["default_v"]))
+
+
+# ---------------------------------------------------------------------------
+# JSON codecs: the reference's dicts key for key
+# ---------------------------------------------------------------------------
+
+def spec_to_json(spec: SketchSpec) -> Dict[str, Any]:
+    """Sharding keys only when not the defaults, ``scale_block`` only when
+    not ``SCALE_BLOCK``: unsharded f32 specs serialise as they always
+    did."""
+    out = {"depth": spec.depth, "width": spec.width, "dim": spec.dim,
+           "signed": bool(spec.signed), "seed": int(spec.seed),
+           "dtype": spec.cell_dtype_name,
+           "identity": bool(spec.identity)}
+    if spec.shards != 1 or spec.layout != "width":
+        out["shards"] = int(spec.shards)
+        out["layout"] = spec.layout
+    if spec.scale_block != qz.SCALE_BLOCK:
+        out["scale_block"] = int(spec.scale_block)
+    return out
+
+
+def spec_from_json(d: Dict[str, Any]) -> SketchSpec:
+    return SketchSpec(depth=int(d["depth"]), width=int(d["width"]),
+                      dim=int(d["dim"]), signed=bool(d["signed"]),
+                      seed=int(d["seed"]),
+                      dtype=qz.cell_dtype_name(d["dtype"]),
+                      identity=bool(d["identity"]),
+                      shards=int(d.get("shards", 1)),
+                      layout=d.get("layout", "width"),
+                      scale_block=int(d.get("scale_block", qz.SCALE_BLOCK)))
+
+
+def store_to_json(store) -> Optional[Dict[str, Any]]:
+    if store is None:
+        return None
+    out: Dict[str, Any] = {"kind": store.kind}
+    if isinstance(store, DenseStore):
+        if store.dtype is not None:
+            out["dtype"] = store.dtype
+        if store.shape is not None:
+            out["shape"] = list(store.shape)
+        return out
+    if isinstance(store, _SketchStoreBase):
+        if store.spec is not None:
+            out["spec"] = spec_to_json(store.spec)
+        else:
+            out.update(compression=store.compression, depth=store.depth,
+                       width=store.width, width_multiple=store.width_multiple,
+                       seed=store.seed, dtype=store.dtype,
+                       identity=store.identity)
+        if store.shape is not None:
+            out["shape"] = list(store.shape)
+        if store.backend is not None:
+            out["backend"] = store.backend
+        if store.shards != 1 or store.shard_layout != "width":
+            out["shards"] = int(store.shards)
+            out["shard_layout"] = store.shard_layout
+        if isinstance(store, CountMinStore) and store.cleaning is not None:
+            out["cleaning"] = {"alpha": store.cleaning.alpha,
+                               "every": store.cleaning.every}
+            if store.cleaning.mode != "sync":
+                out["cleaning"]["mode"] = store.cleaning.mode
+        return out
+    if isinstance(store, Rank1Store):
+        if store.shape is not None:
+            out["shape"] = list(store.shape)
+        return out
+    raise TypeError(f"cannot serialize store {store!r}")
+
+
+def store_from_json(d: Optional[Dict[str, Any]]):
+    if d is None:
+        return None
+    kind = d["kind"]
+    shape = tuple(int(s) for s in d["shape"]) if d.get("shape") else None
+    if kind == "dense":
+        return DenseStore(dtype=d.get("dtype"), shape=shape)
+    if kind in ("sketch", "countmin"):
+        cls = CountSketchStore if kind == "sketch" else CountMinStore
+        kw: Dict[str, Any] = {"shape": shape, "backend": d.get("backend"),
+                              "shards": int(d.get("shards", 1)),
+                              "shard_layout": d.get("shard_layout", "width")}
+        if "spec" in d:
+            kw["spec"] = spec_from_json(d["spec"])
+        else:
+            kw.update(compression=float(d["compression"]),
+                      depth=int(d["depth"]),
+                      width=None if d["width"] is None else int(d["width"]),
+                      width_multiple=int(d["width_multiple"]),
+                      seed=int(d["seed"]), dtype=d["dtype"],
+                      identity=bool(d["identity"]))
+        if kind == "countmin" and d.get("cleaning") is not None:
+            kw["cleaning"] = CleaningSchedule(
+                alpha=float(d["cleaning"]["alpha"]),
+                every=int(d["cleaning"]["every"]),
+                mode=d["cleaning"].get("mode", "sync"))
+        return cls(**kw)
+    if kind == "rank1":
+        return Rank1Store(shape=shape)
+    raise ValueError(f"unknown store kind {kind!r}")
 
 
 def tree_bytes(state) -> int:

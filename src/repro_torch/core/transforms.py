@@ -31,7 +31,7 @@ from repro_torch import kernels
 from repro_torch.core import sketch as cs
 from repro_torch.core.partition import leaf_paths
 from repro_torch.core.quantize import QuantState
-from repro_torch.core.stores import DenseStore, StoreTree
+from repro_torch.core.stores import DenseStore, Rank1Moment, StoreTree
 from repro_torch.kernels.ops import bias_correction
 from repro_torch.kernels.ref import true_div
 
@@ -57,7 +57,7 @@ def tree_map_with_path(fn, tree, *rest, prefix: str = ""):
     keys (a None there is passed as the leaf).  Dict keys are visited
     sorted, as ``jax.tree_util`` visits them; None in ``tree`` is an
     empty subtree and stays None, and a ``QuantState`` (one int8 sketch
-    state) is a leaf."""
+    state) or a ``Rank1Moment`` (one rank-1 state) is a leaf."""
     if tree is None:
         return None
     if isinstance(tree, dict):
@@ -65,7 +65,8 @@ def tree_map_with_path(fn, tree, *rest, prefix: str = ""):
                     fn, tree[k], *[None if r is None else r[k] for r in rest],
                     prefix=f"{prefix}/{k}" if prefix else str(k))
                 for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)) and not isinstance(tree, QuantState):
+    if isinstance(tree, (list, tuple)) \
+            and not isinstance(tree, (QuantState, Rank1Moment)):
         return type(tree)(tree_map_with_path(
             fn, v, *[None if r is None else r[i] for r in rest],
             prefix=f"{prefix}/{i}" if prefix else str(i))
@@ -335,8 +336,8 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
     """Adam whose moments live wherever the ``StoreTree`` says: per leaf,
     the 1st moment in a ``DenseStore``, a ``CountSketchStore`` or nowhere
     (None: β₁=0 for that leaf), the 2nd in a ``DenseStore``, a
-    ``CountMinStore`` (optional cleaning) or a ``CountSketchStore``.
-    Emits ``m̂ / (√v̂ + ε)``.
+    ``CountMinStore`` (optional cleaning), a ``CountSketchStore`` or a
+    ``Rank1Store`` (LR-NMF-V).  Emits ``m̂ / (√v̂ + ε)``.
 
     ``m_store``/``v_store`` + ``where`` is sugar for a two-level tree:
     selected leaves get those stores, the rest stay dense.  ``lazy``:
@@ -353,10 +354,9 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
         ms, vs = stores.resolve(path, tuple(leaf.shape), leaf.dtype)
         if vs is None:
             raise ValueError(f"scale_by_adam needs a v store at {path!r}")
-        if vs.kind not in ("dense", "countmin", "sketch"):
-            raise NotImplementedError(
-                f"a {vs.kind!r} v store at {path!r} is not ported yet "
-                f"(rank-1 stores arrive with ROADMAP A9)")
+        if vs.kind not in ("dense", "countmin", "sketch", "rank1"):
+            raise ValueError(f"unsupported v store kind {vs.kind!r} at "
+                             f"{path!r} (dense | countmin | sketch | rank1)")
         if ms is not None and ms.kind not in ("dense", "sketch"):
             raise ValueError(f"unsupported m store kind {ms.kind!r} at "
                              f"{path!r} (dense | sketch | None)")
@@ -383,6 +383,18 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
 
         def leaf(path, g, M, V):
             ms, vs = _mv(path, g)
+            if vs.kind == "rank1":
+                # LR-NMF-V: decay, mean-accumulate and read through the
+                # store (lowrank.nmf_rank1_adam's numbers), dense or no m
+                g2 = torch.square(g.to(torch.float32))
+                V_out, vhat = vs.update_read(V, g2, b2, scale=1.0 - b2)
+                if ms is not None:
+                    M_out, m_new = ms.update_read(M, g, b1)
+                    mhat = true_div(m_new, bc1)
+                else:
+                    M_out, mhat = None, g
+                return M_out, V_out, mhat / (torch.sqrt(torch.clamp_min(
+                    true_div(vhat, bc2), 0.0)) + eps)
             if vs.kind == "dense":
                 # the v delta is pre-scaled ((1-β₂)·g)·g, the reference's
                 # association on dense leaves

@@ -16,13 +16,14 @@ the port's sparse-rows path:
     rows only, never on the tables, and the gradients arrive as (ids,
     rows), duplicate ids merged by ``kernels/dedup.py``;
   * **optimizer**: ``sparse_rows_adam`` for ``cs_rmsprop`` (β₁=0) and
-    ``cs_adam`` (on a card: dedup + B1 ``cs_adam_tiled``), or
-    ``dense_rows_adam``, the memory-limited baseline in the same (ids,
-    rows) calling convention.
+    ``cs_adam`` (on a card: dedup + B1 ``cs_adam_tiled``), sized by
+    ``SketchHParams`` or by a memory plan (``plan_extreme``, the
+    planner's water-fill over both tables), or ``dense_rows_adam``, the
+    memory-limited baseline in the same (ids, rows) calling convention.
 
-Tables and states are updated IN PLACE.  Memory plans (``plan=``,
-``plan_extreme``) wait for ROADMAP A9, data parallelism (``dp_axis``,
-``mesh``) for A13, the ``--workload extreme`` launcher for A14.
+Tables and states are updated IN PLACE.  Data parallelism (``dp_axis``,
+``mesh``) waits for ROADMAP A13, the ``--workload extreme`` launcher for
+A14.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from repro_torch.kernels import dedup
 from repro_torch.kernels.ops import bias_correction
 from repro_torch.kernels.ref import true_div
 from repro_torch.obs.profiling import scope
+from repro_torch.train.steps import resolve_sparse_stores
 
 # optimizer modes the sparse-rows step can run: β₁=0 Count-Min (the
 # paper's extreme-scale choice), CS-MV Adam, and the dense baseline
@@ -83,6 +85,24 @@ class MachConfig:
                             num_classes=self.n_classes,
                             num_buckets=self.n_meta, num_hashes=1)[0]
             for r in range(self.n_replicas)])
+
+
+def plan_extreme(cfg: MachConfig, budget, *, optimizer: str = "cs_rmsprop",
+                 backend: Optional[str] = None, depth: int = 3,
+                 width_multiple: int = 256, seed: int = 0,
+                 sketch_dtype: str = "float32"):
+    """The aux-memory plan of the workload's two tables under ``budget``
+    (bytes or a ``parse_budget`` string), both tables carrying the
+    stream's zipf exponent as traffic stats, so the water-fill splits
+    width by volume x traffic.  ``sketch_dtype`` sizes the plan at that
+    cell dtype; ``backend`` pins the plan's kernel backend."""
+    from repro_torch.plan import TableStats, plan_for_tables
+    stats = {p: TableStats(alpha=cfg.alpha) for p in TABLE_PATHS}
+    plan = plan_for_tables(cfg.table_shapes(), budget, optimizer=optimizer,
+                           stats=stats, default_alpha=cfg.alpha, depth=depth,
+                           width_multiple=width_multiple, seed=seed,
+                           sketch_dtype=sketch_dtype)
+    return plan.with_backend(backend) if backend else plan
 
 
 class MetaStream:
@@ -228,9 +248,11 @@ def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
     already mapped to meta-class ids (``MetaStream``).  ``step_fn``
     updates both tables and every state IN PLACE; ``metrics`` holds
     ``loss``, ``grad_norm`` and ``dedup_ratio`` as device scalars.
-    ``hparams`` (default ``SketchHParams(compression=100.0)``) sizes the
-    sketches; ``backend`` overrides its kernel backend ('auto' when
-    neither names one: ``tiled`` on a card).  ``init_fn`` draws from a
+    ``plan`` (a ``plan_extreme`` result, solved for this ``optimizer``)
+    pins both tables' stores; otherwise ``hparams`` (default
+    ``SketchHParams(compression=100.0)``) sizes them.  ``backend``
+    overrides the kernel backend either way ('auto' when nothing names
+    one: ``tiled`` on a card).  ``init_fn`` draws from a
     ``torch.Generator``; start from the reference's numbers with
     ``repro_torch.convert``.  ``error_feedback`` and ``dir_clip`` belong
     to the data-parallel step (ROADMAP A13)."""
@@ -248,9 +270,6 @@ def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
             raise ValueError(
                 "dense_adam has no sketched all-reduce (moving dense (k, d)"
                 " rows is the cost DP avoids) — run it without dp_axis")
-    if plan is not None:
-        raise NotImplementedError("memory plans (plan=, plan_extreme) are "
-                                  "not ported yet (ROADMAP A9)")
     if dp_axis is not None or mesh is not None:
         raise NotImplementedError(
             "data-parallel extreme steps (dp_axis, mesh) are not ported yet "
@@ -260,16 +279,33 @@ def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
         hp = dataclasses.replace(hp, backend=backend)
     track = optimizer == "cs_adam"
     b1 = 0.9 if (track or dense) else 0.0
+    stores = None
+    if plan is not None:
+        if bool(plan.track_first_moment) != track:
+            raise ValueError(
+                f"plan moment layout (track_first_moment="
+                f"{plan.track_first_moment}) does not match optimizer "
+                f"{optimizer!r} — solve the plan with optimizer={optimizer!r}")
+        stores = plan.store_tree()
+        if backend:
+            stores = stores.with_backend(backend)
     opts: Dict[str, Transform] = {}
+    first_only = dense
     for path, shape in cfg.table_shapes().items():
         if dense:
             opts[path] = dense_rows_adam(lr, b1=b1, shape=shape,
                                          device=device)
-        else:
-            opts[path] = opt_lib.sparse_rows_adam(
-                lr, b1=b1, shape=shape, path=path, hparams=hp,
-                track_first_moment=track, device=device)
-    first_only = dense or opt_lib.first_occurrence_only(hp, None, device)
+            continue
+        m_store = v_store = None
+        if stores is not None:
+            m_store, v_store, track = resolve_sparse_stores(stores, path,
+                                                            shape)
+        opts[path] = opt_lib.sparse_rows_adam(
+            lr, b1=b1, shape=shape, path=path, hparams=hp,
+            track_first_moment=track, m_store=m_store, v_store=v_store,
+            device=device)
+        # both tables resolve one backend: a plan pins it on every store
+        first_only = opt_lib.first_occurrence_only(hp, v_store, device)
 
     def init_fn(generator: torch.Generator):
         scale = 1.0 / torch.sqrt(torch.tensor(cfg.dim, dtype=torch.float32))

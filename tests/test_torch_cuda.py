@@ -16,7 +16,10 @@ are the colliding sums that go through B5 (the dedup segment sum,
 The plain versions on the card sum with ``index_add_``'s atomics and are
 held to the reference's collision envelope atol=2e-5.  The bucket CSR
 kernel gives the plain form's integers; B2's window rule is held to the
-per-item plain version where a bucket recurs at the window's edges.
+per-item plain version where a bucket recurs at the window's edges.  A
+planned extreme step (``plan_extreme``) on ``tiled`` equals ``xla`` to
+the bit, and an async checkpoint of CUDA tensors restores the pre-write
+values to the bit.
 """
 import numpy as np
 import pytest
@@ -770,3 +773,81 @@ def test_part1_sites_in_cpu_order(cuda_device, name):
     assert cs_update.launches > before
     for a, b, h in zip(runs[0], runs[1], host):
         assert torch.equal(a, b) and torch.equal(a.cpu(), h)
+
+
+@pytest.mark.parametrize("optimizer", ["cs_rmsprop", "cs_adam"])
+def test_planned_extreme_step_tiled_equals_xla(cuda_device, optimizer):
+    """A planned extreme step (``plan_extreme``) on ``tiled`` (B1) and on
+    plain ``xla``: tables, states and losses equal to the bit."""
+    from repro_torch.data import ExtremeStream
+    from repro_torch.train import extreme as tx
+    cfg = tx.MachConfig(n_classes=50_000, n_meta=4096, n_features=2048,
+                        dim=16, nnz=8, n_negatives=64)
+    plan = tx.plan_extreme(cfg, "0.5x", optimizer=optimizer)
+    stream = tx.MetaStream(ExtremeStream(cfg.data_config(32)),
+                           cfg.class_maps()[0], cuda_device)
+    batches = [stream.batch(i) for i in range(6)]
+    runs = []
+    for backend in ("tiled", "xla"):
+        before = cs_adam_tiled.launches
+        init_fn, step_fn, opts = tx.make_extreme_step(
+            cfg, optimizer=optimizer, lr=1e-2, device=cuda_device,
+            plan=plan.with_backend(backend))
+        params = init_fn(torch.Generator(device=cuda_device).manual_seed(0))
+        state = {p: o.init() for p, o in opts.items()}
+        losses = []
+        for b in batches:
+            params, state, m = step_fn(params, state, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        assert (cs_adam_tiled.launches - before > 0) == (backend == "tiled")
+        runs.append((params, state, torch.stack(losses)))
+    (pa, sa, la), (pb, sb, lb) = runs
+    assert torch.equal(la, lb)
+    for top in pa:
+        assert torch.equal(pa[top]["table"], pb[top]["table"])
+    for path in sa:
+        for k in ("m", "v"):
+            assert (sa[path][k] is None) == (sb[path][k] is None)
+            if sa[path][k] is not None:
+                assert torch.equal(sa[path][k], sb[path][k])
+
+
+def test_async_save_and_restore_on_the_card(cuda_device, tmp_path):
+    """An async save of CUDA tensors (f32, bf16, int8 sketch, rank-1
+    factors, the host step), then an in-place write: the restored tensors
+    are the pre-write ones to the bit, on the card."""
+    from repro_torch.checkpoint import store
+    from repro_torch.core.stores import Rank1Moment
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    tree = {"t": torch.randn((4096, 64), generator=gen, device=cuda_device),
+            "h": torch.randn((3, 512, 8), generator=gen, device=cuda_device
+                             ).to(torch.bfloat16),
+            "q": QuantState(torch.randint(-127, 128, (3, 256, 8),
+                                          generator=gen, device=cuda_device,
+                                          dtype=torch.int8),
+                            torch.rand((3, 1), generator=gen,
+                                       device=cuda_device)),
+            "r": Rank1Moment(torch.rand(4096, generator=gen,
+                                        device=cuda_device),
+                             torch.rand(64, generator=gen,
+                                        device=cuda_device)),
+            "step": torch.tensor(11, dtype=torch.int32), "none": None}
+    want = {k: (v if v is None or k == "step" else
+                type(v)(*(x.clone() for x in v)) if isinstance(v, tuple)
+                else v.clone()) for k, v in tree.items()}
+    writer = store.save(tmp_path, 11, tree, async_=True)
+    tree["t"].add_(1.0)
+    tree["h"].mul_(2.0)
+    tree["q"].cells.zero_()
+    tree["r"].r.add_(1.0)
+    writer.join(60)
+    assert not writer.is_alive()
+    _, back = store.restore(tmp_path, tree, device=cuda_device)
+    assert back["t"].device.type == "cuda" and back["none"] is None
+    assert back["step"].device.type == "cpu" and int(back["step"]) == 11
+    for k in ("t", "h", "q", "r"):
+        got = back[k] if isinstance(back[k], tuple) else (back[k],)
+        exp = want[k] if isinstance(want[k], tuple) else (want[k],)
+        for a, b in zip(got, exp):
+            assert a.dtype == b.dtype and torch.equal(a, b), k

@@ -266,10 +266,16 @@ def test_update_read_backend_filter():
 
 
 def test_rank1_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A9"):
-        Rank1Store()
-    with pytest.raises(NotImplementedError, match="A9"):
-        TO.countsketch_adam(1e-3, rank1_policy=TP.everything_policy)
+    """Ported since: ``Rank1Store`` builds, and ``rank1_policy`` gives a
+    leaf a dense m beside a rank-1 v (``tests/test_torch_lowrank.py``
+    holds the numbers to the reference)."""
+    assert Rank1Store().kind == "rank1"
+    opt = TO.countsketch_adam(1e-3, rank1_policy=TP.everything_policy)
+    st = opt.init({"t": torch.zeros(2048, 4), "b": torch.zeros(4)})
+    assert tuple(st["v"]["t"].r.shape) == (2048,)
+    assert tuple(st["v"]["t"].c.shape) == (4,)
+    assert tuple(st["m"]["t"].shape) == (2048, 4)
+    assert tuple(st["v"]["b"].shape) == (4,)
 
 
 @pytest.mark.parametrize("backend", ["xla", "tiled"])

@@ -400,8 +400,11 @@ def test_dense_adam_rejects_plan_and_dp():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="A9"):
-        tx.make_extreme_step(T_CFG, plan=object(), device="cpu")
+    """Plans are ported (``tests/test_torch_plan.py``): a plan solved for
+    another moment layout is refused, as in the reference."""
+    with pytest.raises(ValueError, match="moment layout"):
+        tx.make_extreme_step(T_CFG, optimizer="cs_adam", device="cpu",
+                             plan=tx.plan_extreme(T_CFG, "0.5x"))
     with pytest.raises(NotImplementedError, match="A13"):
         tx.make_extreme_step(T_CFG, dp_axis="data", device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):

@@ -139,6 +139,42 @@ own line; any failure raises and the exit code is not 0:
      table's v a ``Rank1Store``: LR-NMF-V), 5 steps: the loss must fall,
      the state stay finite, and its ``.r``/``.c`` leaves round-trip a
      checkpoint to the bit.
+ 10. online-adaptation serving and its telemetry, at the reference's
+     full settings (``benchmarks/serving.py:45-47, :77-80``): the
+     qwen2-0.5b table, a zipf(1.1) trace of 600 requests of 8 ids x 896
+     f32 from 256 users, ``ServerConfig()`` (256 id slots, 5 ms
+     deadline, queue of 64, SLO p99 50 ms), lr 1e-3.  10a: two arms,
+     ``make_online_adapt_step(SketchHParams(compression=5.0))`` on
+     ``auto`` (B1) and ``make_dense_adapt_step``, each replayed through
+     ``AdaptServer`` at 100, 500 and 5,000 requests/s with no other
+     thread; prints adapt p50/p99, request p99, reads/s, batches, shed
+     rate, ``state_bytes`` and the launches; B1, its CSR and the dedup
+     sum (B5) must launch once a count-min batch (B5 once a dense batch);
+     the cost of the copy-on-write generation copy; every ``serve``
+     record goes through ``MetricsWriter`` and ``validate_file`` and
+     ``obs.report`` renders the file; ``maybe_trace`` of 3 adapt batches
+     must hold the ``obs.adapt`` span.  10b: after each replay the served
+     table and state equal, to the bit, the same coalesced batches
+     applied in order through the raw adapt step, and lie within atol
+     2e-5 of the same batches through plain versions (count-min: the
+     ``xla`` step on the card and the ``tiled`` step on a CPU copy;
+     dense: a CPU copy); B1 at the serving shapes (k = 256, no M, the
+     served V) against its plain version and timed (phase 5's
+     ``at_serving_shapes``).  Each load is replayed again with a reader
+     thread polling the published snapshot: the table rows and state
+     sample it gathered for a version equal the raw trajectory's at that
+     version (no torn snapshot); its latencies are printed apart from the
+     published ones.  One coalesced batch equals its raw concatenation to
+     the bit; ``dedup_coalesce`` equals a CPU copy; a held generation
+     reads the same bits after two more publishes.  10c:
+     phase 3's sparse step (a fresh table, 16,384 zipf ids a step), 20
+     steps under ``RunObserver(log_every=5)`` with a ``TableMonitor``,
+     a ``TableProbe(k=16)``, ``predicted_table_errors`` and a
+     ``PhaseTimer``: the records validate, the ``table`` records carry
+     occupancy, measured, predicted and ratio errors, the steps between
+     boundaries run under ``set_sync_debug_mode("error")``, the table
+     equals the same steps without the observer to the bit, and the step
+     time with and without the observer is printed.
 
 Phase 2 also holds B3's bf16 branch to its plain version (bit-equal on a
 CPU copy; within one bf16 ulp plus the f32 collision envelope of the
@@ -2195,21 +2231,13 @@ def time_b1_extreme(dev, states, params, batch, specs=None,
                     tag: str = "extreme") -> list:
     """Phase 5 at the extreme step's shapes (8f for B1): B1 as the step
     calls it on both tables, without M (8a's ``cs_rmsprop`` state) and
-    with M (8d's ``cs_adam`` state), on the last batch's gradient: held
-    to the plain version on the card (M and V within atol 2e-5, upd
-    bit-equal at each first position) and to a CPU copy (M and V
-    bit-equal, upd within rtol 1e-6); its time beside its byte bound.
-    ``specs`` (a plan's ``specs()``) sizes the sketches in place of
-    ``SketchHParams(compression=100.0)``; ``states`` may hold one arm."""
-    import torch
-    from repro_torch.kernels import dedup as dd, ops
-    from repro_torch.kernels.cs_adam_tiled import (at_positions,
-                                                   cs_adam_tiled,
-                                                   cs_adam_tiled_plain)
+    with M (8d's ``cs_adam`` state), on the last batch's gradient
+    (``b1_case``).  ``specs`` (a plan's ``specs()``) sizes the sketches
+    in place of ``SketchHParams(compression=100.0)``; ``states`` may hold
+    one arm."""
     from repro_torch.core.optimizers import SketchHParams
     from repro_torch.train.extreme import extreme_grads
     _loss, grads = extreme_grads(params, batch)
-    eta, bc1, bc2 = ops._adam_hypers(X_STEPS, -1.0, 0.9, 0.999)
     hp = SketchHParams(compression=100.0)
     rows_out = []
     for optimizer, track in (("cs_rmsprop", False), ("cs_adam", True)):
@@ -2223,61 +2251,72 @@ def time_b1_extreme(dev, states, params, batch, specs=None,
             else:
                 spec_m = specs[path]["m"] if track else None
                 spec_v = specs[path]["v"]
-            st = states[optimizer][path]
-            kw = dict(lr=eta, b1=0.9 if track else 0.0, b2=0.999, eps=1e-8,
-                      bc1=bc1, bc2=bc2)
-            batch_u = dd.dedup_rows(g["ids"], g["rows"])
-            bm, sm, bv = ops._adam_addressing(spec_m, spec_v,
-                                              batch_u.unique_ids)
-            args = (st["m"], st["v"], bm, sm, bv, batch_u.rows)
-            pos = (batch_u.inv, batch_u.first_pos)
-            b1kw = dict(n_valid=batch_u.n_unique, positions=pos, **kw)
-            want = cs_adam_tiled_plain(*clone(args),
-                                       n_valid=batch_u.n_unique, **kw)
-            got = cs_adam_tiled(*clone(args), **b1kw)
-            err = max_err([w for w in want[:2] if w is not None],
-                          [c for c in got[:2] if c is not None])
-            upd_bit = torch.equal(at_positions(want[2], batch_u.first_pos),
-                                  got[2])
-            host = cs_adam_tiled(*on_cpu(args),
-                                 n_valid=batch_u.n_unique.cpu(),
-                                 positions=on_cpu(pos), **kw)
-            line = b1_vs_cpu(host, got)
-            if not (upd_bit and err <= COLLISION_ATOL):
-                raise AssertionError(f"B1 at {path} {optimizer}: upd "
-                                     f"bit-equal {upd_bit}, M/V err {err}")
-            scratch = clone(args)
-            ms = cuda_ms(lambda: cs_adam_tiled(*scratch, **b1kw), reps=20,
-                         warmup=3)
-            parts = {name[:60]: t / 5 for t, _c, name in kernel_profile(
-                lambda: [cs_adam_tiled(*scratch, **b1kw) for _ in range(5)]
-                + [torch.cuda.synchronize()])[2]}
-            plain_ms = cuda_ms(lambda: cs_adam_tiled_plain(
-                *scratch, n_valid=batch_u.n_unique, **kw), reps=5)
-            k, k_u, d = g["ids"].numel(), int(batch_u.n_unique), shape[1]
-            depth = spec_v.depth
-            rows_m = unique_rows(bm, k_u, spec_m.width) if track else 0
-            rows_v = unique_rows(bv, k_u, spec_v.width)
-            nbytes = b1_bytes(d, k, k_u, rows_m, rows_v, depth, track)
-            row = dict(table=path, optimizer=optimizer, width=spec_v.width,
-                       d=d, k=k, k_unique=k_u, touched_rows_m=rows_m,
-                       touched_rows_v=rows_v, bytes=nbytes, ms=ms,
-                       plain_ms=plain_ms, max_abs_err=err,
-                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                       device_ms_by_kernel=parts)
-            rows_out.append(row)
-            log(f"phase {'8f' if specs is None else '9a'}: B1 at {path} "
-                f"({optimizer}, sketches "
-                f"{spec_v.shape}) k_u={k_u} (of {k}): {line}; M/V "
-                f"max_abs_err {err} vs the plain version on the card, upd "
-                f"bit-equal to it")
-            log(f"phase 5 ({tag}): B1 {path} {optimizer} d={d} width "
-                f"{spec_v.width}: {ms} ms, plain {plain_ms} ms, bound "
-                f"{row['bound_ms']} ms ({nbytes} B at 3.35 TB/s; touched "
-                f"rows M {rows_m} V {rows_v}); device ms a call by kernel "
-                f"{json.dumps(parts)}")
-            del scratch, want, got, host
+            row = b1_case(
+                states[optimizer][path], spec_m, spec_v, g["ids"], g["rows"],
+                X_STEPS,
+                check=f"phase {'8f' if specs is None else '9a'}: B1 at "
+                      f"{path} ({optimizer}, sketches {spec_v.shape})",
+                tag=f"phase 5 ({tag}): B1 {path} {optimizer}")
+            rows_out.append(dict(table=path, optimizer=optimizer, **row))
     return rows_out
+
+
+def b1_case(st, spec_m, spec_v, ids, g_rows, steps: int, check: str,
+            tag: str) -> dict:
+    """B1 as a step calls it on one batch into one table's state (``st``'s
+    ``m``, None without M, and ``v``): held to the plain version on the
+    card (M and V within atol 2e-5, upd bit-equal at each first position)
+    and to a CPU copy (M and V bit-equal, upd within rtol 1e-6); its time
+    beside its byte bound.  Returns the kernel row's fields."""
+    import torch
+    from repro_torch.kernels import dedup as dd, ops
+    from repro_torch.kernels.cs_adam_tiled import (at_positions,
+                                                   cs_adam_tiled,
+                                                   cs_adam_tiled_plain)
+    track = spec_m is not None
+    eta, bc1, bc2 = ops._adam_hypers(steps, -1.0, 0.9, 0.999)
+    kw = dict(lr=eta, b1=0.9 if track else 0.0, b2=0.999, eps=1e-8,
+              bc1=bc1, bc2=bc2)
+    batch_u = dd.dedup_rows(ids, g_rows)
+    bm, sm, bv = ops._adam_addressing(spec_m, spec_v, batch_u.unique_ids)
+    args = (st.get("m") if track else None, st["v"], bm, sm, bv,
+            batch_u.rows)
+    pos = (batch_u.inv, batch_u.first_pos)
+    b1kw = dict(n_valid=batch_u.n_unique, positions=pos, **kw)
+    want = cs_adam_tiled_plain(*clone(args), n_valid=batch_u.n_unique, **kw)
+    got = cs_adam_tiled(*clone(args), **b1kw)
+    err = max_err([w for w in want[:2] if w is not None],
+                  [c for c in got[:2] if c is not None])
+    upd_bit = torch.equal(at_positions(want[2], batch_u.first_pos), got[2])
+    host = cs_adam_tiled(*on_cpu(args), n_valid=batch_u.n_unique.cpu(),
+                         positions=on_cpu(pos), **kw)
+    line = b1_vs_cpu(host, got)
+    if not (upd_bit and err <= COLLISION_ATOL):
+        raise AssertionError(f"{check}: upd bit-equal {upd_bit}, M/V err "
+                             f"{err}")
+    scratch = clone(args)
+    ms = cuda_ms(lambda: cs_adam_tiled(*scratch, **b1kw), reps=20, warmup=3)
+    parts = {name[:60]: t / 5 for t, _c, name in kernel_profile(
+        lambda: [cs_adam_tiled(*scratch, **b1kw) for _ in range(5)]
+        + [torch.cuda.synchronize()])[2]}
+    plain_ms = cuda_ms(lambda: cs_adam_tiled_plain(
+        *scratch, n_valid=batch_u.n_unique, **kw), reps=5)
+    k, k_u, d = ids.numel(), int(batch_u.n_unique), g_rows.shape[1]
+    rows_m = unique_rows(bm, k_u, spec_m.width) if track else 0
+    rows_v = unique_rows(bv, k_u, spec_v.width)
+    nbytes = b1_bytes(d, k, k_u, rows_m, rows_v, spec_v.depth, track)
+    row = dict(width=spec_v.width, d=d, k=k, k_unique=k_u,
+               touched_rows_m=rows_m, touched_rows_v=rows_v, bytes=nbytes,
+               ms=ms, plain_ms=plain_ms, max_abs_err=err,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               device_ms_by_kernel=parts)
+    log(f"{check} k_u={k_u} (of {k}): {line}; M/V max_abs_err {err} vs the "
+        f"plain version on the card, upd bit-equal to it")
+    log(f"{tag} d={d} width {spec_v.width}: {ms} ms, plain {plain_ms} ms, "
+        f"bound {row['bound_ms']} ms ({nbytes} B at 3.35 TB/s; touched rows "
+        f"M {rows_m} V {rows_v}); device ms a call by kernel "
+        f"{json.dumps(parts)}")
+    return row
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2605,6 +2644,526 @@ def phase_planned_dense(dev, task):
     return counts
 
 
+# ---------------------------------------------------------------- phase 10
+# benchmarks/serving.py:45-47, :77-80 and repro/serve/server.py:99-104
+SERVE_TRACE = dict(n_requests=600, n_users=256, ids_per_request=8,
+                   alpha=1.1)
+SERVE_LOADS = (100.0, 500.0, 5000.0)
+SERVE_LR = 1e-3
+OBS_EVERY, OBS_PROBE_K = 5, 16
+TRACE_BATCHES = 3
+
+
+# the plain versions a replay's batches also go through (10b): for the
+# count-min arm the ``xla`` adapt step on the card (no B1, no B5) and the
+# arm's own step on a CPU copy (every kernel's plain version)
+SERVE_PLAINS = {"countmin": (("xla on the card", "cuda", "xla"),
+                             ("a CPU copy", "cpu", None)),
+                "dense": (("a CPU copy", "cpu", None),)}
+
+
+def serve_arm(arm: str, dev, backend=None):
+    """``(init_state_fn, adapt_fn)`` of one serving arm at full width;
+    ``backend`` pins the count-min arm's kernel backend."""
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.serve import make_dense_adapt_step, make_online_adapt_step
+    if arm == "countmin":
+        return make_online_adapt_step(
+            VOCAB, D_MODEL, lr=SERVE_LR, store_backend=backend,
+            hparams=SketchHParams(compression=5.0), device=dev)
+    return make_dense_adapt_step(VOCAB, D_MODEL, lr=SERVE_LR, device=dev)
+
+
+def serve_table(dev, seed: int):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    return torch.randn((VOCAB, D_MODEL), generator=gen, device=dev) \
+        / float(np.sqrt(D_MODEL))
+
+
+def served_batches(comps):
+    """The dispatched batches of a replay, in order: the requests of each
+    published version, in arrival order."""
+    by_version = {}
+    for c in comps:
+        if not c.shed:
+            by_version.setdefault(c.version, []).append(c.request)
+    return [by_version[v] for v in sorted(by_version)]
+
+
+def equal_trees(a, b) -> bool:
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(equal_trees(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.device == b.device and torch.equal(a, b)
+    return a == b
+
+
+def tree_err(a, b) -> float:
+    """The largest absolute difference between two state trees' tensors,
+    ``b``'s possibly on another device."""
+    import torch
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"keys {sorted(a)} and {sorted(b)}")
+        return max([tree_err(a[k], b[k]) for k in a], default=0.0)
+    if isinstance(a, torch.Tensor):
+        return float((a - b.to(a.device)).abs().max()) if a.numel() else 0.0
+    if a != b:
+        raise AssertionError(f"{a!r} and {b!r} differ")
+    return 0.0
+
+
+def state_sample(state, ids) -> list:
+    """What the reader thread gathers from an optimizer state, parts that
+    every adapt batch changes: the rows ``ids`` of each table-shaped
+    moment, and the first 4 columns of each sketch."""
+    return [x[ids] if x.shape[0] == VOCAB else x[..., :4].clone()
+            for x in state.values() if x is not None and x.dim() >= 2]
+
+
+def raw_steps(init_fn, adapt_fn, table0, batches, k: int, dev,
+              at_version=None):
+    """The dispatched batches applied in order through the raw adapt step
+    from a copy of ``table0`` on ``dev``; ``at_version(v, table, state)``
+    sees each version."""
+    from repro_torch.serve import coalesce
+    t, s = table0.to(dev, copy=True), init_fn()
+    for v, reqs in enumerate(batches, start=1):
+        t, s = adapt_fn(t, s, *coalesce(reqs, k, dev))
+        if at_version is not None:
+            at_version(v, t, s)
+    return t, s
+
+
+class TornReadWatch:
+    """A reader thread that, during a replay, takes the published snapshot
+    and gathers from it the rows ``ids`` of the table and
+    ``state_sample`` of its optimizer state, keeping the first gather of
+    each version.  The torn-read test is the caller's: each kept gather
+    must equal the raw trajectory's at its version, which a snapshot
+    whose table and state came from different generations would fail."""
+
+    def __init__(self, server, ids, max_samples: int = 400):
+        import threading
+        self.server, self.ids, self.cap = server, ids, max_samples
+        self.samples, self.reads = {}, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            snap = self.server.store.read()
+            got = (snap.table[self.ids], state_sample(snap.opt_state,
+                                                      self.ids))
+            self.reads += 1
+            if snap.version not in self.samples \
+                    and len(self.samples) < self.cap:
+                self.samples[snap.version] = got
+            time.sleep(2e-4)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def serve_replay(table0, init_fn, adapt_fn, cfg, trace, arm: str,
+                 watch_ids=None):
+    """One replay of ``trace`` from ``table0`` (warmed up outside it), with
+    a ``TornReadWatch`` on ``watch_ids`` when given.  Checks that B1 (on
+    the count-min arm), its CSR and the dedup sum (B5) launched once a
+    batch and that the versions count the batches.  Returns ``(server,
+    batches, counts, watch)``."""
+    import contextlib
+
+    import torch
+    from repro_torch.serve import AdaptServer, replay
+    server = AdaptServer(table0.clone(), init_fn(), adapt_fn, cfg)
+    server.warmup()
+    torch.cuda.synchronize()
+    reset_counts()
+    with (TornReadWatch(server, watch_ids) if watch_ids is not None
+          else contextlib.nullcontext()) as watch:
+        comps = replay(server, trace, warmup=False)
+    counts = read_counts()
+    n_b = server.n_batches
+    if counts["cs_adam_tiled"] != (n_b if arm == "countmin" else 0) \
+            or counts["cs_update"] != n_b \
+            or (arm == "countmin" and counts["bucket_csr"] != n_b):
+        raise AssertionError(
+            f"{arm}: {n_b} batches but launches {counts}: B1 (count-min), "
+            f"its CSR and the dedup sum (B5) must launch once a batch")
+    batches = served_batches(comps)
+    if len(batches) != n_b or server.store.version != n_b:
+        raise AssertionError("versions do not count batches")
+    return server, batches, counts, watch
+
+
+def latency_line(rec) -> str:
+    return (f"adapt p50 {rec['adapt_ms']['p50_ms']} ms p99 "
+            f"{rec['adapt_ms']['p99_ms']} ms; request p99 "
+            f"{rec['request_ms']['p99_ms']} ms; reads/s {rec['reads_per_s']}")
+
+
+def hold_to_plains(arm: str, snap, batches, k: int, table0) -> str:
+    """10b's witnesses of one replay: its batches through ``SERVE_PLAINS``
+    from the same start, the served table and state within
+    ``COLLISION_ATOL`` of each.  Returns the line's text."""
+    parts = []
+    for name, device, backend in SERVE_PLAINS[arm]:
+        t0 = time.perf_counter()
+        init_fn, adapt_fn = serve_arm(arm, device, backend)
+        t, s = raw_steps(init_fn, adapt_fn, table0, batches, k, device)
+        e_t, e_s = tree_err(snap.table, t), tree_err(snap.opt_state, s)
+        if max(e_t, e_s) > COLLISION_ATOL:
+            raise AssertionError(
+                f"{arm}: the served table and state differ from {name} "
+                f"over the same batches: max_abs_err {e_t} and {e_s} (atol "
+                f"{COLLISION_ATOL})")
+        parts.append(f"{name} max_abs_err table {e_t} state {e_s} "
+                     f"({time.perf_counter() - t0:.1f} s)")
+        del t, s
+    return "; ".join(parts)
+
+
+def phase_serving(dev, seed: int):
+    """10a, 10b and the trace dump (see the module docstring).  Returns
+    the launch counts of the timed replays and B1's row at the serving
+    shapes."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.optimizers import SketchHParams, state_bytes
+    from repro_torch.obs import MetricsWriter, maybe_trace, report, \
+        validate_file
+    from repro_torch.serve import (ServerConfig, TraceConfig, coalesce,
+                                   make_trace, timed_adapt, trace_stats)
+    from repro_torch.serve.buffer import clone_tree
+    cfg = ServerConfig()
+    table0 = serve_table(dev, seed)
+    total, b1_row = {}, None
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build", prefix="serve-"))
+    try:
+        writer = MetricsWriter(tmp, run_meta={
+            "workload": "serve-replay", "table": [VOCAB, D_MODEL],
+            "lr": SERVE_LR, **SERVE_TRACE})
+        for arm in ("countmin", "dense"):
+            init_fn, adapt_fn = serve_arm(arm, dev)
+            gen_bytes = table0.numel() * 4 + state_bytes(init_fn())
+            work = clone_tree((table0, init_fn()))
+            copy_ms = cuda_ms(lambda: clone_tree(work), reps=5)
+            log(f"phase 10a: {arm}: one generation {gen_bytes} B; its "
+                f"copy-on-write copy {copy_ms} ms (bound "
+                f"{2 * gen_bytes / HBM_BYTES_PER_S * 1e3} ms: read + write "
+                f"at {HBM_BYTES_PER_S / 1e12} TB/s)")
+            del work
+            for load in SERVE_LOADS:
+                trace = make_trace(TraceConfig(
+                    n_rows=VOCAB, dim=D_MODEL, offered_load=load, seed=seed,
+                    **SERVE_TRACE))
+                # the timed replay: the server's thread alone
+                server, batches, counts, _ = serve_replay(
+                    table0, init_fn, adapt_fn, cfg, trace, arm)
+                for name, n in counts.items():
+                    total[name] = total.get(name, 0) + n
+                snap = server.store.read()
+                rec = server.emit(
+                    writer, arm=arm, offered_load=load,
+                    state_bytes=state_bytes(snap.opt_state),
+                    b1_launches=counts["cs_adam_tiled"],
+                    b5_launches=counts["cs_update"],
+                    csr_launches=counts["bucket_csr"],
+                    **trace_stats(trace))
+                n_b = server.n_batches
+                log(f"phase 10a: {arm} at {load} req/s: {latency_line(rec)}; "
+                    f"batches {n_b}; shed rate {rec['shed_rate']} "
+                    f"({server.n_shed}/{len(trace)}); state_bytes "
+                    f"{rec['state_bytes']}; launches {counts}")
+                # 10b: the same coalesced batches through the raw step,
+                # then through the plain versions
+                t_ref, s_ref = raw_steps(init_fn, adapt_fn, table0, batches,
+                                         cfg.batch_ids, dev)
+                if not torch.equal(snap.table, t_ref) \
+                        or not equal_trees(snap.opt_state, s_ref):
+                    raise AssertionError(
+                        f"{arm} at {load} req/s: the served table and "
+                        f"state differ from the raw step over the same "
+                        f"batches")
+                del t_ref, s_ref
+                plains = hold_to_plains(arm, snap, batches, cfg.batch_ids,
+                                        table0)
+                log(f"phase 10b: {arm} at {load} req/s: served table and "
+                    f"state equal to the bit to {n_b} raw steps over the "
+                    f"same batches; against the plain versions: {plains}")
+                if arm == "countmin" and load == SERVE_LOADS[-1]:
+                    # phase 5 at the serving shapes: B1 on the last batch
+                    # into the served V
+                    ids, rows = coalesce(batches[-1], cfg.batch_ids, dev)
+                    spec_v = SketchHParams(compression=5.0).spec(
+                        "serve_adapt", (VOCAB, D_MODEL), signed=False)
+                    b1_row = dict(table="serve_adapt", optimizer=arm,
+                                  **b1_case(
+                        snap.opt_state, None, spec_v, ids, rows, n_b,
+                        check=f"phase 10b: B1 at the serving shapes "
+                              f"(sketch {spec_v.shape})",
+                        tag="phase 5 (serving): B1"))
+                del server, snap
+                # the torn-read test: the same trace again, with a reader
+                # thread (its latencies are not the published ones)
+                watch_ids = torch.from_numpy(np.unique(np.concatenate(
+                    [r.ids for r in trace[:8]]))).to(dev)
+                server, batches, _, watch = serve_replay(
+                    table0, init_fn, adapt_fn, cfg, trace, arm,
+                    watch_ids=watch_ids)
+
+                def at_version(v, t, s):
+                    seen = watch.samples.get(v)
+                    if seen is not None and not (
+                            torch.equal(seen[0], t[watch_ids])
+                            and all(torch.equal(a, b) for a, b in zip(
+                                seen[1], state_sample(s, watch_ids),
+                                strict=True))):
+                        raise AssertionError(
+                            f"a reader saw version {v}'s table rows or "
+                            f"state differ from the raw trajectory's")
+
+                t_ref, s_ref = raw_steps(init_fn, adapt_fn, table0, batches,
+                                         cfg.batch_ids, dev, at_version)
+                snap = server.store.read()
+                if not torch.equal(snap.table, t_ref) \
+                        or not equal_trees(snap.opt_state, s_ref):
+                    raise AssertionError(
+                        f"{arm} at {load} req/s with a reader: the served "
+                        f"table and state differ from the raw step")
+                log(f"phase 10b: {arm} at {load} req/s, replayed with a "
+                    f"reader thread: {watch.reads} reads, "
+                    f"{len(watch.samples)} versions' table rows and state "
+                    f"samples equal to the raw trajectory's at their "
+                    f"version, no torn snapshot; served table and state "
+                    f"equal to the bit to {server.n_batches} raw steps; "
+                    f"with the reader: "
+                    f"{latency_line(server.metrics_record())}")
+                del server, t_ref, s_ref, snap, watch
+            phase_serving_bits(dev, arm, init_fn, adapt_fn, table0, trace)
+        writer.close()
+        recs = validate_file(writer.path)
+        if sum(r["kind"] == "serve" for r in recs) != 2 * len(SERVE_LOADS):
+            raise AssertionError("a serve record is missing")
+        log(f"phase 10a: {len(recs)} records validate; "
+            f"python -m repro_torch.obs.report (non-strict):")
+        if report.main([str(writer.path)]) != 0:
+            raise AssertionError("the report failed")
+        # the trace dump: three adapt batches under torch.profiler
+        init_fn, adapt_fn = serve_arm("countmin", dev)
+        adapt, _lat = timed_adapt(adapt_fn)
+        t, s = table0.clone(), init_fn()
+        reqs = make_trace(TraceConfig(n_rows=VOCAB, dim=D_MODEL, seed=seed,
+                                      **SERVE_TRACE))
+        batches = [coalesce(reqs[32 * i:32 * (i + 1)], cfg.batch_ids, dev)
+                   for i in range(TRACE_BATCHES + 1)]
+        t, s = adapt(t, s, *batches[0])
+        with maybe_trace(str(tmp / "trace")):
+            for ids, rows in batches[1:]:
+                t, s = adapt(t, s, ids, rows)
+        files = list((tmp / "trace").glob("*.pt.trace.json"))
+        events = json.loads(files[0].read_text())["traceEvents"]
+        spans = [e for e in events if e.get("name") == "obs.adapt"]
+        # the port's kernels live in the csrc files' anonymous namespaces
+        ours = [e["name"].split("::")[1].split("<")[0].split("(")[0]
+                for e in events if e.get("cat") == "kernel"
+                and "(anonymous namespace)::" in e.get("name", "")]
+        log(f"phase 10a: maybe_trace of {TRACE_BATCHES} adapt batches: "
+            f"{len(spans)} obs.adapt spans (host and device rows); the "
+            f"port's kernels in it "
+            f"{ {n: ours.count(n) for n in sorted(set(ours))} }")
+        if len(spans) < TRACE_BATCHES or ours.count("tiled_read") \
+                != TRACE_BATCHES:
+            raise AssertionError("the trace lacks the obs.adapt spans or "
+                                 "B1's read")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total, b1_row
+
+
+def phase_serving_bits(dev, arm, init_fn, adapt_fn, table0, trace):
+    """10b's single-batch checks for one arm: a coalesced batch against
+    its raw concatenation, ``dedup_coalesce`` against a CPU copy, and a
+    held generation after two more publishes."""
+    import torch
+    from repro_torch.serve import (DoubleBufferedStore, ServerConfig,
+                                   coalesce, dedup_coalesce)
+    from repro_torch.serve.buffer import clone_tree
+    k = ServerConfig().batch_ids
+    reqs = trace[:20]                                  # 160 of 256 slots
+    raw_ids = torch.from_numpy(np.concatenate([r.ids for r in reqs])).to(dev)
+    raw_rows = torch.from_numpy(np.concatenate([r.grad_rows for r in reqs]
+                                               )).to(dev)
+    ids, rows = coalesce(reqs, k, dev)
+    t_raw, s_raw = adapt_fn(table0.clone(), init_fn(), raw_ids, raw_rows)
+    t_co, s_co = adapt_fn(table0.clone(), init_fn(), ids, rows)
+    if not torch.equal(t_raw, t_co) or not equal_trees(s_raw, s_co):
+        raise AssertionError(f"{arm}: a coalesced batch differs from its "
+                             f"raw concatenation")
+    del t_raw, s_raw, t_co, s_co
+    uids, sums, n_u = dedup_coalesce(ids, rows)
+    c_ids, c_sums, c_n = dedup_coalesce(ids.cpu(), rows.cpu())
+    if not (torch.equal(uids.cpu(), c_ids) and torch.equal(sums.cpu(), c_sums)
+            and int(n_u) == int(c_n)) or bool((uids < 0).any()):
+        raise AssertionError("dedup_coalesce differs from its CPU copy")
+    store = DoubleBufferedStore(table0.clone(), init_fn())
+    for _ in range(2):
+        store.stage(*adapt_fn(*store.begin_adapt(), ids, rows))
+        store.publish()
+    held = store.read()
+    frozen = clone_tree((held.table, held.opt_state))
+    for _ in range(2):
+        store.stage(*adapt_fn(*store.begin_adapt(), ids, rows))
+        store.publish()
+    if not (torch.equal(held.table, frozen[0])
+            and equal_trees(held.opt_state, frozen[1])) \
+            or store.version != held.version + 2:
+        raise AssertionError("a held generation changed")
+    log(f"phase 10b: {arm}: one coalesced batch (160 live of {k} slots) "
+        f"equal to the bit to its raw concatenation; dedup_coalesce "
+        f"({int(n_u)} unique ids) equal to the bit to a CPU copy; a held "
+        f"generation reads the same bits after two more publishes")
+
+
+def phase_observed(dev, seed: int):
+    """10c (see the module docstring).  Returns its launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.obs import (MetricsWriter, PhaseTimer, RunObserver,
+                                 StepAccumulator, TableMonitor, TableProbe,
+                                 predicted_table_errors, validate_file)
+    from repro_torch.train.steps import (make_sparse_embedding_step,
+                                         sparse_embedding_stores)
+    hp = SketchHParams()
+    init_fn, step_fn, opt = make_sparse_embedding_step(
+        VOCAB, D_MODEL, lr=LR, hparams=hp, device=dev)
+    m_store, v_store = sparse_embedding_stores(VOCAB, D_MODEL, hparams=hp)
+    table0 = init_fn(torch.Generator(device=dev).manual_seed(seed + 50))
+    target = init_fn(torch.Generator(device=dev).manual_seed(seed + 51))
+    batches = [torch.from_numpy(b).to(dev)
+               for b in zipf_ids(np.random.RandomState(seed + 50), STEPS)]
+
+    def step(table, state, ids):
+        idx = ids.long()
+        rows = table[idx] - target[idx]
+        loss = torch.mean(rows * rows)
+        table, state = step_fn(table, state, ids, rows)
+        return table, state, rows, loss
+
+    def window_ms(marks):
+        return [(b - a) * 1e3 / OBS_EVERY for a, b in zip(marks, marks[1:])]
+
+    probe = TableProbe.for_table("tok_embed", VOCAB, k=OBS_PROBE_K)
+    # one step, one probe update and one probe read first: the kernels
+    # build, the hash parameters and probe ids reach the card, cuBLAS
+    # starts
+    table, state, rows, _ = step(table0.clone(), opt.init(), batches[0])
+    warm = probe.update(probe.init(D_MODEL, dev), batches[0], rows)
+    probe.errors(warm, m_store=m_store, m_state=state["m"], v_store=v_store,
+                 v_state=state["v"])
+    # the same 20 steps without the observer, synchronised where the
+    # observer's windows end
+    table, state = table0.clone(), opt.init()
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+    for i, ids in enumerate(batches, start=1):
+        table, state, _, _ = step(table, state, ids)
+        if i % OBS_EVERY == 0:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+    plain = window_ms(marks)
+    plain_table = table
+
+    mon = TableMonitor("tok_embed", m_store=m_store, v_store=v_store,
+                       probe=probe, predicted=predicted_table_errors(
+                           m_store, v_store, VOCAB, alpha=ZIPF_A))
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build", prefix="obs-"))
+    try:
+        obs = RunObserver(MetricsWriter(tmp, run_meta={
+            "workload": "sparse_embedding", "table": [VOCAB, D_MODEL]}),
+            monitors=[mon], log_every=OBS_EVERY, phase_timer=PhaseTimer())
+        acc = StepAccumulator()
+        table, state = table0.clone(), opt.init()
+        pstate = probe.init(D_MODEL, dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t_win = time.perf_counter()
+        marks, window_s = [t_win], 0.0
+        for i, ids in enumerate(batches, start=1):
+            ts = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with obs.phase("step"):
+                    table, state, rows, loss = step(table, state, ids)
+                    probe.update(pstate, ids, rows)
+                acc.add({"loss": loss})
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            st = {"m": state["m"], "v": state["v"], "probe": pstate}
+            if i % OBS_EVERY:
+                dt = time.perf_counter() - ts
+                window_s += dt
+                obs.on_step(i, {"step": i, "time_s": dt})
+                continue
+            rec = acc.drain()                     # the window's one fetch
+            now = time.perf_counter()
+            obs.on_step(i, {"step": i, "time_s": (now - t_win) - window_s,
+                            **rec}, st)
+            t_win, window_s = time.perf_counter(), 0.0
+            marks.append(t_win)
+        obs.close(STEPS, st)
+        observed = window_ms(marks)
+        counts = read_counts()
+        recs = validate_file(tmp / "metrics.jsonl")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tables = [r for r in recs if r["kind"] == "table"]
+    if [t["step"] for t in tables] != list(range(OBS_EVERY, STEPS + 1,
+                                                 OBS_EVERY)):
+        raise AssertionError(f"table records at {[t['step'] for t in tables]}")
+    for field in ("v_occupancy", "m_occupancy", "v_meas_error",
+                  "m_meas_error", "v_pred_error", "m_pred_error",
+                  "v_error_ratio", "m_error_ratio", "probe_rows_seen"):
+        if field not in tables[-1]:
+            raise AssertionError(f"the table record lacks {field}")
+    if not torch.equal(table, plain_table):
+        raise AssertionError("the observed steps changed the table")
+    if counts["cs_adam_tiled"] != STEPS or counts["cs_update"] != STEPS \
+            or counts["bucket_csr"] != STEPS:
+        raise AssertionError(f"10c launches {counts}")
+    last = tables[-1]
+    log(f"phase 10c: {STEPS} steps under RunObserver(log_every="
+        f"{OBS_EVERY}), TableProbe(k={OBS_PROBE_K}), PhaseTimer: "
+        f"{len(recs)} records validate, steps between boundaries under "
+        f"sync-debug 'error'; ms/step by window of {OBS_EVERY} with the "
+        f"observer {observed} (mean {statistics.mean(observed)}), without "
+        f"{plain} (mean {statistics.mean(plain)}), the same table to the "
+        f"bit; launches {counts}")
+    log("phase 10c: last table record " + json.dumps(
+        {k: last[k] for k in sorted(last)
+         if k not in ("table", "kind", "schema")}))
+    log("phase 10c: step records " + json.dumps(
+        [{k: r[k] for k in ("step", "steps_per_s", "loss") if k in r}
+         for r in recs if r["kind"] == "step"]))
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2647,6 +3206,8 @@ def main(argv=None) -> int:
         ("5 (extreme)", lambda: time_b1_extreme(dev, *out["8"][1:4])),
         ("9", lambda: phase_planned_extreme(dev, args.seed, out["8"][5])),
         ("9c", lambda: phase_planned_dense(dev, out["6"][1])),
+        ("10", lambda: phase_serving(dev, args.seed)),
+        ("10c", lambda: phase_observed(dev, args.seed)),
     ]
     out, peak = {}, 0
     for name, run in phases:
@@ -2657,26 +3218,33 @@ def main(argv=None) -> int:
     kernels = out["5"]
     extreme = out["8"][0]       # 8a's cs_rmsprop runs, both replicas
     planned, planned_dense = out["9"][0], out["9c"]     # 9a, 9c
+    serving, observed = out["10"][0], out["10c"]        # 10a, 10c
     launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
                                   + extreme["cs_adam_tiled"]
-                                  + planned["cs_adam_tiled"]),
+                                  + planned["cs_adam_tiled"]
+                                  + serving["cs_adam_tiled"]
+                                  + observed["cs_adam_tiled"]),
                 "cs_adam_fused": out["4"]["cs_adam_fused"],
                 "cs_ema_tiled": (out["6"][0]["cs_ema_tiled"]
                                  + planned_dense["cs_ema_tiled"]),
                 "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"],
-                # the main, extreme and planned paths' dedup sums, and the
-                # sketch ops' update
+                # the main, extreme, planned, serving and observed paths'
+                # dedup sums, and the sketch ops' update
                 "cs_update": (out["3"][4]["cs_update"]
                               + extreme["cs_update"]
                               + planned["cs_update"]
                               + planned_dense["cs_update"]
+                              + serving["cs_update"]
+                              + observed["cs_update"]
                               + out["4 (sketch ops)"][4]["cs_update"]),
-                # B1's CSR on the main, extreme and planned paths, prev for
-                # B2, B5's CSR in the sketch ops, and B3's cached dense-row
-                # CSRs
+                # B1's CSR on the main, extreme, planned, serving and
+                # observed paths, prev for B2, B5's CSR in the sketch ops,
+                # and B3's cached dense-row CSRs
                 "bucket_csr": (out["3"][4]["bucket_csr"]
                                + extreme["bucket_csr"]
                                + planned["bucket_csr"]
+                               + serving["bucket_csr"]
+                               + observed["bucket_csr"]
                                + out["4"]["bucket_csr"]
                                + out["4 (sketch ops)"][4]["bucket_csr"]
                                + out["6"][0]["bucket_csr"]
@@ -2686,8 +3254,11 @@ def main(argv=None) -> int:
         if row["name"] == "cs_adam_tiled":
             row["at_extreme_shapes"] = out["5 (extreme)"]
             row["at_planned_extreme_shapes"] = out["9"][1]
+            row["at_serving_shapes"] = out["10"][1]
             row["launches_extreme_path"] = extreme["cs_adam_tiled"]
             row["launches_planned_extreme_path"] = planned["cs_adam_tiled"]
+            row["launches_serving_path"] = serving["cs_adam_tiled"]
+            row["launches_observed_path"] = observed["cs_adam_tiled"]
     log(f"peak device memory of the whole run {max(peak, out['8'][4])} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -9,6 +9,7 @@ is kept; the protocol is
     store.read(state, rows=None)    -> values           (estimate rows)
     store.update_read(state, delta, beta, ...) -> (state, est)
     store.clean(state, step)        -> state            (cleaning hook)
+    store.stats(state)              -> {name: device scalar} (health gauges)
 
 ``update_read`` is the dense path's op: it moves row content to
 ``beta*content + scale*delta`` and returns the post-step estimate.  The
@@ -34,8 +35,10 @@ buckets.  A sketch store's ``dtype`` names its cells ('float32' |
 'bfloat16' | 'int8'); an int8 state is a ``quantize.QuantState``.  Every
 state is updated IN PLACE and returned.  A rule-based ``StoreTree``
 serialises to the reference's JSON (``to_json``/``from_json``, the form
-plans and checkpoint manifests carry); ``stats`` waits for telemetry
-(ROADMAP A11).  ``tree_bytes`` counts a state tree's bytes.
+plans and checkpoint manifests carry).  ``stats`` gives the telemetry's
+health gauges as device scalars, with no host sync, over the
+reference's strided sample of at most ``STATS_SAMPLE_CELLS`` cells.
+``tree_bytes`` counts a state tree's bytes.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import dataclasses
 import zlib
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import kernels
@@ -99,6 +103,37 @@ class AuxStore:
         """Cleaning hook (paper §4): identity except on ``CountMinStore``."""
         return state
 
+    def stats(self, state) -> Dict[str, Any]:
+        """Health gauges for ``obs.probes.TableMonitor``: a dict of device
+        scalars computed without a host sync, fetched only at log
+        boundaries.  Base: empty."""
+        return {}
+
+
+# Stats reductions scan at most this many cells (the reference's cap):
+# above it the gauges read a deterministic strided sample, so a
+# log-boundary collect stays cheap however large the state.
+STATS_SAMPLE_CELLS = 8192
+
+
+def _nonzero_fraction(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """The f32 fraction of nonzero entries (along ``dim``): the exact
+    count times the f32 reciprocal of the length, which is how XLA lowers
+    the reference's ``jnp.mean`` (a correctly rounded division can differ
+    in the last bit)."""
+    nz = (x != 0.0).to(torch.float32)
+    n = x.numel() if dim is None else x.shape[dim]
+    inv = torch.full((), np.float32(1.0) / np.float32(n),
+                     dtype=torch.float32, device=x.device)
+    return (nz.sum() if dim is None else nz.sum(dim=dim)) * inv
+
+
+def _strided_sample(flat: torch.Tensor):
+    """``(flat[::stride] as f32, stride)``, the stride
+    ``max(size // STATS_SAMPLE_CELLS, 1)``."""
+    stride = max(int(flat.numel()) // STATS_SAMPLE_CELLS, 1)
+    return flat[::stride].to(torch.float32), stride
+
 
 @dataclasses.dataclass(frozen=True)
 class DenseStore(AuxStore):
@@ -146,6 +181,12 @@ class DenseStore(AuxStore):
 
     def read(self, state, rows=None):
         return state if rows is None else state[rows.long()]
+
+    def stats(self, state) -> Dict[str, Any]:
+        # the sketches' sampling: a dense (n, d) buffer can dwarf them
+        f, stride = _strided_sample(state.reshape(-1))
+        return {"occupancy": _nonzero_fraction(f),
+                "mass": f.abs().sum() * stride}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +241,12 @@ class Rank1Store(AuxStore):
             return tree_bytes(state)
         n, d = self.shape
         return (n + d) * 4
+
+    def stats(self, state) -> Dict[str, Any]:
+        return {"occupancy": _nonzero_fraction(state.r),
+                "mass": state.r.abs().sum() + state.c.abs().sum(),
+                "r_norm": torch.linalg.vector_norm(state.r),
+                "c_norm": torch.linalg.vector_norm(state.c)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,6 +393,62 @@ class _SketchStoreBase(AuxStore):
     def bytes(self, state=None) -> int:
         return self.spec.nbytes()
 
+    def stats(self, state) -> Dict[str, Any]:
+        """Sketch-health gauges, all device scalars:
+
+          * ``occupancy``   - fraction of nonzero cells (saturation);
+          * ``mass``        - total absolute cell mass, sum |S|;
+          * ``max_cell``    - the heaviest single cell;
+          * ``sign_cancel`` - ``1 - |sum S| / sum |S|``, the share of
+            absolute mass lost to sign cancellation.
+
+        Above ``STATS_SAMPLE_CELLS`` cells they read a deterministic
+        strided sample (the reference's cells): fractions are sampled,
+        ``mass`` is scaled back up by the stride, ``max_cell`` is the
+        sampled max.  int8 cells (``QuantState``) dequantize only the
+        sampled cells and add ``quant_scale_max``, the largest block
+        scale.  A sharded spec adds per-slab occupancy extremes
+        (``shard_occ_min``/``shard_occ_max``)."""
+        spec = self.spec
+        out: Dict[str, Any] = {}
+        if isinstance(state, qz.QuantState):
+            cells = state.cells.reshape(-1)
+            stride = max(int(cells.numel()) // STATS_SAMPLE_CELLS, 1)
+            idx = torch.arange(0, int(cells.numel()), stride,
+                               device=cells.device)
+            col = (idx // spec.dim) % spec.width
+            row = idx // (spec.dim * spec.width)
+            sc = state.scales[row, col // spec.scale_block]
+            f = cells[idx].to(torch.float32) * sc
+            out["quant_scale_max"] = state.scales.max()
+        else:
+            f, stride = _strided_sample(state.reshape(-1))
+        absmass = f.abs().sum()
+        out.update({
+            "occupancy": _nonzero_fraction(f),
+            "mass": absmass * stride,
+            "max_cell": f.abs().max(),
+            "sign_cancel": 1.0 - f.sum().abs() / (absmass + 1e-30),
+        })
+        if spec.shards > 1:
+            # slab s of hash row j holds buckets [s*lw, (s+1)*lw): sample
+            # each slab's (depth, lw, dim) cells with the reference's
+            # stride, gathered in place rather than through a moved copy
+            lw = spec.width // spec.shards
+            per = spec.depth * lw * spec.dim
+            sstride = max(per // max(STATS_SAMPLE_CELLS // spec.shards, 1),
+                          1)
+            dev = state.device
+            j = torch.arange(0, per, sstride, device=dev)
+            dep, rem = j // (lw * spec.dim), j % (lw * spec.dim)
+            shard = torch.arange(spec.shards, device=dev)[:, None]
+            flat_idx = dep[None] * (spec.width * spec.dim) \
+                + shard * (lw * spec.dim) + rem[None]
+            occ = _nonzero_fraction(state.reshape(-1)[flat_idx], dim=1)
+            out["shard_occ_min"] = occ.min()
+            out["shard_occ_max"] = occ.max()
+        return out
+
 
 @dataclasses.dataclass(frozen=True)
 class CountSketchStore(_SketchStoreBase):
@@ -365,6 +468,27 @@ class CountMinStore(_SketchStoreBase):
 
     def clean(self, state, step):
         return maybe_clean(self.cleaning, state, step)
+
+    def stats(self, state, clean_pending: bool = False) -> Dict[str, Any]:
+        """Adds ``clean_next_removes``, the mass the next clean removes,
+        ``(1 - alpha) * mass``; 0 when ``clean_pending`` (an async decay
+        already dispatched: quoting it again would count it twice)."""
+        out = super().stats(state)
+        if self.cleaning is not None:
+            if clean_pending:
+                out["clean_next_removes"] = torch.zeros_like(out["mass"])
+            else:
+                out["clean_next_removes"] = ((1.0 - self.cleaning.alpha)
+                                             * out["mass"])
+        return out
+
+    def cleans_between(self, start_step: int, end_step: int) -> int:
+        """How many cleanings fire on steps in ``(start, end]``: host-side
+        schedule arithmetic for the log-interval telemetry."""
+        if self.cleaning is None or end_step <= start_step:
+            return 0
+        every = self.cleaning.every
+        return max(end_step // every - max(start_step, 0) // every, 0)
 
 
 StoreResolver = Callable[[str, Tuple[int, ...]],

@@ -1,18 +1,38 @@
-"""Serve-time sparse adaptation of an embedding table.
+"""Serve-time sparse adaptation steps of the port.
 
-Counterpart of the single-device branch of
-``repro.serve.steps.make_online_adapt_step``: the β₁=0 CS-Adam of the
-training path (no first moment), its 2nd moment in a Count-Min sketch,
-through the same kernel backends.  Replicated fleets (``dp_axis``) wait
-for ROADMAP A13.
+Counterpart of the online-adaptation half of ``repro.serve.steps``:
+
+  * ``make_online_adapt_step`` - the single-device branch of the
+    reference's: the b1=0 CS-Adam of the training path (no first
+    moment), its 2nd moment in a Count-Min sketch, through the same
+    kernel backends (``tiled`` = B1 on the card);
+  * ``make_dense_adapt_step`` - the dense baseline arm, the same rule
+    with full (n, d) moments (``train.extreme.dense_rows_adam``);
+  * ``timed_adapt`` - an adapt step under the ``obs.adapt`` span, its
+    wall time (table AND optimizer state finished) in a
+    ``LatencyTracker``.
+
+Both steps update the table and the optimizer state IN PLACE; a server
+that must keep a published generation intact hands them a copy
+(``serve.buffer.DoubleBufferedStore.begin_adapt``).  Replicated fleets
+(``dp_axis``) wait for ROADMAP A13; the model-serving half of the
+reference's module (``make_serve_step``, ``cache_factory``,
+``ServeStep``) needs the model families and waits for A14.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
+
+import torch
 
 from repro_torch.core import optimizers as opt_lib
 from repro_torch.core.optimizers import SketchHParams
+
+# the caller did not choose a dir_clip: distinguishable from an explicit
+# 10.0 (or None), so the single-device step can reject dp-only arguments
+_DIR_CLIP_DEFAULT = object()
 
 
 def make_online_adapt_step(n_rows: int, dim: int, *, lr=1e-4,
@@ -22,6 +42,8 @@ def make_online_adapt_step(n_rows: int, dim: int, *, lr=1e-4,
                            v_store=None,
                            store_backend: Optional[str] = None,
                            dp_axis: Optional[str] = None,
+                           error_feedback: bool = False,
+                           dir_clip=_DIR_CLIP_DEFAULT,
                            device="cuda"):
     """Returns ``(init_state_fn, adapt_fn)``:
 
@@ -30,10 +52,23 @@ def make_online_adapt_step(n_rows: int, dim: int, *, lr=1e-4,
 
     ``adapt_fn`` updates the table and the sketch IN PLACE.
     ``store_backend`` pins the kernel backend, overriding both
-    ``hparams.backend`` and the backend ``v_store`` carries."""
+    ``hparams.backend`` and the backend ``v_store`` carries.
+    ``error_feedback`` and ``dir_clip`` exist only on the replicated
+    path and are rejected without ``dp_axis``, as in the reference."""
     if dp_axis is not None:
         raise NotImplementedError(
             "replicated serving (dp_axis) is not ported yet (ROADMAP A13)")
+    if error_feedback:
+        raise ValueError(
+            "error_feedback=True needs dp_axis: the residual sketch "
+            "accumulates the cross-replica 2nd-moment term of the "
+            "sketched all-reduce; a single-device adapt step has no such "
+            "term")
+    if dir_clip is not _DIR_CLIP_DEFAULT:
+        raise ValueError(
+            "dir_clip only applies to the dp_axis path (it trust-clamps "
+            "the direction against sketched-reduce estimator noise); the "
+            "single-device step would silently ignore it")
     hp = hparams if hparams is not None else SketchHParams()
     if store_backend is not None:
         hp = dataclasses.replace(hp, backend=store_backend)
@@ -55,3 +90,53 @@ def make_online_adapt_step(n_rows: int, dim: int, *, lr=1e-4,
             table, updates, first_only=first_only), opt_state
 
     return init_state_fn, adapt_fn
+
+
+def make_dense_adapt_step(n_rows: int, dim: int, *, lr=1e-4,
+                          b2: float = 0.999, eps: float = 1e-8,
+                          device="cuda"):
+    """Dense-baseline sibling of ``make_online_adapt_step``: the b1=0
+    rule with full (n, d) moments (``dense_rows_adam``, ``{"step", "m",
+    "v"}``) instead of a Count-Min sketch, the memory the sketch arm
+    frees.  Same ``(init_state_fn, adapt_fn)`` contract; per-step work
+    stays O(touched rows), and the updates carry each id's update at its
+    first occurrence only, so one ``index_add_`` applies them."""
+    from repro_torch.train.extreme import dense_rows_adam
+    opt = dense_rows_adam(lr, b1=0.0, b2=b2, eps=eps, shape=(n_rows, dim),
+                          device=device)
+
+    def init_state_fn():
+        return opt.init()
+
+    def adapt_fn(table, opt_state, ids, grad_rows):
+        updates, opt_state = opt.update(
+            {"ids": ids, "rows": grad_rows}, opt_state)
+        return opt_lib.apply_sparse_updates(table, updates,
+                                            first_only=True), opt_state
+
+    return init_state_fn, adapt_fn
+
+
+def timed_adapt(adapt_fn, tracker=None, *, capacity: int = 4096):
+    """Wrap an ``adapt_fn`` with serve-latency telemetry.
+
+    Returns ``(wrapped_adapt_fn, tracker)``: each call runs under the
+    ``obs.adapt`` span, waits until the card has finished BOTH the table
+    and the optimizer state (a ``torch.cuda.synchronize()``: the sketch
+    write is the bulk of the step, and a wait on the table alone would
+    leave it out), and records the wall time into an
+    ``obs.LatencyTracker``.  ``tracker`` lets several tables share one
+    histogram."""
+    from repro_torch.obs.profiling import LatencyTracker, _trace_annotation
+    lat = tracker if tracker is not None else LatencyTracker(capacity)
+
+    def wrapped(table, opt_state, ids, grad_rows):
+        t0 = time.perf_counter()
+        with _trace_annotation("obs.adapt"):
+            table, opt_state = adapt_fn(table, opt_state, ids, grad_rows)
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+        lat.record(time.perf_counter() - t0)
+        return table, opt_state
+
+    return wrapped, lat

@@ -19,7 +19,10 @@ kernel gives the plain form's integers; B2's window rule is held to the
 per-item plain version where a bucket recurs at the window's edges.  A
 planned extreme step (``plan_extreme``) on ``tiled`` equals ``xla`` to
 the bit, and an async checkpoint of CUDA tensors restores the pre-write
-values to the bit.
+values to the bit.  Serving: a coalesced batch on ``tiled`` equals its
+raw concatenation to the bit, the double buffer publishes behind its
+event with held generations unchanged, and ``TableMonitor.collect``
+dispatches under sync-debug mode "error".
 """
 import numpy as np
 import pytest
@@ -851,3 +854,127 @@ def test_async_save_and_restore_on_the_card(cuda_device, tmp_path):
         exp = want[k] if isinstance(want[k], tuple) else (want[k],)
         for a, b in zip(got, exp):
             assert a.dtype == b.dtype and torch.equal(a, b), k
+
+
+# ------------------------------------------------------------- serving
+def _serve_requests(n, k, n_rows, d, seed):
+    from repro_torch.serve import AdaptRequest
+    rng = np.random.RandomState(seed)
+    return [AdaptRequest(user=i, ids=rng.randint(0, n_rows, k).astype(
+                np.int32),
+                grad_rows=(rng.randn(k, d) * 0.1).astype(np.float32),
+                t_arrival=i * 1e-4) for i in range(n)]
+
+
+def test_coalesced_batch_on_tiled_equals_raw_concat(cuda_device):
+    """One coalesced batch (padding: the first id, zero rows) through the
+    ``tiled`` adapt step (B1) equals the raw concatenation to the bit;
+    and both are held to plain versions: the ``xla`` step on the card
+    (atol 2e-5) and the ``tiled`` step on a CPU copy (V to the bit, the
+    table within atol 2e-5: torch's CPU sqrt)."""
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.serve import coalesce, make_online_adapt_step
+    n_rows, d = 4096, 64
+
+    def step(backend, device):
+        return make_online_adapt_step(
+            n_rows, d, lr=1e-2, b2=0.9, store_backend=backend,
+            hparams=SketchHParams(backend="tiled"), device=device)
+
+    init_fn, adapt_fn = step(None, cuda_device)
+    table = torch.randn((n_rows, d), generator=torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    reqs = _serve_requests(20, 8, 64, d, seed=1)     # heavy duplicates
+    raw_ids = torch.from_numpy(np.concatenate([r.ids for r in reqs])).to(
+        cuda_device)
+    raw_rows = torch.from_numpy(np.concatenate([r.grad_rows for r in reqs]
+                                               )).to(cuda_device)
+    before = cs_adam_tiled.launches
+    t_ref, s_ref = adapt_fn(table.clone(), init_fn(), raw_ids, raw_rows)
+    ids, rows = coalesce(reqs, 256, cuda_device)     # 160 live, 96 padding
+    t_b, s_b = adapt_fn(table.clone(), init_fn(), ids, rows)
+    assert cs_adam_tiled.launches == before + 2
+    assert torch.equal(t_ref, t_b) and torch.equal(s_ref["v"], s_b["v"])
+    x_init, x_adapt = step("xla", cuda_device)
+    t_x, s_x = x_adapt(table.clone(), x_init(), ids, rows)
+    assert cs_adam_tiled.launches == before + 2
+    torch.testing.assert_close(t_b, t_x, rtol=0, atol=2e-5)
+    torch.testing.assert_close(s_b["v"], s_x["v"], rtol=0, atol=2e-5)
+    c_init, c_adapt = step(None, "cpu")
+    t_c, s_c = c_adapt(table.cpu(), c_init(), ids.cpu(), rows.cpu())
+    assert torch.equal(s_b["v"].cpu(), s_c["v"])
+    torch.testing.assert_close(t_b.cpu(), t_c, rtol=0, atol=2e-5)
+
+
+def test_double_buffer_publishes_behind_its_event(cuda_device):
+    """The writer adapts a copy (copy-on-write): a held generation keeps
+    its bits, and ``publish`` returns only once the staged writes are
+    done (its event has completed)."""
+    from repro_torch.serve import (DoubleBufferedStore, coalesce,
+                                   make_online_adapt_step)
+    n_rows, d = 4096, 64
+    init_fn, adapt_fn = make_online_adapt_step(n_rows, d, lr=1e-2,
+                                               device=cuda_device)
+    table0 = torch.randn((n_rows, d), device=cuda_device)
+    store = DoubleBufferedStore(table0.clone(), init_fn())
+    held = store.read()
+    frozen = (held.table.clone(), held.opt_state["v"].clone())
+    for seed in range(3):
+        ids, rows = coalesce(_serve_requests(8, 8, n_rows, d, seed), 64,
+                             cuda_device)
+        t, s = store.begin_adapt()
+        store.stage(*adapt_fn(t, s, ids, rows))
+        snap = store.publish()
+        # nothing was queued after the staged writes: once publish has
+        # waited on its event, the stream is idle
+        assert torch.cuda.current_stream().query()
+        assert snap.version == seed + 1
+    assert torch.equal(held.table, frozen[0])
+    assert torch.equal(held.opt_state["v"], frozen[1])
+    assert not torch.equal(store.read().table, table0)
+
+
+def test_table_monitor_collect_dispatches_without_sync(cuda_device):
+    """After one warm boundary (hash parameters and the probe ids copied
+    to the card, the pinned buffer made), a boundary's collect and the
+    steps between boundaries run under sync-debug mode "error"."""
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.obs import (TableMonitor, TableProbe,
+                                 predicted_table_errors)
+    from repro_torch.train.steps import sparse_embedding_stores
+    n_rows, d = 8192, 64
+    init_fn, step_fn, opt = make_sparse_embedding_step(
+        n_rows, d, lr=1e-3, hparams=SketchHParams(), device=cuda_device)
+    table = init_fn(torch.Generator(device=cuda_device).manual_seed(0))
+    state = opt.init()
+    m_store, v_store = sparse_embedding_stores(n_rows, d,
+                                               hparams=SketchHParams())
+    probe = TableProbe.for_table("emb", n_rows, k=16)
+    mon = TableMonitor("emb", m_store=m_store, v_store=v_store, probe=probe,
+                       predicted=predicted_table_errors(m_store, v_store,
+                                                        n_rows))
+    pstate = probe.init(d, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def step():
+        nonlocal table, state
+        ids = torch.randint(0, n_rows, (512,), generator=gen,
+                            device=cuda_device, dtype=torch.int32)
+        rows = torch.randn((512, d), generator=gen, device=cuda_device)
+        table, state = step_fn(table, state, ids, rows)
+        probe.update(pstate, ids, rows)
+        return {"m": state["m"], "v": state["v"], "probe": pstate}
+
+    assert mon.collect(step(), 1) is None          # warm boundary
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(2, 5):
+            st = step()
+        rec = mon.collect(st, 4)                    # flushes boundary 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert rec["step"] == 1 and "v_occupancy" in rec
+    last = mon.flush()
+    assert last["step"] == 4 and last["probe_rows_seen"] > 0
+    assert "v_meas_error" in last and "v_error_ratio" in last

@@ -212,7 +212,9 @@ def test_slice_model_matches_reference_xla(kind, dtype, form, cols):
     x = rng.randn(n, d).astype(np.float32)
     mask = (rng.rand(n, 1) > 0.3).astype(np.float32)
     jS0 = jnp.asarray(S).astype(jnp.dtype(dtype))
-    tS0 = torch.from_numpy(S).to(getattr(torch, dtype))
+    # its own buffer: _slice_model writes tS0 in place, and jnp.asarray
+    # may alias S while XLA still reads it asynchronously
+    tS0 = torch.from_numpy(S.copy()).to(getattr(torch, dtype))
     jS, jest = jops.ema_update_read_xla(
         jspec, jS0, jnp.arange(n, dtype=jnp.int32), jnp.asarray(x),
         beta=beta, scale=scale, mask=jnp.asarray(mask),

@@ -175,6 +175,43 @@ own line; any failure raises and the exit code is not 0:
      boundaries run under ``set_sync_debug_mode("error")``, the table
      equals the same steps without the observer to the bit, and the step
      time with and without the observer is printed.
+ 11. the LM stack at qwen2-0.5b's full width (``src/repro/configs/
+     qwen2_0_5b.py``: 24 layers, d_model 896, 14/2 heads, d_ff 4,864, two
+     151,936 x 896 vocabulary tables, bf16 compute; nothing cut), on
+     ``ZipfLM(seed)`` batches of 4 x 2,048 tokens (two attention chunks,
+     four loss chunks).  11a: ``make_train_step(cfg, optimizer="cs_adam",
+     kernel_backend="auto")`` at lr 1e-3 for 20 steps through ``Trainer``:
+     the window check (the mean of the last w losses below the first w's,
+     w = max(1, min(10, steps // 3))), which here does not test learning:
+     the sketched first moment makes this arm's loss spike within the
+     first window (the reference's ``cs_adam`` does the same at d_model
+     896, ``tests/test_torch_lm_spike.py``), and the arms that learn are
+     the gated ones of 11d and 11f; B3 exactly 4 launches a step (M
+     and V of both tables), CUDA-event ms a step, peak memory, three steps
+     under the profiler (busy time, idle share, launches) and one under
+     ``set_sync_debug_mode("error")``.  11b: the same batches from the
+     same start through plain ``xla``: losses within rtol 1e-4, params
+     and state within rtol 1e-4/atol 1e-5 (printed: equal to the bit).
+     11c: the ``auto`` arm again gives the same bits.  11d: ``dense_adam``
+     for 5 steps: optimizer-state bytes and peak memory against
+     ``cs_adam``'s; ``cs_adam_v`` for 5 steps; both must pass the window
+     check (w = 1: the last loss below the first).  11e: 10 steps,
+     an async save, a restore into a new ``Trainer`` and 10 more: equal
+     to 11a to the bit (the checkpoint lives under ``build/`` and is
+     removed).  11f: ``plan_for_config(cfg, "config")`` (4.6 GB) for 5
+     steps on ``auto``: the state's bytes equal the plan's, B3 twice a
+     step for each sketched table (width 29,952), the window check, and
+     the same plan's 5 steps through plain ``xla`` from the same start:
+     losses within rtol 1e-4, params and state within rtol 1e-4/atol
+     1e-5 (printed: equal to the bit).  11g: ``make_serve_step(cfg, batch=8,
+     max_seq=256)`` on 11a's params: prefill of 8 prompts of 128 tokens,
+     64 greedy decode steps; each step's logits within 2^-6 of the row's
+     largest |logit| of a prefill of the same prefix, and the argmax
+     equal wherever the prefill's top-two margin exceeds that; prefill
+     ms, decode ms a token and tokens/s.  11h: ``python -m
+     repro_torch.launch.train --arch qwen2_0_5b --store-backend auto`` for
+     3 steps: exit 0, B3 12 launches.  ``--phases 11,11g,11h`` runs phase
+     11 alone.
 
 Phase 2 also holds B3's bf16 branch to its plain version (bit-equal on a
 CPU copy; within one bf16 ulp plus the f32 collision envelope of the
@@ -188,6 +225,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3164,9 +3202,403 @@ def phase_observed(dev, seed: int):
     return counts
 
 
+# --------------------------------------------------------------- phase 11
+LM_ARCH = "qwen2_0_5b"             # src/repro/configs/qwen2_0_5b.py:10-17
+LM_BATCH, LM_SEQ = 4, 2_048        # two attn_chunk and four loss_chunk
+LM_STEPS, LM_SHORT = 20, 5         # 11a-c and 11e; 11d and 11f
+LM_LR = 1e-3
+SERVE_BATCH, SERVE_MAX_SEQ, PROMPT, DECODE = 8, 256, 128, 64
+# 11g: decode against the prefill of the same prefix in bf16 compute:
+# within 2^-6 of the row's largest |logit| (two to four bf16 ulps of it)
+DECODE_TOL = 2.0 ** -6
+
+
+def lm_tree_close(got, want) -> float:
+    """Every leaf within the witness envelope; returns the max abs
+    difference."""
+    import torch
+    from repro_torch.checkpoint.store import _flatten
+    worst = 0.0
+    for (p, a), (q, b) in zip(_flatten(got), _flatten(want)):
+        if p != q or (a is None) != (b is None):
+            raise AssertionError(f"trees differ at {p!r} / {q!r}")
+        if a is None or a.dim() == 0:
+            continue
+        torch.testing.assert_close(a, b, **WITNESS_TOL, msg=p)
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+    return worst
+
+
+def learns(what: str, losses) -> None:
+    """Finite losses that pass the window check."""
+    first, last = loss_windows(losses)
+    if not (all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"phase {what}: the loss did not fall: "
+                             f"{losses}")
+    log(f"phase {what}: window check {first} -> {last}")
+
+
+def lm_config():
+    from repro_torch import configs
+    return configs.get(LM_ARCH)
+
+
+class LMRun:
+    """The qwen2-0.5b train step at full width through ``Trainer``: the
+    start params drawn once, the ``ZipfLM`` batches, per-step CUDA-event
+    times, launches and peak memory of each arm."""
+
+    def __init__(self, dev, seed: int):
+        import torch
+        from repro_torch.data import ZipfLM, ZipfLMConfig
+        from repro_torch.train.steps import make_train_step
+        self.dev, self.seed = dev, seed
+        self.cfg = lm_config()
+        ts = make_train_step(self.cfg, optimizer="cs_adam", device=dev)
+        self.start = ts.init_fn(torch.Generator(device=dev).manual_seed(seed))
+        self.data = ZipfLM(ZipfLMConfig(vocab_size=self.cfg.vocab,
+                                        seq_len=LM_SEQ,
+                                        global_batch=LM_BATCH, seed=seed))
+
+    def step(self, optimizer="cs_adam", backend="auto", plan=None):
+        from repro_torch.train.steps import make_train_step
+        return make_train_step(self.cfg, optimizer=optimizer, lr=LM_LR,
+                               kernel_backend=backend, plan=plan,
+                               device=self.dev)
+
+    def fresh(self, ts):
+        from repro_torch.train.trainer import TrainState
+        params = clone_tree(self.start)
+        return TrainState(step=0, params=params,
+                          opt_state=ts.optimizer.init(params))
+
+    def fit(self, ts, steps: int, state=None, ckpt_dir=None, restore=False):
+        """Run ``ts`` through a ``Trainer`` to ``steps``; returns (final
+        state, per-step losses, per-step device ms, launches, the arm's
+        peak memory above what was allocated before it)."""
+        import torch
+        from repro_torch.train.trainer import Trainer, TrainerConfig
+        events = []
+
+        def timed(params, opt_state, batch):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = ts.step_fn(params, opt_state, batch)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(timed, self.data, TrainerConfig(
+            total_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=10 ** 9),
+            device=self.dev)
+        if state is None:
+            state = self.fresh(ts)
+        if restore:
+            state = trainer.restore_or_init(state)
+            # the second leg writes no checkpoint of its own
+            trainer.tcfg = TrainerConfig(total_steps=steps)
+        reset_counts()
+        state = trainer.fit(state)
+        counts = read_counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = [a.elapsed_time(b) for a, b in events]
+        self.wall_ms = [h["time_s"] * 1e3 for h in trainer.history]
+        return (state, [h["loss"] for h in trainer.history], ms, counts,
+                peak, trainer)
+
+
+def clone_tree(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def phase_lm(dev, seed: int):
+    """Phase 11a-f: the qwen2-0.5b train step (see the module
+    docstring).  Returns (11a's launch counts, 11f's, the trained params,
+    the numbers logged for the kernels' line)."""
+    import torch
+    from repro_torch.core.optimizers import state_bytes
+    from repro_torch.core.partition import leaf_paths
+    from repro_torch.plan import measure_aux_bytes, plan_for_config
+    run = LMRun(dev, seed)
+    cfg = run.cfg
+    n_params = sum(t.numel() for _p, t in leaf_paths(run.start))
+    log(f"phase 11: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads, d_ff {cfg.d_ff}, "
+        f"tok_embed/table and lm_head/table {cfg.vocab} x {cfg.d_model}, "
+        f"{n_params} params, {cfg.compute_dtype} compute; ZipfLM "
+        f"{LM_BATCH} x {LM_SEQ} tokens a step; cs_adam lr {LM_LR}, "
+        f"kernel_backend auto")
+
+    # 11a
+    ts = run.step()
+    state, losses, ms, counts, peak, _ = run.fit(ts, LM_STEPS)
+    first, last = loss_windows(losses)
+    step_ms = statistics.median(ms[1:])
+    sk = {p: tuple(t.shape) for p, t in leaf_paths(state.opt_state["v"])
+          if "table" in p}
+    log(f"phase 11a: {LM_STEPS} steps: ms/step (CUDA events) median of "
+        f"steps 2..{LM_STEPS} {step_ms} (first {ms[0]}); all {ms}; the "
+        f"Trainer's host time a step, median "
+        f"{statistics.median(run.wall_ms[1:])}")
+    log(f"phase 11a: losses {losses}; window check {first} -> {last}; "
+        f"launches {counts} ({counts['cs_ema_tiled'] / LM_STEPS} B3 a "
+        f"step); v sketches {sk}; peak memory of the arm {peak} B")
+    if counts["cs_ema_tiled"] != 4 * LM_STEPS:
+        raise AssertionError(f"B3 launched {counts['cs_ema_tiled']} times "
+                             f"in {LM_STEPS} steps, not 4 a step (M and V "
+                             f"of two tables)")
+    # the sketched first moment's spike sits in the first window, so this
+    # gate does not test learning here; 11d and 11f gate the arms that learn
+    if not last < first:
+        raise AssertionError(f"the LM loss did not fall: {first} -> {last}")
+    if not all(bool(torch.isfinite(t).all())
+               for _p, t in leaf_paths(state.params)):
+        raise AssertionError("non-finite params")
+    cs_bytes = (measure_aux_bytes(state.opt_state),
+                state_bytes(state.opt_state))
+
+    data_more = [{k: torch.as_tensor(v).to(dev) for k, v in
+                  run.data.batch(LM_STEPS + i).items()} for i in range(4)]
+    p, s = clone_tree(state.params), clone_tree(state.opt_state)
+
+    def three():
+        nonlocal p, s
+        for b in data_more[:3]:
+            p, s, _ = ts.step_fn(p, s, b)
+        torch.cuda.synchronize()
+    profile_steps("phase 11a (profile)", three, step_ms, n=3)
+    # a step as the Trainer calls it makes no host-device synchronisation
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p, s, m = ts.step_fn(p, s, data_more[3])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"phase 11a: one more step under set_sync_debug_mode('error'): "
+        f"loss {float(m['loss'])}")
+    del p, s
+
+    # 11b: the plain xla witness from the same start on the same batches
+    w_state, w_losses, w_ms, w_counts, _, _ = run.fit(
+        run.step(backend="xla"), LM_STEPS)
+    torch.testing.assert_close(torch.tensor(losses), torch.tensor(w_losses),
+                               rtol=WITNESS_TOL["rtol"], atol=0.0)
+    err_p = lm_tree_close(w_state.params, state.params)
+    err_s = lm_tree_close(w_state.opt_state, state.opt_state)
+    bits = (losses == w_losses and leaves_equal(w_state.params, state.params)
+            and leaves_equal(w_state.opt_state, state.opt_state))
+    log(f"phase 11b: plain xla: ms/step median {statistics.median(w_ms[1:])}"
+        f"; launches {w_counts}; losses max rel diff "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(losses, w_losses))}, "
+        f"params max_abs_err {err_p}, state {err_s} (rtol "
+        f"{WITNESS_TOL['rtol']}, atol {WITNESS_TOL['atol']}); equal to the "
+        f"bit: {bits}")
+    del w_state
+
+    # 11c: the auto arm again
+    r_state, r_losses, _, _, _, _ = run.fit(ts, LM_STEPS)
+    if not (r_losses == losses and leaves_equal(r_state.params, state.params)
+            and leaves_equal(r_state.opt_state, state.opt_state)):
+        raise AssertionError("the auto arm run twice gave other bits")
+    log(f"phase 11c: the auto arm run again: losses, params and state equal "
+        f"to the bit")
+    del r_state
+
+    # 11d: dense Adam
+    d_state, d_losses, d_ms, d_counts, d_peak, _ = run.fit(
+        run.step(optimizer="dense_adam", backend=None), LM_SHORT)
+    d_bytes = (measure_aux_bytes(d_state.opt_state),
+               state_bytes(d_state.opt_state))
+    log(f"phase 11d: dense_adam {LM_SHORT} steps: losses {d_losses}; ms/step "
+        f"median {statistics.median(d_ms[1:])}; optimizer state {d_bytes[0]}"
+        f" B (m and v; {d_bytes[1]} with the step counter) against "
+        f"cs_adam's {cs_bytes[0]} B ({cs_bytes[1]}): "
+        f"{cs_bytes[0] / d_bytes[0]}"
+        f"; peak memory of the arm {d_peak} B against cs_adam's {peak} B; "
+        f"launches {d_counts}")
+    del d_state
+    learns("11d: dense_adam", d_losses)
+    # which moment's sketch moves the cs_adam losses: CS-V, the first
+    # moment dense
+    v_state, v_losses, _, v_counts, _, _ = run.fit(
+        run.step(optimizer="cs_adam_v"), LM_SHORT)
+    log(f"phase 11d: cs_adam_v (dense m, sketched v) {LM_SHORT} steps: "
+        f"losses {v_losses} against cs_adam's {losses[:LM_SHORT]}; launches "
+        f"{v_counts}")
+    del v_state
+    learns("11d: cs_adam_v", v_losses)
+
+    # 11e: 10 steps, an async save, a restore into a new Trainer, 10 more
+    ckpt = ROOT / "build" / f"ckpt-lm-{seed}"
+    if ckpt.exists():
+        shutil.rmtree(ckpt)
+    half = LM_STEPS // 2
+    try:
+        t0 = time.perf_counter()
+        h_state, h_losses, _, _, _, _ = run.fit(ts, half, ckpt_dir=str(ckpt))
+        save_s = time.perf_counter() - t0
+        size = dir_bytes(ckpt)
+        del h_state
+        t0 = time.perf_counter()
+        e_state, e_losses, _, _, _, trainer = run.fit(
+            ts, LM_STEPS, ckpt_dir=str(ckpt), restore=True)
+        log(f"phase 11e: {half} steps and an async save ({size} B, "
+            f"{save_s} s with the steps), a restore into a new Trainer and "
+            f"steps {half + 1}..{LM_STEPS} ({time.perf_counter() - t0} s)")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if not (h_losses + e_losses == losses
+            and leaves_equal(e_state.params, state.params)
+            and leaves_equal(e_state.opt_state, state.opt_state)):
+        raise AssertionError("the resumed run differs from 11a's")
+    log("phase 11e: the resumed run equals 11a's to the bit (losses, params, "
+        "state)")
+    del e_state
+
+    # 11f: the memory plan of the config's budget on B3
+    plan = plan_for_config(cfg, "config")
+    modes = {l.path: (l.mode, l.depth, l.width) for l in plan.leaves
+             if "table" in l.path}
+    p_state, p_losses, p_ms, p_counts, p_peak, _ = run.fit(
+        run.step(plan=plan), LM_SHORT)
+    measured = measure_aux_bytes(p_state.opt_state)
+    n_sketch = sum(1 for m in modes.values() if m[0] == "sketch")
+    log(f"phase 11f: plan_for_config(qwen2-0.5b, 'config') = "
+        f"{plan.budget_bytes} B budget, predicted {plan.predicted_aux_bytes}"
+        f" B, measured {measured} B; tables {modes}; {LM_SHORT} steps: "
+        f"losses {p_losses}; ms/step median {statistics.median(p_ms[1:])}; "
+        f"launches {p_counts}; peak memory of the arm {p_peak} B")
+    if measured != plan.predicted_aux_bytes:
+        raise AssertionError("the planned state's bytes differ from the plan")
+    if p_counts["cs_ema_tiled"] != 2 * n_sketch * LM_SHORT:
+        raise AssertionError(f"B3 launched {p_counts['cs_ema_tiled']} times "
+                             f"under the plan, not {2 * n_sketch} a step")
+    learns("11f: the planned run", p_losses)
+    # the plain xla witness of the same plan from the same start: B3 at the
+    # plan's width
+    pw_state, pw_losses, pw_ms, pw_counts, _, _ = run.fit(
+        run.step(plan=plan, backend="xla"), LM_SHORT)
+    torch.testing.assert_close(torch.tensor(p_losses),
+                               torch.tensor(pw_losses),
+                               rtol=WITNESS_TOL["rtol"], atol=0.0)
+    err_p = lm_tree_close(pw_state.params, p_state.params)
+    err_s = lm_tree_close(pw_state.opt_state, p_state.opt_state)
+    bits = (p_losses == pw_losses
+            and leaves_equal(pw_state.params, p_state.params)
+            and leaves_equal(pw_state.opt_state, p_state.opt_state))
+    log(f"phase 11f: the plan through plain xla: ms/step median "
+        f"{statistics.median(pw_ms[1:])}; launches {pw_counts}; losses max "
+        f"rel diff "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(p_losses, pw_losses))}, "
+        f"params max_abs_err {err_p}, state {err_s} (rtol "
+        f"{WITNESS_TOL['rtol']}, atol {WITNESS_TOL['atol']}); equal to the "
+        f"bit: {bits}")
+    del p_state, pw_state
+    lm = {"step_ms": step_ms, "peak": peak, "cs_bytes": cs_bytes,
+          "dense_bytes": d_bytes, "dense_peak": d_peak}
+    return counts, p_counts, state.params, lm
+
+
+def phase_lm_serving(dev, seed: int, params):
+    """Phase 11g: prefill and greedy decode on 11a's trained params."""
+    import torch
+    from repro_torch.data import ZipfLM, ZipfLMConfig
+    from repro_torch.serve import make_serve_step
+    cfg = lm_config()
+    ss = make_serve_step(cfg, batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
+    prompts = torch.as_tensor(ZipfLM(ZipfLMConfig(
+        vocab_size=cfg.vocab, seq_len=PROMPT, global_batch=SERVE_BATCH,
+        seed=seed + 1)).batch(0)["tokens"]).to(dev)
+    prefill_ms = cuda_ms(lambda: ss.prefill_fn(params, {"tokens": prompts}),
+                         reps=5)
+    logits, cache = ss.prefill_fn(params, {"tokens": prompts})
+    seq, outs = prompts, []
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(DECODE):
+        tok = logits.argmax(-1).to(torch.int32)
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        logits, cache = ss.decode_fn(params, cache, tok)
+        outs.append(logits)
+    e1.record()
+    torch.cuda.synchronize()
+    decode_ms = e0.elapsed_time(e1) / DECODE
+    more = cache
+
+    def three():
+        nonlocal more
+        tok = outs[-1].argmax(-1).to(torch.int32)
+        for _ in range(3):
+            _, more = ss.decode_fn(params, more, tok)
+        torch.cuda.synchronize()
+    profile_steps("phase 11g (decode profile)", three, decode_ms, n=3)
+    worst, ties, tol_used = 0.0, 0, 0.0
+    for t, got in enumerate(outs):
+        want, _ = ss.prefill_fn(params, {"tokens": seq[:, :PROMPT + t + 1]})
+        want, got = want.float(), got.float()
+        tol = DECODE_TOL * want.abs().amax(-1)
+        diff = (got - want).abs().amax(-1)
+        worst = max(worst, float((diff / tol).max()))
+        tol_used = max(tol_used, float(tol.max()))
+        top2 = want.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        same = got.argmax(-1) == want.argmax(-1)
+        ties += int((~clear).sum())
+        if not bool(same[clear].all()):
+            raise AssertionError(f"decode step {t}: argmax differs from the "
+                                 f"prefill's where its top-2 margin exceeds "
+                                 f"the tolerance")
+    log(f"phase 11g: make_serve_step(batch={SERVE_BATCH}, max_seq="
+        f"{SERVE_MAX_SEQ}): prefill of {SERVE_BATCH} x {PROMPT} tokens "
+        f"{prefill_ms} ms; {DECODE} greedy decode steps {decode_ms} ms a "
+        f"token, {SERVE_BATCH * 1e3 / decode_ms} tokens/s; each step's "
+        f"logits against the prefill of its prefix: max |diff| / tolerance "
+        f"{worst} (tolerance {DECODE_TOL} x the row's max |logit|, at most "
+        f"{tol_used}); argmax equal on every row whose top-2 margin exceeds "
+        f"it, {ties} of {DECODE * SERVE_BATCH} rows within it")
+    if worst > 1.0:
+        raise AssertionError(f"decode logits differ from the prefill's by "
+                             f"{worst} x the tolerance")
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def phase_lm_launcher(dev, seed: int):
+    """Phase 11h: ``python -m repro_torch.launch.train`` at full width for
+    3 steps on ``--store-backend auto``."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--arch", LM_ARCH, "--steps", "3", "--batch",
+                         str(LM_BATCH), "--seq", str(LM_SEQ),
+                         "--store-backend", "auto", "--seed", str(seed)])
+    counts = read_counts()
+    line = [l for l in out.getvalue().splitlines() if l.startswith("[train]")]
+    log(f"phase 11h: launch.train rc {rc}: {line}; launches {counts}")
+    if rc != 0 or not line or counts["cs_ema_tiled"] != 12:
+        raise AssertionError("the launcher's LM run failed")
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phases", default="",
+                        help="comma-separated phase names to run (default: "
+                             "all; the kernels' line needs all)")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3208,17 +3640,29 @@ def main(argv=None) -> int:
         ("9c", lambda: phase_planned_dense(dev, out["6"][1])),
         ("10", lambda: phase_serving(dev, args.seed)),
         ("10c", lambda: phase_observed(dev, args.seed)),
+        ("11", lambda: phase_lm(dev, args.seed)),
+        ("11g", lambda: phase_lm_serving(dev, args.seed, out["11"][2])),
+        ("11h", lambda: phase_lm_launcher(dev, args.seed)),
     ]
+    if args.phases:
+        keep = args.phases.split(",")
+        phases = [(n, r) for n, r in phases if n in keep]
     out, peak = {}, 0
     for name, run in phases:
         t0 = time.perf_counter()
         out[name] = run()
         peak = max(peak, torch.cuda.max_memory_allocated())
         log(f"phase {name}: wall {time.perf_counter() - t0:.1f} s")
+    if args.phases:
+        log(f"phases {args.phases} passed; no kernels' line without all")
+        return 0
     kernels = out["5"]
     extreme = out["8"][0]       # 8a's cs_rmsprop runs, both replicas
     planned, planned_dense = out["9"][0], out["9c"]     # 9a, 9c
     serving, observed = out["10"][0], out["10c"]        # 10a, 10c
+    lm, lm_plan, lm_cli = out["11"][0], out["11"][1], out["11h"]  # 11a/f/h
+    lm_b3 = {name: lm[name] + lm_plan[name] + lm_cli[name]
+             for name in ("cs_ema_tiled", "bucket_csr")}
     launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
                                   + extreme["cs_adam_tiled"]
                                   + planned["cs_adam_tiled"]
@@ -3226,7 +3670,8 @@ def main(argv=None) -> int:
                                   + observed["cs_adam_tiled"]),
                 "cs_adam_fused": out["4"]["cs_adam_fused"],
                 "cs_ema_tiled": (out["6"][0]["cs_ema_tiled"]
-                                 + planned_dense["cs_ema_tiled"]),
+                                 + planned_dense["cs_ema_tiled"]
+                                 + lm_b3["cs_ema_tiled"]),
                 "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"],
                 # the main, extreme, planned, serving and observed paths'
                 # dedup sums, and the sketch ops' update
@@ -3248,7 +3693,8 @@ def main(argv=None) -> int:
                                + out["4"]["bucket_csr"]
                                + out["4 (sketch ops)"][4]["bucket_csr"]
                                + out["6"][0]["bucket_csr"]
-                               + planned_dense["bucket_csr"])}
+                               + planned_dense["bucket_csr"]
+                               + lm_b3["bucket_csr"])}
     for row in kernels:
         row.setdefault("launches", launches.get(row["name"]))
         if row["name"] == "cs_adam_tiled":
@@ -3259,6 +3705,9 @@ def main(argv=None) -> int:
             row["launches_planned_extreme_path"] = planned["cs_adam_tiled"]
             row["launches_serving_path"] = serving["cs_adam_tiled"]
             row["launches_observed_path"] = observed["cs_adam_tiled"]
+        if row["name"] in lm_b3:
+            # the LM path (11a, 11f, 11h), in the total above as well
+            row["launches_lm_path"] = lm_b3[row["name"]]
     log(f"peak device memory of the whole run {max(peak, out['8'][4])} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

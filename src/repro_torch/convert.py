@@ -13,6 +13,10 @@ int8 sketch state (any ``(cells, scales)`` NamedTuple, as the reference's
 port's ``Rank1Moment``.  Tests and the chip
 smoke script start both packages from one state this way, since the port
 draws its initial numbers from other generators than ``jax.random``.
+A model's params tree (``tok_embed``, the layer-stacked ``layers``, …)
+and a trainer state travel the same way: ``train_state_from_numpy``
+builds the port's ``TrainState`` from a step and the reference's params
+and optimizer state as numpy, ``train_state_to_numpy`` goes back.
 """
 from __future__ import annotations
 
@@ -103,3 +107,20 @@ def from_jax_state(table_np: np.ndarray, opt_state_np: Dict, device="cuda"
 def to_numpy(table: torch.Tensor, opt_state: Dict) -> Tuple[np.ndarray, Dict]:
     """The reverse of ``from_jax_state``."""
     return tree_to_numpy(table), tree_to_numpy(opt_state)
+
+
+def train_state_from_numpy(step: int, params_np, opt_state_np,
+                           device="cuda"):
+    """The port's ``train.trainer.TrainState`` from a step and numpy
+    copies of a params tree and its optimizer state (e.g.
+    ``jax.device_get`` of the reference's ``TrainState`` fields)."""
+    from repro_torch.train.trainer import TrainState
+    return TrainState(step=int(step),
+                      params=tree_from_numpy(params_np, device),
+                      opt_state=tree_from_numpy(opt_state_np, device))
+
+
+def train_state_to_numpy(state) -> Tuple[int, Dict, Dict]:
+    """``(step, params, opt_state)`` of a ``TrainState`` as numpy trees."""
+    return (int(state.step), tree_to_numpy(state.params),
+            tree_to_numpy(state.opt_state))

@@ -1,7 +1,12 @@
-"""Serve-time sparse adaptation steps of the port.
+"""Serving steps of the port: model prefill/decode and serve-time sparse
+adaptation.
 
-Counterpart of the online-adaptation half of ``repro.serve.steps``:
+Counterpart of ``repro.serve.steps``, single device:
 
+  * ``make_serve_step`` - prefill and decode of a model family (the
+    dense ``gqa`` transformer; the others wait for ROADMAP A14b), with
+    ``cache_factory`` and ``ServeStep``; decode writes the KV cache in
+    place;
   * ``make_online_adapt_step`` - the single-device branch of the
     reference's: the b1=0 CS-Adam of the training path (no first
     moment), its 2nd moment in a Count-Min sketch, through the same
@@ -12,23 +17,80 @@ Counterpart of the online-adaptation half of ``repro.serve.steps``:
     wall time (table AND optimizer state finished) in a
     ``LatencyTracker``.
 
-Both steps update the table and the optimizer state IN PLACE; a server
+Both adapt steps update the table and the optimizer state IN PLACE; a server
 that must keep a published generation intact hands them a copy
 (``serve.buffer.DoubleBufferedStore.begin_adapt``).  Replicated fleets
-(``dp_axis``) wait for ROADMAP A13; the model-serving half of the
-reference's module (``make_serve_step``, ``cache_factory``,
-``ServeStep``) needs the model families and waits for A14.
+(``dp_axis``) and the cache and param placements on a mesh
+(``ServeStep.cache_specs``, ``param_shardings``) wait for ROADMAP A13.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core import optimizers as opt_lib
 from repro_torch.core.optimizers import SketchHParams
+from repro_torch.models.config import ArchConfig
+
+def _family(cfg: ArchConfig):
+    from repro_torch.train.steps import family_module
+    return family_module(cfg)
+
+
+def cache_factory(cfg: ArchConfig, device="cuda") -> Callable[..., Any]:
+    """(batch, max_seq) -> zeroed cache for this family on ``device``
+    (the ``gqa`` transformer's KV cache)."""
+    mod = _family(cfg)
+    return lambda batch, max_seq: mod.init_cache(cfg, batch, max_seq,
+                                                 device=device)
+
+
+@dataclasses.dataclass
+class ServeStep:
+    cfg: ArchConfig
+    prefill_fn: Callable      # (params, batch) -> (logits, cache)
+    decode_fn: Callable       # (params, cache, token) -> (logits, cache)
+    max_seq: int
+    batch: int
+
+    def cache_shape(self):
+        """The cache as ``meta`` tensors (no allocation)."""
+        return cache_factory(self.cfg, "meta")(batch=self.batch,
+                                               max_seq=self.max_seq)
+
+    def params_shape(self):
+        return _family(self.cfg).init(None, self.cfg, device="meta")
+
+    def cache_specs(self, mesh):
+        raise NotImplementedError("placing the cache on a mesh is not "
+                                  "ported yet (ROADMAP A13)")
+
+    def param_shardings(self, mesh):
+        raise NotImplementedError("placing the params on a mesh is not "
+                                  "ported yet (ROADMAP A13)")
+
+
+def make_serve_step(cfg: ArchConfig, *, batch: int, max_seq: int
+                    ) -> ServeStep:
+    """Prefill ``{"tokens": (batch, s)}`` into a ``max_seq`` cache and
+    decode one token a call, both without autograd.  The cache lives on
+    the tokens' device; ``decode_fn`` writes it in place."""
+    mod = _family(cfg)
+
+    @torch.no_grad()
+    def prefill_fn(params, batch_in):
+        return mod.prefill(cfg, params, batch_in["tokens"], max_seq)
+
+    @torch.no_grad()
+    def decode_fn(params, cache, token):
+        return mod.decode_step(cfg, params, cache, token)
+
+    return ServeStep(cfg=cfg, prefill_fn=prefill_fn, decode_fn=decode_fn,
+                     max_seq=max_seq, batch=batch)
+
 
 # the caller did not choose a dir_clip: distinguishable from an explicit
 # 10.0 (or None), so the single-device step can reject dp-only arguments

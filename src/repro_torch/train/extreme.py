@@ -23,7 +23,7 @@ the port's sparse-rows path:
 
 Tables and states are updated IN PLACE.  Data parallelism (``dp_axis``,
 ``mesh``) waits for ROADMAP A13, the ``--workload extreme`` launcher for
-A14.
+A14b.
 """
 from __future__ import annotations
 

@@ -1,17 +1,190 @@
-"""Train step for one embedding/softmax table fed (ids, grad-rows).
+"""Train-step factories: the LM step (family dispatch + optimizer) and the
+step for one embedding/softmax table fed (ids, grad-rows).
 
-Counterpart of the sparse-embedding part of ``repro.train.steps``, single
-device only: data parallelism and sharded sketches wait for ROADMAP A13.
+Counterpart of ``repro.train.steps``, single device: data parallelism,
+shardings and sharded sketches wait for ROADMAP A13.
+
+``make_train_step(cfg, ...)`` returns a ``TrainStep``:
+
+    params = ts.init_fn(generator)           # or ts.params_shape() (meta)
+    params, opt_state, metrics = ts.step_fn(params, opt_state, batch)
+
+Optimizer modes (paper §4 + baselines):
+    dense_adam      — full-size Adam (the paper's baseline)
+    cs_adam         — Count-Sketch Adam, 1st+2nd moment sketched (CS-MV)
+    cs_adam_v       — only the 2nd moment sketched (CS-V)
+    cs_rmsprop      — β₁=0 Count-Min variant of Theorem 5.1
+    cs_adagrad      — Count-Min Adagrad (paper Alg. 3)
+    cs_momentum     — Count-Sketch momentum (paper Alg. 2)
+    lr_nmf_adam     — NMF rank-1 2nd-moment baseline (paper's LR-NMF-V)
+    dense_adagrad / dense_momentum — their dense baselines
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import lowrank
 from repro_torch.core import optimizers as opt_lib
 from repro_torch.core.cleaning import CleaningSchedule
 from repro_torch.core.optimizers import SketchHParams
+from repro_torch.core.partition import SketchPolicy, leaf_paths
+from repro_torch.core.transforms import (Transform, clip_by_global_norm,
+                                         tree_map_with_path)
+from repro_torch.models.config import ArchConfig
+from repro_torch.obs.profiling import scope
+
+
+def _needs_a13(what: str):
+    raise NotImplementedError(
+        f"{what}: not ported yet (ROADMAP A13); the port runs the "
+        f"single-device step")
+
+
+def family_module(cfg: ArchConfig):
+    """The model module of ``cfg.family``: the dense ``gqa`` transformer;
+    the other families wait for ROADMAP A14b."""
+    if cfg.family != "gqa":
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not ported yet (ROADMAP A14b); "
+            f"the port runs the dense 'gqa' family")
+    from repro_torch.models import transformer
+    return transformer
+
+
+def build_optimizer(cfg: ArchConfig, mode: str, lr=1e-3,
+                    cleaning: Optional[CleaningSchedule] = None,
+                    kernel_backend: Optional[str] = None,
+                    plan=None) -> Transform:
+    """``kernel_backend`` routes BOTH sketch hot paths: the sparse-rows
+    step and the dense whole-gradient fused ``update_read`` of every
+    sketched store ('auto': B3 on a card).  None keeps the dense path on
+    the composed chunked form, which reaches no kernel, as in the
+    reference.
+
+    ``plan``: a solved ``repro_torch.plan.Plan``; it supersedes the regex
+    policy and the global compression (its ``StoreTree`` executes through
+    ``adam_from_stores``), with ``kernel_backend`` overriding the backend
+    the plan carries.  Only the modes in ``plan.MOMENT_MODES`` take one."""
+    if plan is not None:
+        from repro_torch.plan import MOMENT_MODES
+        if mode not in MOMENT_MODES:
+            raise ValueError(
+                f"optimizer mode {mode!r} cannot execute a memory plan "
+                f"(Adam-family layouts only: {sorted(MOMENT_MODES)})")
+        return plan.make_optimizer(lr, cleaning=cleaning,
+                                   backend=kernel_backend)
+    policy = SketchPolicy(min_rows=1024)
+    hp = SketchHParams(compression=cfg.sketch_compression,
+                       depth=cfg.sketch_depth, backend=kernel_backend)
+    if mode == "dense_adam":
+        return opt_lib.adam(lr)
+    if mode == "dense_adagrad":
+        return opt_lib.adagrad(lr)
+    if mode == "dense_momentum":
+        return opt_lib.momentum(lr)
+    if mode == "cs_adam":
+        return opt_lib.countsketch_adam(lr, policy=policy, hparams=hp,
+                                        cleaning=cleaning)
+    if mode == "cs_adam_v":
+        # CS-V: dense 1st moment, sketched 2nd
+        return opt_lib.countsketch_adam(
+            lr, policy=policy, hparams=hp, cleaning=cleaning,
+            track_first_moment=True, sketch_first_moment=False)
+    if mode == "cs_rmsprop":
+        return opt_lib.countsketch_rmsprop(lr, policy=policy, hparams=hp,
+                                           cleaning=cleaning)
+    if mode == "cs_adagrad":
+        return opt_lib.countsketch_adagrad(lr, policy=policy, hparams=hp,
+                                           cleaning=cleaning)
+    if mode == "cs_momentum":
+        return opt_lib.countsketch_momentum(lr, policy=policy, hparams=hp)
+    if mode == "lr_nmf_adam":
+        return lowrank.nmf_rank1_adam(lr, policy=policy)
+    raise ValueError(f"unknown optimizer mode {mode!r}")
+
+
+@dataclasses.dataclass
+class TrainStep:
+    cfg: ArchConfig
+    init_fn: Callable
+    step_fn: Callable
+    optimizer: Transform
+    batch_template: Dict[str, Any]
+    # the run's StoreTree when a memory plan executes
+    store_tree: Any = None
+    dp_axis: Optional[str] = None
+
+    # -- shape trees (``meta`` tensors: no allocation) --------------------
+    def params_shape(self):
+        return family_module(self.cfg).init(None, self.cfg, device="meta")
+
+    def opt_shape(self, params_shape=None):
+        ps = params_shape if params_shape is not None else self.params_shape()
+        return self.optimizer.init(ps)
+
+    def shardings(self, mesh, batch_specs):
+        _needs_a13("TrainStep.shardings (param/opt/batch placement on a mesh)")
+
+
+def _grad_norm(grads) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for _path, g in leaf_paths(grads)))
+
+
+def make_train_step(cfg: ArchConfig, *, optimizer: str = "cs_adam",
+                    lr=1e-3, remat: bool = True,
+                    sampled_softmax: bool = False,
+                    grad_clip: Optional[float] = 1.0,
+                    cleaning: Optional[CleaningSchedule] = None,
+                    kernel_backend: Optional[str] = None,
+                    plan=None, dp_axis: Optional[str] = None,
+                    device="cuda") -> TrainStep:
+    """The LM train step in the reference's order: loss and gradient
+    (``obs.grad``), ``clip_by_global_norm(grad_clip)``, ``opt.update``
+    (``obs.kernel``), ``apply_updates``, then the ``loss`` and
+    ``grad_norm`` metrics (device scalars; the norm of the clipped
+    gradient).  ``step_fn`` updates params and optimizer state IN
+    PLACE.  ``init_fn(generator)`` draws the model's params on
+    ``device`` from a ``torch.Generator`` (not ``jax.random``: start
+    both packages from one state with ``repro_torch.convert``)."""
+    if dp_axis is not None:
+        _needs_a13("the data-parallel train step (dp_axis)")
+    mod = family_module(cfg)
+    opt = build_optimizer(cfg, optimizer, lr=lr, cleaning=cleaning,
+                          kernel_backend=kernel_backend, plan=plan)
+    clip = (clip_by_global_norm(grad_clip)
+            if grad_clip is not None else (lambda g: g))
+
+    def step_fn(params, opt_state, batch):
+        # differentiate through aliases of the params, so the caller's
+        # tensors keep requires_grad off and take the update in place
+        live = tree_map_with_path(
+            lambda _p, x: x.detach().requires_grad_(True), params)
+        leaves = leaf_paths(live)
+        with scope("obs.grad"):
+            loss = mod.train_loss(cfg, live, batch, remat=remat,
+                                  sampled_softmax=sampled_softmax)
+            grad_list = torch.autograd.grad(loss, [x for _p, x in leaves])
+        by_path = {p: g for (p, _x), g in zip(leaves, grad_list)}
+        grads = tree_map_with_path(lambda p, _x: by_path[p], params)
+        grads = clip(grads)
+        with scope("obs.kernel"):
+            updates, opt_state = opt.update(grads, opt_state, params)
+        params = opt_lib.apply_updates(params, updates)
+        metrics = {"loss": loss.detach().to(torch.float32),
+                   "grad_norm": _grad_norm(grads)}
+        return params, opt_state, metrics
+
+    def init_fn(generator: Optional[torch.Generator] = None):
+        return mod.init(generator, cfg, device=device)
+
+    return TrainStep(cfg=cfg, init_fn=init_fn, step_fn=step_fn,
+                     optimizer=opt, batch_template={},
+                     store_tree=plan.store_tree() if plan is not None
+                     else None)
 
 
 def resolve_sparse_stores(stores, path: str, shape: Tuple[int, int]):
@@ -76,9 +249,7 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
     ``jax.random.normal``; start both packages from one state with
     ``repro_torch.convert.from_jax_state``."""
     if dp_axis is not None or sketch_shards > 1:
-        raise NotImplementedError(
-            "data-parallel and sharded sketch steps are not ported yet "
-            "(ROADMAP A13); the port runs the single-device step")
+        _needs_a13("data-parallel and sharded sketch steps")
     hp = hparams if hparams is not None else SketchHParams()
     m_store = v_store = None
     if stores is not None:

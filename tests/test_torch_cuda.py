@@ -22,7 +22,13 @@ the bit, and an async checkpoint of CUDA tensors restores the pre-write
 values to the bit.  Serving: a coalesced batch on ``tiled`` equals its
 raw concatenation to the bit, the double buffer publishes behind its
 event with held generations unchanged, and ``TableMonitor.collect``
-dispatches under sync-debug mode "error".
+dispatches under sync-debug mode "error".  The LM stack at qwen2-0.5b's
+``reduced()`` shapes: the embedding gather's backward gives the same
+bits twice on zipf-repeated tokens, the train step on ``auto`` (B3)
+equals ``xla`` and itself to the bit and follows a CPU copy (losses
+rtol 1e-4, state rtol 1e-4/atol 1e-5), flash attention matches the
+CPU's within the reference's envelopes (atol 1e-4 forward, 1e-3
+gradients), and decode matches the prefill of its prefix.
 """
 import numpy as np
 import pytest
@@ -978,3 +984,132 @@ def test_table_monitor_collect_dispatches_without_sync(cuda_device):
     last = mon.flush()
     assert last["step"] == 4 and last["probe_rows_seen"] > 0
     assert "v_meas_error" in last and "v_error_ratio" in last
+
+
+# ------------------------------------------------------------- LM stack
+def _lm(dev, optimizer="cs_adam", backend="auto", **over):
+    from repro_torch import configs
+    from repro_torch.train.steps import make_train_step
+    cfg = configs.get("qwen2_0_5b").reduced(vocab_size=2048, **over)
+    return cfg, make_train_step(cfg, optimizer=optimizer,
+                                kernel_backend=backend, device=dev)
+
+
+def _lm_batches(cfg, n=3, b=4, s=32):
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        tok = ((rng.zipf(1.1, (b, s)) - 1) % cfg.vocab).astype(np.int32)
+        out.append({"tokens": tok, "labels": np.roll(tok, -1, axis=1)})
+    return out
+
+
+def _lm_run(ts, params, batches, dev):
+    from repro_torch.core.partition import leaf_paths
+    params = _lm_clone(params)
+    state = ts.optimizer.init(params)
+    losses = []
+    for b in batches:
+        params, state, m = ts.step_fn(params, state, {
+            k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    return losses, dict(leaf_paths(params)), dict(leaf_paths(state))
+
+
+def _lm_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _lm_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def test_lm_gather_backward_is_deterministic(cuda_device):
+    table = torch.randn((2048, 64), device=cuda_device)
+    rng = np.random.RandomState(1)
+    tok = torch.from_numpy(((rng.zipf(1.1, 8192) - 1) % 2048)
+                           .astype(np.int64)).to(cuda_device)
+    up = torch.randn((8192, 64), device=cuda_device,
+                     dtype=torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        t = table.detach().requires_grad_()
+        (t.to(torch.bfloat16)[tok] * up).float().sum().backward()
+        grads.append(t.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_lm_step_auto_equals_xla_and_itself(cuda_device):
+    from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled as b3
+    cfg, ts = _lm(cuda_device)
+    params = ts.init_fn(torch.Generator(device=cuda_device).manual_seed(0))
+    batches = _lm_batches(cfg)
+    n0 = b3.launches
+    a = _lm_run(ts, params, batches, cuda_device)
+    assert b3.launches - n0 == 4 * len(batches)
+    b = _lm_run(ts, params, batches, cuda_device)
+    x = _lm_run(_lm(cuda_device, backend="xla")[1], params, batches,
+                cuda_device)
+    for other in (b, x):
+        assert other[0] == a[0]
+        for i in (1, 2):
+            assert all(torch.equal(other[i][p], a[i][p]) for p in a[i]
+                       if isinstance(a[i][p], torch.Tensor))
+
+
+def test_lm_step_on_the_card_follows_a_cpu_copy(cuda_device):
+    cfg, ts = _lm(cuda_device)
+    params = ts.init_fn(torch.Generator(device=cuda_device).manual_seed(0))
+    batches = _lm_batches(cfg)
+    got = _lm_run(ts, params, batches, cuda_device)
+    cpu = torch.device("cpu")
+    want = _lm_run(_lm(cpu, backend="xla")[1], _lm_to(params, cpu), batches,
+                   cpu)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    for p, t in want[2].items():
+        if isinstance(t, torch.Tensor) and t.dim():
+            torch.testing.assert_close(got[2][p].cpu(), t, rtol=1e-4,
+                                       atol=1e-5, msg=p)
+
+
+def _lm_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _lm_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_flash_attention_on_the_card_matches_cpu(cuda_device):
+    from repro_torch.models import attention as A
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randn((2, 64, 8, 16), generator=gen)
+    k = torch.randn((2, 64, 2, 16), generator=gen)
+    v = torch.randn((2, 64, 2, 16), generator=gen)
+    outs, grads = [], []
+    for dev in (torch.device("cpu"), cuda_device):
+        xs = [t.to(dev).requires_grad_() for t in (q.clone(), k.clone(),
+                                                 v.clone())]
+        o = A.flash_attention(*xs, True, 16, 0)
+        torch.sum(torch.square(o)).backward()
+        outs.append(o.detach().cpu())
+        grads.append([t.grad.cpu() for t in xs])
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4)
+    for a, b in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+
+
+def test_decode_matches_prefill_on_the_card(cuda_device):
+    from repro_torch import configs
+    from repro_torch.serve import make_serve_step
+    cfg = configs.get("qwen2_0_5b").reduced()
+    ss = make_serve_step(cfg, batch=2, max_seq=24)
+    from repro_torch.models import transformer as T
+    params = T.init(torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    tok = torch.randint(1, cfg.vocab, (2, 12), device=cuda_device,
+                        dtype=torch.int32)
+    logits, cache = ss.prefill_fn(params, {"tokens": tok})
+    assert cache["k"].device.type == "cuda"
+    seq = tok
+    for _ in range(4):
+        nxt = logits.argmax(-1).to(torch.int32)
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
+        logits, cache = ss.decode_fn(params, cache, nxt)
+        want, _ = ss.prefill_fn(params, {"tokens": seq})
+        torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-5)

@@ -319,11 +319,15 @@ def test_plan_errors_match_reference():
     for call in (plan.store_tree, lambda: plan.make_optimizer(1e-3)):
         with pytest.raises(NotImplementedError, match="A13"):
             call()
-    for name in ("params_shapes_for_config", "plan_for_config", "main"):
-        from repro_torch.plan import cli
+    # registry models plan now; the families the port lacks name A14b
+    from repro_torch import configs
+    from repro_torch.plan import cli
+    rwkv = configs.get("rwkv6_7b")
+    for call in (lambda: cli.params_shapes_for_config(rwkv),
+                 lambda: cli.plan_for_config(rwkv, "floor"),
+                 lambda: cli.main(["--arch", "rwkv6_7b"])):
         with pytest.raises(NotImplementedError, match="A14"):
-            getattr(cli, name)(None) if name != "plan_for_config" else \
-                cli.plan_for_config(None, "floor")
+            call()
     for text, want in (("0.25x", 250), ("floor", 7), ("512MiB", 512 << 20),
                        ("8.6GB", 8_600_000_000), ("123", 123)):
         assert TP.parse_budget(text, dense_bytes=1000, floor_bytes=7) == \

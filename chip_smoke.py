@@ -212,12 +212,40 @@ own line; any failure raises and the exit code is not 0:
      repro_torch.launch.train --arch qwen2_0_5b --store-backend auto`` for
      3 steps: exit 0, B3 12 launches.  ``--phases 11,11g,11h`` runs phase
      11 alone.
+ 12. data parallelism (``repro_torch.distributed``) at full width.  12a:
+     ``make_sparse_embedding_step(dp_axis=ReplicaGroup(4))`` on phase 3's
+     table and lr, 4 replicas (threads on the one card) x 4,096 zipf(1.1)
+     ids a step (phase 3's 16,384 split), 10 steps without and 10 with
+     error feedback: B5 exactly 5 (6) launches a replica-step and no B1,
+     the loss on the first batch's ids falls, every replica's table, m, v
+     and residual equal to the bit; the 4 replicas' step time on one card
+     (not a DP speed), three steps under the profiler, one under
+     ``set_sync_debug_mode("error")``; the reference's byte model at 4,096
+     rows and at k = n.  Under the dyadic protocol (β₁ = β₂ = 0.5, integer
+     rows in [-3, 3], 3 steps) the DP first moment equals the
+     single-device ``tiled`` step's (B1) on the concatenated batch to the
+     bit, and after one step the DP second moment is within the modelled
+     cross-replica bound.  12b: ``torch.distributed`` on NCCL at world
+     size 1 (a ``file://`` rendezvous under ``build/``): 5 sparse DP steps
+     equal to ``ReplicaGroup(1)``'s to the bit, each route's step time,
+     and 3 qwen2-0.5b ``make_train_step(dp_axis=)`` steps (``cs_adam``,
+     ``auto``) equal to the single-device steps from the same start to
+     the bit, B3 4 launches a step.  12c: the serve fleet
+     (``make_online_adapt_step(dp_axis=ReplicaGroup(2))``, phase 10's
+     table, lr and compression, error feedback) on 50 batches of 256 zipf
+     id slots: the replicas equal to the bit; the extreme step
+     (``cs_rmsprop``, phase 8's shapes, MACH replica 0) at R = 2 for 5
+     steps: the replicas equal to the bit, the first step's loss within
+     rtol 1e-5 of the single-device loss on the concatenated batch and
+     its grad norm within rtol 1e-5 of sqrt(sum of the shards' squared
+     single-device norms).  ``--phases 12`` runs phase 12 alone.
 
 Phase 2 also holds B3's bf16 branch to its plain version (bit-equal on a
 CPU copy; within one bf16 ulp plus the f32 collision envelope of the
 plain version on the card, whose index_add_ sums in atomic order), and
 phase 5 times it at the dense path's shapes.  Each phase prints its wall
-time.  It prints the kernels' JSON line, the
+time.  It prints the kernels' JSON line (each path's launches beside the
+total: ``launches_dp_path`` is phase 12's), the
 card's name and power limit and, last, ``{"ok": true, "device":
 {...}}``.  With no card it prints no result and exits 2.
 """
@@ -2690,6 +2718,7 @@ SERVE_LOADS = (100.0, 500.0, 5000.0)
 SERVE_LR = 1e-3
 OBS_EVERY, OBS_PROBE_K = 5, 16
 TRACE_BATCHES = 3
+TRACE_MARGIN_S = 0.05
 
 
 # the plain versions a replay's batches also go through (10b): for the
@@ -3009,8 +3038,12 @@ def phase_serving(dev, seed: int):
                    for i in range(TRACE_BATCHES + 1)]
         t, s = adapt(t, s, *batches[0])
         with maybe_trace(str(tmp / "trace")):
+            # idle margins: the profiler drops device events that its
+            # host-clock conversion places outside its window
+            time.sleep(TRACE_MARGIN_S)
             for ids, rows in batches[1:]:
                 t, s = adapt(t, s, ids, rows)
+            time.sleep(TRACE_MARGIN_S)
         files = list((tmp / "trace").glob("*.pt.trace.json"))
         events = json.loads(files[0].read_text())["traceEvents"]
         spans = [e for e in events if e.get("name") == "obs.adapt"]
@@ -3593,6 +3626,470 @@ def phase_lm_launcher(dev, seed: int):
     return counts
 
 
+# ---------------------------------------------------------------- phase 12
+DP_R, DP_STEPS, DP_DYADIC_STEPS = 4, 10, 3
+DP_NCCL_STEPS, DP_LM_STEPS = 5, 3
+FLEET_R, FLEET_BATCHES, FLEET_SLOTS = 2, 50, 256
+X_DP_STEPS = 5
+GROUP_TIMEOUT = 600.0          # s a replica waits for the others
+
+
+def dp_shards(ids_np, r: int, dev) -> list:
+    """A global batch of ids cut into ``r`` replica shards on the card."""
+    import torch
+    return [torch.from_numpy(s).to(dev) for s in np.split(ids_np, r)]
+
+
+def dp_round(group, step_fn, tables, states, shards, rows_of):
+    """One data-parallel step: replica r takes ``shards[r]`` and its rows
+    ``rows_of(r, ids)``, its own table and state.  Returns (tables,
+    states)."""
+    args = [(tables[r], states[r], ids, rows_of(r, ids))
+            for r, ids in enumerate(shards)]
+    outs = group.run(step_fn, args)
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
+def replicas_equal(tables, states) -> bool:
+    """Every replica's table and state to the bit (``equal_trees``)."""
+    import torch
+    return all(torch.equal(t, tables[0]) and equal_trees(s, states[0])
+               for t, s in zip(tables[1:], states[1:]))
+
+
+def byte_model_line(hp) -> str:
+    """The reference's traffic model at this slice's shapes: a replica's
+    4,096 rows and k = n."""
+    from repro_torch.distributed import sketched_reduce as sr
+    m = hp.spec("t", (VOCAB, D_MODEL), signed=True)
+    v = hp.spec("t", (VOCAB, D_MODEL), signed=False)
+    k = BATCH * SEQ // DP_R
+    sketched = sr.sketched_reduce_bytes(m, v)
+    cross = sketched / (D_MODEL * 4 + 4)
+    return (f"sketched all-reduce {sketched} B a replica (M and V gradient "
+            f"sketches; {sr.sketched_reduce_bytes(m, v, v)} B with the "
+            f"feedback's cross-term sketch) against dense "
+            f"{sr.dense_reduce_bytes(k, D_MODEL)} B for {k} rows and ids: "
+            f"traffic_ratio {sr.traffic_ratio(m, k, extra_specs=(v,))} "
+            f"({sr.traffic_ratio(m, k, extra_specs=(v, v))} with feedback)"
+            f"; at k = n = {VOCAB}: "
+            f"{sr.traffic_ratio(m, VOCAB, extra_specs=(v,))}; the sketches "
+            f"move fewer bytes past {cross:.0f} rows a replica")
+
+
+def phase_dp(dev, seed: int):
+    """Phase 12a: ``make_sparse_embedding_step(dp_axis=ReplicaGroup(4))``
+    at full width (see the module docstring).  Returns the launches of
+    the DP steps."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.distributed import ReplicaGroup
+    from repro_torch.train.steps import make_sparse_embedding_step
+    hp = SketchHParams()
+    group = ReplicaGroup(DP_R, timeout=GROUP_TIMEOUT)
+    init_fn, _, _ = make_sparse_embedding_step(VOCAB, D_MODEL, hparams=hp,
+                                               device=dev)
+    table0 = init_fn(torch.Generator(device=dev).manual_seed(seed))
+    target = init_fn(torch.Generator(device=dev).manual_seed(seed + 1))
+    batches = zipf_ids(np.random.RandomState(seed), DP_STEPS)
+    held = torch.from_numpy(batches[0]).to(dev).long()
+    k = BATCH * SEQ // DP_R
+    log(f"phase 12a: {DP_R} replicas (ReplicaGroup threads on one card) x "
+        f"{k} zipf({ZIPF_A}) ids a step, phase 3's {BATCH * SEQ} split; "
+        f"table {VOCAB} x {D_MODEL}, SketchHParams() (m, v "
+        f"{hp.spec('t', (VOCAB, D_MODEL), signed=True).shape}), lr {LR}")
+    log(f"phase 12a: byte model: {byte_model_line(hp)}")
+    totals = {}
+    for fb in (False, True):
+        _, step_fn, opt = make_sparse_embedding_step(
+            VOCAB, D_MODEL, lr=LR, hparams=hp, dp_axis=group,
+            error_feedback=fb, device=dev)
+        tables = [table0.clone() for _ in range(DP_R)]
+        states = [opt.init() for _ in range(DP_R)]
+
+        def loss_on(tab) -> float:
+            rows = tab[held] - target[held]
+            return float(torch.mean(rows * rows))
+
+        before = loss_on(tables[0])
+        torch.cuda.synchronize()
+        reset_counts()
+        ms = []
+        for ids_np in batches:
+            t0 = time.perf_counter()
+            tables, states = dp_round(
+                group, step_fn, tables, states, dp_shards(ids_np, DP_R, dev),
+                lambda r, ids: tables[r][ids.long()] - target[ids.long()])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        same = replicas_equal(tables, states)
+        after = loss_on(tables[0])
+        per_b5 = counts["cs_update"] / DP_STEPS
+        log(f"phase 12a: error_feedback={fb}: {DP_STEPS} steps; the {DP_R} "
+            f"replicas share one card as threads (not a DP speed): "
+            f"ms/step median of steps 2..{DP_STEPS} "
+            f"{statistics.median(ms[1:])} (first {ms[0]}); all {ms}")
+        log(f"phase 12a: error_feedback={fb}: launches {counts}; B5 "
+            f"{per_b5} a step ({per_b5 / DP_R} a replica); loss on the first "
+            f"batch's ids {before} -> {after}; replicas' table, m, v and "
+            f"residual equal to the bit: {same}")
+        want_b5 = DP_R * (6 if fb else 5)
+        if per_b5 != want_b5 or counts["cs_adam_tiled"]:
+            raise AssertionError(f"the DP step launched B5 {per_b5} times a "
+                                 f"step, not {want_b5} (dedup, the "
+                                 f"gradient sketches, M and V), or B1")
+        if not same:
+            raise AssertionError("the replicas' bits differ")
+        if not after < before:
+            raise AssertionError("the DP loss did not fall")
+        if not all(bool(torch.isfinite(x).all()) for x in
+                   [tables[0]] + [s for s in states[0].values()
+                                  if isinstance(s, torch.Tensor)]):
+            raise AssertionError("non-finite table or sketch")
+    more = zipf_ids(np.random.RandomState(seed + 31), 4)
+
+    def three():
+        nonlocal tables, states
+        for ids_np in more[:3]:
+            tables, states = dp_round(
+                group, step_fn, tables, states, dp_shards(ids_np, DP_R, dev),
+                lambda r, ids: tables[r][ids.long()] - target[ids.long()])
+        torch.cuda.synchronize()
+    profile_steps("phase 12a (profile)", three, statistics.median(ms[1:]),
+                  n=3)
+    # one more step, all four replicas, with a host sync an error
+    shards = dp_shards(more[3], DP_R, dev)
+    rows = [tables[r][s.long()] - target[s.long()]
+            for r, s in enumerate(shards)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tables, states = dp_round(group, step_fn, tables, states, shards,
+                                  lambda r, ids: rows[r])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("phase 12a: one DP step of the 4 replicas under "
+        "set_sync_debug_mode('error'): no host-device synchronisation")
+    del tables, states
+    phase_dp_dyadic(dev, group, table0, seed)
+    return totals
+
+
+def phase_dp_dyadic(dev, group, table0, seed: int) -> None:
+    """12a's protocol: β₁ = β₂ = 0.5 and integer rows in [-3, 3] make every
+    sum exact, so the DP first moment must equal the single-device
+    ``tiled`` step's (B1) on the concatenated batch to the bit, and the DP
+    second moment after one step differ from it by at most the modelled
+    cross-replica term."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.distributed import sketched_reduce as sr
+    from repro_torch.train.steps import make_sparse_embedding_step
+    hp = SketchHParams()
+    kw = dict(lr=LR, b1=0.5, b2=0.5, hparams=hp, device=dev)
+    _, dp_step, dp_opt = make_sparse_embedding_step(
+        VOCAB, D_MODEL, dp_axis=group, **kw)
+    _, one_step, one_opt = make_sparse_embedding_step(VOCAB, D_MODEL, **kw)
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    tables = [table0.clone() for _ in range(DP_R)]
+    states = [dp_opt.init() for _ in range(DP_R)]
+    t1, s1 = table0.clone(), one_opt.init()
+    k = BATCH * SEQ // DP_R
+    reset_counts()
+    for step, ids_np in enumerate(zipf_ids(np.random.RandomState(seed + 12),
+                                           DP_DYADIC_STEPS), start=1):
+        rows = torch.randint(-3, 4, (BATCH * SEQ, D_MODEL), generator=gen,
+                             device=dev).to(torch.float32)
+        shards = dp_shards(ids_np, DP_R, dev)
+        v_before = states[0]["v"].clone()
+        tables, states = dp_round(group, dp_step, tables, states, shards,
+                                  lambda r, ids: rows[r * k:(r + 1) * k])
+        ids = torch.from_numpy(ids_np).to(dev)
+        t1, s1 = one_step(t1, s1, ids, rows)
+        torch.cuda.synchronize()
+        m_same = torch.equal(states[0]["m"], s1["m"])
+        log(f"phase 12a (dyadic): step {step}: DP m equal to the single-"
+            f"device tiled step's to the bit: {m_same}; replicas equal: "
+            f"{replicas_equal(tables, states)}")
+        if not (m_same and replicas_equal(tables, states)):
+            raise AssertionError("the DP first moment is not the single-"
+                                 "device one on the concatenated batch")
+        if step == 1:
+            if torch.count_nonzero(v_before):
+                raise AssertionError("the dyadic run must start from zero")
+            g_sum = torch.zeros((VOCAB, D_MODEL), dtype=torch.float64,
+                                device=dev)
+            g_sq = torch.zeros_like(g_sum)
+            for r, s in enumerate(shards):
+                gr = torch.zeros_like(g_sum).index_add_(
+                    0, s.long(), rows[r * k:(r + 1) * k].double())
+                g_sum += gr
+                g_sq += gr * gr
+            cross = g_sum * g_sum - g_sq
+            del g_sum, g_sq, gr
+            touched = torch.nonzero(cross.abs().sum(1) > 0)[:, 0]
+            spec_v = hp.spec("sparse_embedding", (VOCAB, D_MODEL),
+                             signed=False)
+            bound = 0.5 * sr.local_sketch(
+                spec_v, touched.to(torch.int32),
+                cross[touched].abs().to(torch.float32)) + 1e-4
+            del cross
+            diff = (states[0]["v"] - s1["v"]).abs()
+            log(f"phase 12a (dyadic): step 1: V bias max {float(diff.max())}"
+                f" within the modelled cross-term bound (max "
+                f"{float(bound.max())}; {int(touched.numel())} rows carry "
+                f"cross-replica terms): "
+                f"{bool((diff <= bound).all())}")
+            if not bool((diff <= bound).all()):
+                raise AssertionError("the DP V bias exceeds the bound")
+    counts = read_counts()
+    if counts["cs_adam_tiled"] != DP_DYADIC_STEPS:
+        raise AssertionError(f"the single-device witness did not run B1: "
+                             f"{counts}")
+    del tables, states, t1, s1
+
+
+def phase_dp_nccl(dev, seed: int):
+    """Phase 12b: the DP steps over ``torch.distributed`` (NCCL, world
+    size 1, a ``file://`` rendezvous under ``build/``): 5 sparse steps
+    against ``ReplicaGroup(1)`` and 3 full-width qwen2-0.5b
+    ``make_train_step(dp_axis=)`` steps against the single-device steps
+    from the same start, each to the bit.  Returns the launches of the
+    DP steps."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.distributed import ReplicaGroup
+    from repro_torch.train.steps import make_sparse_embedding_step
+    rdzv = ROOT / "build" / "dp-rendezvous"
+    rdzv.parent.mkdir(parents=True, exist_ok=True)
+    rdzv.unlink(missing_ok=True)
+    # gloo only in a CPU rehearsal of the phase: main() needs a card
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"file://{rdzv}", rank=0,
+                            world_size=1)
+    totals = {}
+    try:
+        log(f"phase 12b: {backend} process group, world size "
+            f"{dist.get_world_size()}, up in {time.perf_counter() - t0:.1f}"
+            f" s")
+        hp = SketchHParams()
+        one = ReplicaGroup(1, timeout=GROUP_TIMEOUT)
+        init_fn, _, _ = make_sparse_embedding_step(VOCAB, D_MODEL,
+                                                   hparams=hp, device=dev)
+        table0 = init_fn(torch.Generator(device=dev).manual_seed(seed + 2))
+        target = init_fn(torch.Generator(device=dev).manual_seed(seed + 3))
+        runs = {}
+        for name, axis in (("nccl", "data"), ("ReplicaGroup(1)", one)):
+            _, step_fn, opt = make_sparse_embedding_step(
+                VOCAB, D_MODEL, lr=LR, hparams=hp, dp_axis=axis,
+                error_feedback=True, device=dev)
+            table, state = table0.clone(), opt.init()
+
+            def run(table, state, ids_np):
+                ids = torch.from_numpy(ids_np).to(dev)
+                rows = table[ids.long()] - target[ids.long()]
+                return step_fn(table, state, ids, rows)
+
+            reset_counts()
+            ms = []
+            for ids_np in zipf_ids(np.random.RandomState(seed + 2),
+                                   DP_NCCL_STEPS):
+                ids_np = ids_np[:BATCH * SEQ // DP_R]
+                t0 = time.perf_counter()
+                if axis is one:
+                    table, state = one.run(run, [(table, state, ids_np)])[0]
+                else:
+                    table, state = run(table, state, ids_np)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts()
+            if axis == "data":
+                totals = dict(counts)
+            runs[name] = (table, state)
+            log(f"phase 12b: {name}: one replica's sparse DP step (error "
+                f"feedback, {BATCH * SEQ // DP_R} ids), host ms to the "
+                f"card's end, median of steps 2..{DP_NCCL_STEPS} "
+                f"{statistics.median(ms[1:])} (first {ms[0]})")
+        same = torch.equal(runs["nccl"][0], runs["ReplicaGroup(1)"][0]) \
+            and equal_trees(runs["nccl"][1], runs["ReplicaGroup(1)"][1])
+        log(f"phase 12b: {DP_NCCL_STEPS} sparse DP steps (error feedback) "
+            f"through NCCL and through ReplicaGroup(1): table and state "
+            f"equal to the bit: {same}; launches {totals}")
+        if not same:
+            raise AssertionError("NCCL and ReplicaGroup(1) differ")
+        del runs
+        lm = phase_dp_lm(dev, seed)
+        for name, n in lm.items():
+            totals[name] = totals.get(name, 0) + n
+    finally:
+        dist.destroy_process_group()
+        rdzv.unlink(missing_ok=True)
+    return totals
+
+
+def phase_dp_lm(dev, seed: int):
+    """12b's LM half: qwen2-0.5b at full width, ``cs_adam`` on ``auto``,
+    3 steps with ``dp_axis`` (the default NCCL group) against 3 without,
+    from the same start on the same batches: losses, grad norms, params
+    and state equal to the bit, B3 4 launches a step.  Returns the DP
+    arm's launches."""
+    import torch
+    from repro_torch.train.steps import make_train_step
+    run = LMRun(dev, seed)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in
+                run.data.batch(i).items()} for i in range(DP_LM_STEPS)]
+    arms = {}
+    for name, axis in (("single", None), ("dp", "data")):
+        ts = make_train_step(run.cfg, optimizer="cs_adam", lr=LM_LR,
+                             kernel_backend="auto", dp_axis=axis,
+                             device=dev)
+        st = run.fresh(ts)
+        params, state, metrics, events = st.params, st.opt_state, [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        for b in batches:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            params, state, m = ts.step_fn(params, state, b)
+            e1.record()
+            events.append((e0, e1))
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        arms[name] = (params, state, metrics, read_counts(),
+                      [a.elapsed_time(b) for a, b in events])
+        del params, state, st
+    one, dp = arms["single"], arms["dp"]
+    same = (dp[2] == one[2] and leaves_equal(dp[0], one[0])
+            and leaves_equal(dp[1], one[1]))
+    counts = dp[3]
+    log(f"phase 12b: qwen2-0.5b cs_adam auto, {DP_LM_STEPS} steps without "
+        f"and with dp_axis (NCCL, world 1): metrics {dp[2]}; params, state "
+        f"and metrics equal to the bit: {same}; ms a step (CUDA events) "
+        f"{dp[4]} against {one[4]} without; launches {counts}")
+    if not same:
+        raise AssertionError("the DP LM step at world size 1 is not the "
+                             "single-device step")
+    if counts["cs_ema_tiled"] != 4 * DP_LM_STEPS:
+        raise AssertionError(f"B3 launched {counts['cs_ema_tiled']} times in"
+                             f" {DP_LM_STEPS} DP steps, not 4 a step")
+    return counts
+
+
+def phase_dp_fleet(dev, seed: int):
+    """Phase 12c: the serve fleet and the extreme step at R = 2 (see the
+    module docstring).  Returns the launches of the DP steps."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.distributed import ReplicaGroup
+    from repro_torch.serve import make_online_adapt_step
+    from repro_torch.train.extreme import (MachConfig, extreme_grads,
+                                           make_extreme_step)
+    group = ReplicaGroup(FLEET_R, timeout=GROUP_TIMEOUT)
+    totals = {}
+    init, adapt = make_online_adapt_step(
+        VOCAB, D_MODEL, lr=SERVE_LR, hparams=SketchHParams(compression=5.0),
+        dp_axis=group, error_feedback=True, device=dev)
+    table0 = serve_table(dev, seed)
+    tables = [table0.clone() for _ in range(FLEET_R)]
+    states = [init() for _ in range(FLEET_R)]
+    rng = np.random.RandomState(seed + 41)
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(FLEET_BATCHES):
+        ids_np = ((rng.zipf(ZIPF_A, FLEET_SLOTS) - 1) % VOCAB).astype(
+            np.int32)
+        rows = torch.randn((FLEET_SLOTS, D_MODEL), generator=gen,
+                           device=dev) / float(np.sqrt(D_MODEL))
+        per = FLEET_SLOTS // FLEET_R
+        tables, states = dp_round(group, adapt, tables, states,
+                                  dp_shards(ids_np, FLEET_R, dev),
+                                  lambda r, ids: rows[r * per:(r + 1) * per])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FLEET_BATCHES
+    counts = read_counts()
+    totals.update(counts)
+    same = replicas_equal(tables, states)
+    log(f"phase 12c: serve fleet, {FLEET_R} replicas x "
+        f"{FLEET_SLOTS // FLEET_R} of {FLEET_SLOTS} id slots, "
+        f"{FLEET_BATCHES} batches, lr {SERVE_LR}, compression 5, error "
+        f"feedback: replicas equal to the bit: {same}; {ms} ms a batch "
+        f"(both replicas on one card); launches {counts}")
+    if not same or not torch.isfinite(tables[0]).all():
+        raise AssertionError("the serve fleet's replicas differ or are not "
+                             "finite")
+    del tables, states
+
+    cfg = MachConfig(**EXTREME)
+    cmap = cfg.class_maps()[0]
+    batches = extreme_batches(cfg, cmap, X_BATCH, X_DP_STEPS, dev)
+    _init, step_fn, opts = make_extreme_step(
+        cfg, optimizer="cs_rmsprop", lr=X_LR, dp_axis=group, device=dev)
+    start = _init(torch.Generator(device=dev).manual_seed(seed + 8))
+    per = X_BATCH // FLEET_R
+
+    def shard(b, r):
+        return {"features": b["features"][r * per:(r + 1) * per],
+                "labels": b["labels"][r * per:(r + 1) * per],
+                "negatives": b["negatives"]}
+
+    # the single-device metrics from the same start: the loss of the
+    # concatenated batch, and each shard's gradient norm
+    loss_all, _ = extreme_grads(start, batches[0])
+    gn_shards = []
+    for r in range(FLEET_R):
+        _, grads = extreme_grads(start, shard(batches[0], r))
+        gn_shards.append(float(sum(torch.sum(torch.square(g["rows"]))
+                                   for g in grads.values())))
+    _, grads = extreme_grads(start, batches[0])
+    gn_all = float(torch.sqrt(sum(torch.sum(torch.square(g["rows"]))
+                                  for g in grads.values())))
+    params = [params_from(tables_of(start)) for _ in range(FLEET_R)]
+    states = [{p: o.init() for p, o in opts.items()} for _ in range(FLEET_R)]
+    torch.cuda.synchronize()
+    reset_counts()
+    metrics = []
+    for b in batches:
+        outs = group.run(step_fn, [(params[r], states[r], shard(b, r))
+                                   for r in range(FLEET_R)])
+        params, states = [o[0] for o in outs], [o[1] for o in outs]
+        if not all(equal_trees(o[2], outs[0][2]) for o in outs):
+            raise AssertionError("the replicas' metrics differ")
+        metrics.append({k: float(v) for k, v in outs[0][2].items()})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for name, n in counts.items():
+        totals[name] = totals.get(name, 0) + n
+    same = all(equal_trees(p, params[0]) and equal_trees(s, states[0])
+               for p, s in zip(params[1:], states[1:]))
+    gn_model = float(np.sqrt(sum(gn_shards)))
+    rel_loss = abs(metrics[0]["loss"] - float(loss_all)) / float(loss_all)
+    rel_gn = abs(metrics[0]["grad_norm"] - gn_model) / gn_model
+    log(f"phase 12c: extreme cs_rmsprop, {FLEET_R} replicas x {per} of "
+        f"batch {X_BATCH} (MACH replica 0), {X_DP_STEPS} steps: replicas "
+        f"equal to the bit: {same}; metrics {metrics}; launches {counts}")
+    log(f"phase 12c: step 1 against the single-device step: loss "
+        f"{metrics[0]['loss']} vs {float(loss_all)} on the concatenated "
+        f"batch (rel {rel_loss}); grad_norm {metrics[0]['grad_norm']} vs "
+        f"sqrt of the shards' squared norms {gn_model} (rel {rel_gn}); the "
+        f"concatenated batch's own grad_norm is {gn_all} (each replica's "
+        f"loss is the mean over its {per} examples)")
+    if not same:
+        raise AssertionError("the extreme step's replicas differ")
+    if rel_loss > 1e-5 or rel_gn > 1e-5:
+        raise AssertionError("the DP extreme metrics are not the single-"
+                             "device ones")
+    return totals
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3643,6 +4140,9 @@ def main(argv=None) -> int:
         ("11", lambda: phase_lm(dev, args.seed)),
         ("11g", lambda: phase_lm_serving(dev, args.seed, out["11"][2])),
         ("11h", lambda: phase_lm_launcher(dev, args.seed)),
+        ("12", lambda: (phase_dp(dev, args.seed),
+                        phase_dp_nccl(dev, args.seed),
+                        phase_dp_fleet(dev, args.seed))),
     ]
     if args.phases:
         keep = args.phases.split(",")
@@ -3663,6 +4163,9 @@ def main(argv=None) -> int:
     lm, lm_plan, lm_cli = out["11"][0], out["11"][1], out["11h"]  # 11a/f/h
     lm_b3 = {name: lm[name] + lm_plan[name] + lm_cli[name]
              for name in ("cs_ema_tiled", "bucket_csr")}
+    # 12a-c's DP steps: the sparse, serve, extreme and LM dp_axis paths
+    dp = {name: sum(part[name] for part in out["12"])
+          for name in ("cs_update", "bucket_csr", "cs_ema_tiled")}
     launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
                                   + extreme["cs_adam_tiled"]
                                   + planned["cs_adam_tiled"]
@@ -3671,11 +4174,13 @@ def main(argv=None) -> int:
                 "cs_adam_fused": out["4"]["cs_adam_fused"],
                 "cs_ema_tiled": (out["6"][0]["cs_ema_tiled"]
                                  + planned_dense["cs_ema_tiled"]
-                                 + lm_b3["cs_ema_tiled"]),
+                                 + lm_b3["cs_ema_tiled"]
+                                 + dp["cs_ema_tiled"]),
                 "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"],
-                # the main, extreme, planned, serving and observed paths'
-                # dedup sums, and the sketch ops' update
-                "cs_update": (out["3"][4]["cs_update"]
+                # the main, extreme, planned, serving, observed and DP
+                # paths' dedup sums and sketch writes, and the sketch
+                # ops' update
+                "cs_update": (out["3"][4]["cs_update"] + dp["cs_update"]
                               + extreme["cs_update"]
                               + planned["cs_update"]
                               + planned_dense["cs_update"]
@@ -3685,7 +4190,7 @@ def main(argv=None) -> int:
                 # B1's CSR on the main, extreme, planned, serving and
                 # observed paths, prev for B2, B5's CSR in the sketch ops,
                 # and B3's cached dense-row CSRs
-                "bucket_csr": (out["3"][4]["bucket_csr"]
+                "bucket_csr": (out["3"][4]["bucket_csr"] + dp["bucket_csr"]
                                + extreme["bucket_csr"]
                                + planned["bucket_csr"]
                                + serving["bucket_csr"]
@@ -3708,6 +4213,9 @@ def main(argv=None) -> int:
         if row["name"] in lm_b3:
             # the LM path (11a, 11f, 11h), in the total above as well
             row["launches_lm_path"] = lm_b3[row["name"]]
+        if row["name"] in dp:
+            # the DP paths (12a-c), in the total above as well
+            row["launches_dp_path"] = dp[row["name"]]
     log(f"peak device memory of the whole run {max(peak, out['8'][4])} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -31,7 +31,7 @@ Leaf paths are the reference's strings: dict keys sorted and joined with
 * **fold**: ``fold_sketches`` halves every sketch leaf (Hokusai, paper
   §5), the state-side mirror of ``Plan.fold``.
 
-Placement on a new mesh (``restore(shardings=)``) waits for ROADMAP A13.
+Placement on a new mesh (``restore(shardings=)``) waits for ROADMAP A13c.
 """
 from __future__ import annotations
 
@@ -210,7 +210,7 @@ def restore(ckpt_dir, tree_like, step: Optional[int] = None,
     counter.  Shapes may differ from ``tree_like``'s (fold afterwards)."""
     if shardings is not None:
         raise NotImplementedError("placing a restore on a mesh (shardings=)"
-                                  " is not ported yet (ROADMAP A13)")
+                                  " is not ported yet (ROADMAP A13c)")
     step, d = _step_dir(ckpt_dir, step)
     manifest = json.loads((d / "manifest.json").read_text())
     by_path = {e["path"]: e for e in manifest["leaves"]}

@@ -7,7 +7,7 @@ interleave with dense-FFN layers (``moe_every=2``, dense d_ff=16384) —
 that is what makes the total ≈400 B with 17 B active, matching the
 "-400b-a17b" name; every-layer MoE would be ≈775 B.  ``fsdp=True`` is
 the reference's sharding of the master weights over its data axes; the
-port has no mesh yet (ROADMAP A13) and the MoE family waits for A14b.
+port has no mesh yet (ROADMAP A13c) and the MoE family waits for A14b.
 """
 from repro_torch.models.config import ArchConfig
 

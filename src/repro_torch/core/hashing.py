@@ -145,11 +145,11 @@ class HashFamily:
         taken mod the new width.  ``(h mod w) mod (w/2) == h mod (w/2)``
         for even ``w``, so ``S[:, :w/2] + S[:, w/2:]`` is the state this
         family addresses.  The hash layout's per-slab fold waits for the
-        sharded sketches (ROADMAP A13)."""
+        sharded sketches (ROADMAP A13b)."""
         if self.layout == "hash" and self.shards > 1:
             raise NotImplementedError(
                 "folding a hash-layout sharded family is not ported yet "
-                "(ROADMAP A13)")
+                "(ROADMAP A13b)")
         if self.width % 2 != 0:
             raise ValueError("fold requires an even sketch width")
         if (self.width // 2) % self.shards != 0:

@@ -11,8 +11,9 @@ rule, scale_by_lr(lr))`` presented in the reference's ``{"step", "m",
     params = apply_updates(params, updates)              # in place
 
 ``sparse_rows_adam`` is the same rule for one table fed ``{"ids",
-"rows"}`` gradients, applied with ``apply_sparse_updates``;
-``adam_sparse_rows`` and ``momentum_sparse_rows`` are the functional
+"rows"}`` gradients, applied with ``apply_sparse_updates``, and
+``sparse_rows_adam_dp`` its data-parallel form, applied with
+``apply_unique_updates``; ``adam_sparse_rows`` and ``momentum_sparse_rows`` are the functional
 steps on sketch states (the former also the only 3-pass
 ``strict_paper`` sparse path).  The legacy ``policy``/
 ``hparams.overrides`` dispatch is bridged onto a ``StoreTree`` by
@@ -354,6 +355,36 @@ def sparse_rows_adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
     return _with_lr(rule, lr)
 
 
+def sparse_rows_adam_dp(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
+                        eps: float = 1e-8, *, shape: Tuple[int, int],
+                        path: str = "sparse_rows", axis_name="data",
+                        hparams: SketchHParams = SketchHParams(),
+                        track_first_moment: bool = True,
+                        cleaning: Optional[CleaningSchedule] = None,
+                        error_feedback: bool = False,
+                        dir_clip: Optional[float] = 10.0,
+                        m_store=None, v_store=None,
+                        device="cuda") -> Transform:
+    """Data-parallel ``sparse_rows_adam``: the same store derivation and
+    ``{"step", "m", "v", "residual"}`` state layout as the reference, but
+    each replica of ``axis_name`` (a ``dp_axis``) calls ``update`` with
+    its own gradient shard; the collectives all-reduce the (depth, width,
+    dim) gradient sketches instead of the (k, d) rows
+    (``scale_by_adam_rows_dp``).  The emitted ``{"ids", "rows"}`` are at
+    the global unique ids, padded past the table's end: apply them with
+    ``apply_unique_updates``.  The step runs the plain sketch ops whatever
+    the backend (on a card every sketch write is B5), as the reference's
+    does."""
+    m_store, v_store = _sparse_rows_stores(
+        shape, path, hparams, track_first_moment=track_first_moment,
+        cleaning=cleaning, m_store=m_store, v_store=v_store)
+    rule = T.scale_by_adam_rows_dp(
+        b1=b1, b2=b2, eps=eps, m_store=m_store, v_store=v_store,
+        axis_name=axis_name, error_feedback=error_feedback,
+        dir_clip=dir_clip, device=device)
+    return _with_lr(rule, lr)
+
+
 def _sparse_rows_stores(shape: Tuple[int, int], path: str,
                         hparams: SketchHParams, *,
                         track_first_moment: bool,
@@ -423,6 +454,20 @@ def apply_sparse_updates(table: torch.Tensor, updates, *,
         return table.index_add_(0, updates["ids"].long(),
                                 updates["rows"].to(table.dtype))
     return dedup.index_add_rows(table, updates["ids"], updates["rows"])
+
+
+def apply_unique_updates(table: torch.Tensor, updates) -> torch.Tensor:
+    """Add row updates at sorted unique ids followed by padding ids past
+    the table's end (the data-parallel step's global id set), IN PLACE:
+    each live row gets ``table[id] + row`` once, as the reference's
+    ``table.at[ids].add`` in drop mode.  The padding is dropped on the
+    device, with no host sync: padding slots repeat the last live slot's
+    write (``dedup.live_slots``).  Returns ``table``."""
+    ids = updates["ids"]
+    n_live = (ids.to(torch.int64) < table.shape[0]).sum()
+    slot, target = dedup.live_slots(ids, n_live)
+    rows = updates["rows"].to(table.dtype)
+    return table.index_copy_(0, target, table[target] + rows[slot])
 
 
 def momentum_sparse_rows(spec: cs.SketchSpec, M, ids: torch.Tensor,

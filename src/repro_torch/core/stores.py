@@ -303,7 +303,7 @@ class _SketchStoreBase(AuxStore):
                       layout: str = "width") -> "_SketchStoreBase":
         """The same store laid out over ``shards`` slabs under ``layout``,
         as data: the factory fields and (when bound) the spec.  Running a
-        sharded store waits for ROADMAP A13."""
+        sharded store waits for ROADMAP A13b."""
         out = dataclasses.replace(self, shards=int(shards),
                                   shard_layout=layout)
         if self.spec is not None:

@@ -530,3 +530,55 @@ def scale_by_adam_rows(b1: float = 0.9, b2: float = 0.999,
                 {"step": step, "m": M, "v": V})
 
     return Transform(init, update)
+
+
+def scale_by_adam_rows_dp(b1: float = 0.9, b2: float = 0.999,
+                          eps: float = 1e-8, *, m_store, v_store,
+                          axis_name="data", error_feedback: bool = False,
+                          dir_clip: Optional[float] = 10.0,
+                          device="cuda") -> Transform:
+    """Data-parallel ``scale_by_adam_rows``: the same one-table (ids, rows)
+    contract, but each replica of ``axis_name`` (a ``dp_axis`` of
+    ``repro_torch.distributed.collectives``) calls ``update`` with its own
+    gradient shard and its own copy of the replicated state.  The
+    collectives move the (depth, width, dim) sketches and the int32 ids,
+    never the (k, d) rows (``distributed.sketched_reduce.dp_adam_rows``).
+    ``error_feedback`` adds the residual sketch of the 2nd moment's
+    cross-replica term (state key ``"residual"``, None without it).
+
+    Emits ``{"ids": global unique ids, "rows": direction}``, the direction
+    unscaled; compose with ``scale_by_lr`` and apply with
+    ``optimizers.apply_unique_updates`` (the padding ids are out of
+    range).  ``dir_clip``: the trust clamp on the direction (None
+    disables)."""
+    for name, store, kinds in (("m_store", m_store, ("sketch",)),
+                               ("v_store", v_store, ("countmin", "sketch"))):
+        if store is None:
+            continue
+        if store.kind not in kinds or store.spec is None:
+            raise ValueError(f"{name} must be a bound (explicit-spec) "
+                             f"{'/'.join(kinds)} store, got {store!r}")
+    spec_m = m_store.spec if m_store is not None else None
+    spec_v = v_store.spec
+
+    def init(params=None):
+        from repro_torch.distributed import sketched_reduce as sr
+        return {"step": _host_step(),
+                "m": m_store.init(device) if m_store is not None else None,
+                "v": v_store.init(device),
+                "residual": (sr.init_feedback(spec_v, device)
+                             if error_feedback else None)}
+
+    def update(grads, state, params=None):
+        from repro_torch.distributed import sketched_reduce as sr
+        step = state["step"] + 1
+        V_in = v_store.clean(state["v"], step)
+        out = sr.dp_adam_rows(
+            spec_m, spec_v, state["m"], V_in, grads["ids"], grads["rows"],
+            step, axis_name=axis_name, b1=b1, b2=b2, eps=eps,
+            residual=state["residual"], dir_clip=dir_clip)
+        return ({"ids": out.uids, "rows": out.rows},
+                {"step": step, "m": out.M, "v": out.V,
+                 "residual": out.residual})
+
+    return Transform(init, update)

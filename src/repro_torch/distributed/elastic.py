@@ -5,7 +5,7 @@ which the trainer records every step time into: an EWMA of each host's
 step time, flagging hosts slower than ``threshold`` times the fleet
 median.  The module's resize planning, elastic restore and recovery
 loop (``plan_resize``, ``elastic_restore``, ``recovery_loop``) need a
-mesh and wait for ROADMAP A13.
+mesh and wait for ROADMAP A13c.
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ class StragglerMonitor:
 def _needs_a13(name: str):
     raise NotImplementedError(
         f"{name} re-plans a mesh after losing devices, which is not "
-        f"ported yet (ROADMAP A13)")
+        f"ported yet (ROADMAP A13c)")
 
 
 def plan_resize(*args, **kwargs):

@@ -12,8 +12,9 @@ a manifest on resume), ``--store-backend`` ('auto': B3 on the sketched
 tables), ``--metrics-dir`` telemetry, ``--profile-dir`` traces and the
 ``[train] ...`` line.  ``--reduced`` swaps in the smoke-size config.  It
 runs on ``cuda`` unless ``--device cpu`` is given.  A recorded backend
-is kept as it is: on a card ``tiled`` is B3.  Data parallelism (``--dp``)
-and sharded sketches (``--sketch-shards``) wait for ROADMAP A13; the
+is kept as it is: on a card ``tiled`` is B3.  The distributed flags
+(``--dp``, ``--sketch-shards``, ``--error-feedback``) wait for ROADMAP
+A13c; the
 ``sparse_embedding``, ``extreme`` and ``serve-replay`` workloads for
 A14b.
 """
@@ -57,7 +58,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dp", action="store_true",
-                    help="data parallelism (ROADMAP A13)")
+                    help="data parallelism (ROADMAP A13c)")
     ap.add_argument("--workload", default="lm",
                     choices=["lm", "sparse_embedding", "extreme",
                              "serve-replay"],
@@ -68,10 +69,10 @@ def parser() -> argparse.ArgumentParser:
                     help="cell dtype of the planned sketches "
                          "(--aux-budget)")
     ap.add_argument("--sketch-shards", type=int, default=1,
-                    help="sharded sketches (ROADMAP A13)")
+                    help="sharded sketches (ROADMAP A13c)")
     ap.add_argument("--error-feedback", action="store_true",
                     help="residual sketch of the sketched all-reduce "
-                         "(ROADMAP A13)")
+                         "(ROADMAP A13c)")
     ap.add_argument("--aux-budget", default="",
                     help="optimizer aux-memory budget: bytes | '8.6GB' | "
                          "'0.85x' of dense | 'floor' | 'config'; the solved "
@@ -194,8 +195,8 @@ def main(argv=None) -> int:
     args = parser().parse_args(argv)
     if args.dp or args.sketch_shards > 1 or args.error_feedback:
         raise NotImplementedError(
-            "--dp, --sketch-shards > 1 and --error-feedback need the "
-            "distributed layer, which is not ported yet (ROADMAP A13)")
+            "--dp, --sketch-shards > 1 and --error-feedback are not "
+            "ported to the launcher yet (ROADMAP A13c)")
     if args.workload != "lm":
         raise NotImplementedError(
             f"--workload {args.workload} is not ported to this launcher "

@@ -15,7 +15,7 @@ Counterpart of ``repro.plan.plan``; a plan is what the allocator emits:
 * ``table()`` / ``shard_table()``: the human-readable tables.
 
 A plan with ``sketch_shards > 1`` loads, serialises and accounts here;
-executing one (``store_tree``, ``make_optimizer``) waits for ROADMAP A13.
+executing one (``store_tree``, ``make_optimizer``) waits for ROADMAP A13b.
 """
 from __future__ import annotations
 
@@ -139,7 +139,7 @@ class Plan:
         if self.sketch_shards > 1:
             raise NotImplementedError(
                 f"{what} of a plan with sketch_shards={self.sketch_shards} "
-                f"is not ported yet (ROADMAP A13); the port runs "
+                f"is not ported yet (ROADMAP A13b); the port runs "
                 f"single-device plans")
 
     def store_tree(self, cleaning=None) -> StoreTree:

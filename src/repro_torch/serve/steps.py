@@ -1,16 +1,17 @@
 """Serving steps of the port: model prefill/decode and serve-time sparse
 adaptation.
 
-Counterpart of ``repro.serve.steps``, single device:
+Counterpart of ``repro.serve.steps``:
 
   * ``make_serve_step`` - prefill and decode of a model family (the
     dense ``gqa`` transformer; the others wait for ROADMAP A14b), with
     ``cache_factory`` and ``ServeStep``; decode writes the KV cache in
     place;
-  * ``make_online_adapt_step`` - the single-device branch of the
-    reference's: the b1=0 CS-Adam of the training path (no first
-    moment), its 2nd moment in a Count-Min sketch, through the same
-    kernel backends (``tiled`` = B1 on the card);
+  * ``make_online_adapt_step`` - the b1=0 CS-Adam of the training path
+    (no first moment), its 2nd moment in a Count-Min sketch, through the
+    same kernel backends (``tiled`` = B1 on the card); with ``dp_axis``
+    a replicated fleet's replica, adapting one table from its own
+    feedback shard through the sketched all-reduce;
   * ``make_dense_adapt_step`` - the dense baseline arm, the same rule
     with full (n, d) moments (``train.extreme.dense_rows_adam``);
   * ``timed_adapt`` - an adapt step under the ``obs.adapt`` span, its
@@ -19,9 +20,9 @@ Counterpart of ``repro.serve.steps``, single device:
 
 Both adapt steps update the table and the optimizer state IN PLACE; a server
 that must keep a published generation intact hands them a copy
-(``serve.buffer.DoubleBufferedStore.begin_adapt``).  Replicated fleets
-(``dp_axis``) and the cache and param placements on a mesh
-(``ServeStep.cache_specs``, ``param_shardings``) wait for ROADMAP A13.
+(``serve.buffer.DoubleBufferedStore.begin_adapt``).  The cache and
+param placements on a mesh (``ServeStep.cache_specs``,
+``param_shardings``) wait for ROADMAP A13c.
 """
 from __future__ import annotations
 
@@ -66,11 +67,11 @@ class ServeStep:
 
     def cache_specs(self, mesh):
         raise NotImplementedError("placing the cache on a mesh is not "
-                                  "ported yet (ROADMAP A13)")
+                                  "ported yet (ROADMAP A13c)")
 
     def param_shardings(self, mesh):
         raise NotImplementedError("placing the params on a mesh is not "
-                                  "ported yet (ROADMAP A13)")
+                                  "ported yet (ROADMAP A13c)")
 
 
 def make_serve_step(cfg: ArchConfig, *, batch: int, max_seq: int
@@ -103,7 +104,7 @@ def make_online_adapt_step(n_rows: int, dim: int, *, lr=1e-4,
                            path: str = "serve_adapt",
                            v_store=None,
                            store_backend: Optional[str] = None,
-                           dp_axis: Optional[str] = None,
+                           dp_axis=None,
                            error_feedback: bool = False,
                            dir_clip=_DIR_CLIP_DEFAULT,
                            device="cuda"):
@@ -115,41 +116,58 @@ def make_online_adapt_step(n_rows: int, dim: int, *, lr=1e-4,
     ``adapt_fn`` updates the table and the sketch IN PLACE.
     ``store_backend`` pins the kernel backend, overriding both
     ``hparams.backend`` and the backend ``v_store`` carries.
-    ``error_feedback`` and ``dir_clip`` exist only on the replicated
-    path and are rejected without ``dp_axis``, as in the reference."""
-    if dp_axis is not None:
-        raise NotImplementedError(
-            "replicated serving (dp_axis) is not ported yet (ROADMAP A13)")
-    if error_feedback:
-        raise ValueError(
-            "error_feedback=True needs dp_axis: the residual sketch "
-            "accumulates the cross-replica 2nd-moment term of the "
-            "sketched all-reduce; a single-device adapt step has no such "
-            "term")
-    if dir_clip is not _DIR_CLIP_DEFAULT:
-        raise ValueError(
-            "dir_clip only applies to the dp_axis path (it trust-clamps "
-            "the direction against sketched-reduce estimator noise); the "
-            "single-device step would silently ignore it")
+
+    ``dp_axis``: a replicated fleet adapting ONE table from per-replica
+    feedback shards.  Each replica of that axis (``repro_torch.
+    distributed.collectives``) calls ``adapt_fn`` with its own shard and
+    its own copy of the table and state; the collective all-reduces the
+    (depth, width, dim) 2nd-moment gradient sketch and the int32 ids, so
+    every replica keeps the same table and sketch bits.
+    ``error_feedback`` and ``dir_clip`` (default 10 on this path) exist
+    only there and are rejected without ``dp_axis``, as in the
+    reference."""
     hp = hparams if hparams is not None else SketchHParams()
     if store_backend is not None:
         hp = dataclasses.replace(hp, backend=store_backend)
         if v_store is not None:
             v_store = dataclasses.replace(v_store, backend=store_backend)
-    opt = opt_lib.sparse_rows_adam(
-        lr, b2=b2, eps=eps, shape=(n_rows, dim), path=path, hparams=hp,
-        track_first_moment=False, v_store=v_store, device=device)
+    if dp_axis is None:
+        if error_feedback:
+            raise ValueError(
+                "error_feedback=True needs dp_axis: the residual sketch "
+                "accumulates the cross-replica 2nd-moment term of the "
+                "sketched all-reduce; a single-device adapt step has no "
+                "such term")
+        if dir_clip is not _DIR_CLIP_DEFAULT:
+            raise ValueError(
+                "dir_clip only applies to the dp_axis path (it trust-"
+                "clamps the direction against sketched-reduce estimator "
+                "noise); the single-device step would silently ignore it")
+        opt = opt_lib.sparse_rows_adam(
+            lr, b2=b2, eps=eps, shape=(n_rows, dim), path=path,
+            hparams=hp, track_first_moment=False, v_store=v_store,
+            device=device)
+        first_only = opt_lib.first_occurrence_only(hp, v_store, device)
+
+        def apply(table, updates):
+            return opt_lib.apply_sparse_updates(table, updates,
+                                                first_only=first_only)
+    else:
+        opt = opt_lib.sparse_rows_adam_dp(
+            lr, b2=b2, eps=eps, shape=(n_rows, dim), path=path,
+            axis_name=dp_axis, hparams=hp, track_first_moment=False,
+            error_feedback=error_feedback,
+            dir_clip=10.0 if dir_clip is _DIR_CLIP_DEFAULT else dir_clip,
+            v_store=v_store, device=device)
+        apply = opt_lib.apply_unique_updates
 
     def init_state_fn():
         return opt.init()
 
-    first_only = opt_lib.first_occurrence_only(hp, v_store, device)
-
     def adapt_fn(table, opt_state, ids, grad_rows):
         updates, opt_state = opt.update(
             {"ids": ids, "rows": grad_rows}, opt_state)
-        return opt_lib.apply_sparse_updates(
-            table, updates, first_only=first_only), opt_state
+        return apply(table, updates), opt_state
 
     return init_state_fn, adapt_fn
 

@@ -1,6 +1,6 @@
 """Extreme-classification workload: MACH + sampled softmax at table scale.
 
-Counterpart of ``repro.train.extreme``, single device.  The paper's
+Counterpart of ``repro.train.extreme``.  The paper's
 headline systems result (§7.3, Table 8) trains a 49.5M-class task with
 the β₁=0 Count-Min optimizer of Theorem 5.1 and spends the freed
 optimizer memory on a larger batch.  The step here builds that regime on
@@ -21,9 +21,10 @@ the port's sparse-rows path:
     planner's water-fill over both tables), or ``dense_rows_adam``, the
     memory-limited baseline in the same (ids, rows) calling convention.
 
-Tables and states are updated IN PLACE.  Data parallelism (``dp_axis``,
-``mesh``) waits for ROADMAP A13, the ``--workload extreme`` launcher for
-A14b.
+Tables and states are updated IN PLACE.  With ``dp_axis`` the step is
+one replica of a data-parallel axis (``sparse_rows_adam_dp``); placing
+it on a mesh (``mesh``) waits for ROADMAP A13c, the ``--workload
+extreme`` launcher for A14b.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch.core.hashing import mach_class_hash
 from repro_torch.core.optimizers import SketchHParams, _with_lr
 from repro_torch.core.transforms import Transform, _host_step
 from repro_torch.data import ExtremeConfig
+from repro_torch.distributed.collectives import as_axis
 from repro_torch.kernels import dedup
 from repro_torch.kernels.ops import bias_correction
 from repro_torch.kernels.ref import true_div
@@ -232,7 +234,7 @@ def extreme_grads(params, batch):
 def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
                       lr=1e-3, hparams: Optional[SketchHParams] = None,
                       plan=None, backend: Optional[str] = None,
-                      dp_axis: Optional[str] = None, mesh=None,
+                      dp_axis=None, mesh=None,
                       error_feedback: bool = False,
                       dir_clip: Optional[float] = 10.0, device="cuda"):
     """One MACH replica's train step over the (ids, rows) substrate.
@@ -254,8 +256,15 @@ def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
     overrides the kernel backend either way ('auto' when nothing names
     one: ``tiled`` on a card).  ``init_fn`` draws from a
     ``torch.Generator``; start from the reference's numbers with
-    ``repro_torch.convert``.  ``error_feedback`` and ``dir_clip`` belong
-    to the data-parallel step (ROADMAP A13)."""
+    ``repro_torch.convert``.
+
+    ``dp_axis``: each replica of that axis calls ``step_fn`` with its
+    shard of ``features`` and ``labels`` and the same ``negatives``; the
+    tables' gradients are reduced as sketches (``sparse_rows_adam_dp``
+    with ``error_feedback`` and ``dir_clip``), the loss and
+    ``dedup_ratio`` are ``pmean``'d and ``grad_norm`` is
+    ``sqrt(psum(gn²))`` over the replicas' rows.  ``mesh`` (placement on
+    a mesh) waits for ROADMAP A13c."""
     if optimizer not in EXTREME_OPTIMIZERS:
         raise ValueError(
             f"extreme workload optimizers are {EXTREME_OPTIMIZERS}; "
@@ -270,10 +279,12 @@ def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
             raise ValueError(
                 "dense_adam has no sketched all-reduce (moving dense (k, d)"
                 " rows is the cost DP avoids) — run it without dp_axis")
-    if dp_axis is not None or mesh is not None:
+    if mesh is not None:
         raise NotImplementedError(
-            "data-parallel extreme steps (dp_axis, mesh) are not ported yet "
-            "(ROADMAP A13); the port runs the single-device step")
+            "placing the extreme step on a mesh (mesh) is not ported yet "
+            "(ROADMAP A13c); a dp_axis step takes each replica's batch "
+            "shard as it is given")
+    axis = as_axis(dp_axis)
     hp = hparams if hparams is not None else SketchHParams(compression=100.0)
     if backend:
         hp = dataclasses.replace(hp, backend=backend)
@@ -300,6 +311,13 @@ def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
         if stores is not None:
             m_store, v_store, track = resolve_sparse_stores(stores, path,
                                                             shape)
+        if axis is not None:
+            opts[path] = opt_lib.sparse_rows_adam_dp(
+                lr, b1=b1, shape=shape, path=path, axis_name=axis,
+                hparams=hp, track_first_moment=track,
+                error_feedback=error_feedback, dir_clip=dir_clip,
+                m_store=m_store, v_store=v_store, device=device)
+            continue
         opts[path] = opt_lib.sparse_rows_adam(
             lr, b1=b1, shape=shape, path=path, hparams=hp,
             track_first_moment=track, m_store=m_store, v_store=v_store,
@@ -319,6 +337,13 @@ def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
                 dtype=torch.float32, device=device) * scale},
         }
 
+    if axis is None:
+        def apply(table, updates):
+            return opt_lib.apply_sparse_updates(table, updates,
+                                                first_only=first_only)
+    else:
+        apply = opt_lib.apply_unique_updates
+
     def step_fn(params, opt_state, batch):
         loss, grads = extreme_grads(params, batch)
         gn = torch.sqrt(sum(torch.sum(torch.square(g["rows"]))
@@ -326,13 +351,18 @@ def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
         with scope("obs.dedup"):
             dr = true_div(sum(unique_id_ratio(g["ids"])
                               for g in grads.values()), float(len(grads)))
+        if axis is not None:
+            # the norm over every replica's rows, the ratio their mean
+            with scope("obs.collective"):
+                loss = axis.pmean(loss)
+                gn = torch.sqrt(axis.psum(torch.square(gn)))
+                dr = axis.pmean(dr)
         new_state = {}
         for path, opt in opts.items():
             top, leaf = path.split("/")
             updates, new_state[path] = opt.update(grads[path],
                                                   opt_state[path])
-            opt_lib.apply_sparse_updates(params[top][leaf], updates,
-                                         first_only=first_only)
+            apply(params[top][leaf], updates)
         return params, new_state, {"loss": loss, "grad_norm": gn,
                                    "dedup_ratio": dr}
 

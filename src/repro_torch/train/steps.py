@@ -1,8 +1,13 @@
 """Train-step factories: the LM step (family dispatch + optimizer) and the
 step for one embedding/softmax table fed (ids, grad-rows).
 
-Counterpart of ``repro.train.steps``, single device: data parallelism,
-shardings and sharded sketches wait for ROADMAP A13.
+Counterpart of ``repro.train.steps``.  ``dp_axis`` runs a step body as
+one replica of a data-parallel axis (``repro_torch.distributed.
+collectives``): each replica calls ``step_fn`` with its own shard of the
+batch and its own copy of the replicated params and state, where the
+reference wraps the body in ``shard_map``.  Placement on a mesh
+(``TrainStep.shardings``) waits for ROADMAP A13c, sharded sketches for
+A13b.
 
 ``make_train_step(cfg, ...)`` returns a ``TrainStep``:
 
@@ -33,14 +38,9 @@ from repro_torch.core.optimizers import SketchHParams
 from repro_torch.core.partition import SketchPolicy, leaf_paths
 from repro_torch.core.transforms import (Transform, clip_by_global_norm,
                                          tree_map_with_path)
+from repro_torch.distributed.collectives import as_axis
 from repro_torch.models.config import ArchConfig
 from repro_torch.obs.profiling import scope
-
-
-def _needs_a13(what: str):
-    raise NotImplementedError(
-        f"{what}: not ported yet (ROADMAP A13); the port runs the "
-        f"single-device step")
 
 
 def family_module(cfg: ArchConfig):
@@ -115,7 +115,7 @@ class TrainStep:
     batch_template: Dict[str, Any]
     # the run's StoreTree when a memory plan executes
     store_tree: Any = None
-    dp_axis: Optional[str] = None
+    dp_axis: Any = None
 
     # -- shape trees (``meta`` tensors: no allocation) --------------------
     def params_shape(self):
@@ -126,7 +126,10 @@ class TrainStep:
         return self.optimizer.init(ps)
 
     def shardings(self, mesh, batch_specs):
-        _needs_a13("TrainStep.shardings (param/opt/batch placement on a mesh)")
+        raise NotImplementedError(
+            "TrainStep.shardings (param/opt/batch placement on a mesh) is "
+            "not ported yet (ROADMAP A13c): a dp_axis step takes each "
+            "replica's batch shard as it is given")
 
 
 def _grad_norm(grads) -> torch.Tensor:
@@ -140,7 +143,7 @@ def make_train_step(cfg: ArchConfig, *, optimizer: str = "cs_adam",
                     grad_clip: Optional[float] = 1.0,
                     cleaning: Optional[CleaningSchedule] = None,
                     kernel_backend: Optional[str] = None,
-                    plan=None, dp_axis: Optional[str] = None,
+                    plan=None, dp_axis=None,
                     device="cuda") -> TrainStep:
     """The LM train step in the reference's order: loss and gradient
     (``obs.grad``), ``clip_by_global_norm(grad_clip)``, ``opt.update``
@@ -149,9 +152,13 @@ def make_train_step(cfg: ArchConfig, *, optimizer: str = "cs_adam",
     gradient).  ``step_fn`` updates params and optimizer state IN
     PLACE.  ``init_fn(generator)`` draws the model's params on
     ``device`` from a ``torch.Generator`` (not ``jax.random``: start
-    both packages from one state with ``repro_torch.convert``)."""
-    if dp_axis is not None:
-        _needs_a13("the data-parallel train step (dp_axis)")
+    both packages from one state with ``repro_torch.convert``).
+
+    ``dp_axis``: each replica of that axis calls ``step_fn`` with its
+    shard of the batch; the loss and every gradient leaf are ``pmean``'d
+    (``obs.collective``) before the clip, so the metrics and the update
+    are the global batch's."""
+    axis = as_axis(dp_axis)
     mod = family_module(cfg)
     opt = build_optimizer(cfg, optimizer, lr=lr, cleaning=cleaning,
                           kernel_backend=kernel_backend, plan=plan)
@@ -170,11 +177,17 @@ def make_train_step(cfg: ArchConfig, *, optimizer: str = "cs_adam",
             grad_list = torch.autograd.grad(loss, [x for _p, x in leaves])
         by_path = {p: g for (p, _x), g in zip(leaves, grad_list)}
         grads = tree_map_with_path(lambda p, _x: by_path[p], params)
+        loss = loss.detach()
+        if axis is not None:
+            with scope("obs.collective"):
+                loss = axis.pmean(loss)
+                grads = tree_map_with_path(lambda _p, g: axis.pmean(g),
+                                           grads)
         grads = clip(grads)
         with scope("obs.kernel"):
             updates, opt_state = opt.update(grads, opt_state, params)
         params = opt_lib.apply_updates(params, updates)
-        metrics = {"loss": loss.detach().to(torch.float32),
+        metrics = {"loss": loss.to(torch.float32),
                    "grad_norm": _grad_norm(grads)}
         return params, opt_state, metrics
 
@@ -184,7 +197,7 @@ def make_train_step(cfg: ArchConfig, *, optimizer: str = "cs_adam",
     return TrainStep(cfg=cfg, init_fn=init_fn, step_fn=step_fn,
                      optimizer=opt, batch_template={},
                      store_tree=plan.store_tree() if plan is not None
-                     else None)
+                     else None, dp_axis=dp_axis)
 
 
 def resolve_sparse_stores(stores, path: str, shape: Tuple[int, int]):
@@ -231,7 +244,9 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
                                cleaning: Optional[CleaningSchedule] = None,
                                path: str = "sparse_embedding",
                                stores=None,
-                               dp_axis: Optional[str] = None,
+                               dp_axis=None,
+                               error_feedback: bool = False,
+                               dir_clip: Optional[float] = 10.0,
                                sketch_shards: int = 1,
                                device="cuda"):
     """Train step for the (ids, grad-rows) regime, where per-step work is
@@ -247,19 +262,42 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
     card, plain ``xla`` on the CPU).  ``init_fn`` draws from a
     ``torch.Generator``, so its numbers differ from the reference's
     ``jax.random.normal``; start both packages from one state with
-    ``repro_torch.convert.from_jax_state``."""
-    if dp_axis is not None or sketch_shards > 1:
-        _needs_a13("data-parallel and sharded sketch steps")
+    ``repro_torch.convert.from_jax_state``.
+
+    ``dp_axis``: data parallelism.  Each replica of that axis (a
+    ``ReplicaGroup`` thread or a ``ProcessGroupAxis`` process) calls
+    ``step_fn(table, opt_state, local_ids, local_rows)`` with its own
+    shard of the global batch and its own copy of the replicated table
+    and state; the collectives move the (depth, width, dim) gradient
+    sketches and the int32 ids (``sparse_rows_adam_dp``).  The 1st moment
+    evolves as the single-device step's on the concatenated batch; the
+    2nd misses the cross-replica square terms unless ``error_feedback``
+    adds the residual sketch, and ``dir_clip`` trust-clamps the direction
+    (None disables).  Both apply only with ``dp_axis``.  Sharded sketches
+    (``sketch_shards > 1``) wait for ROADMAP A13b."""
+    if sketch_shards > 1:
+        raise NotImplementedError(
+            "sharded sketches (sketch_shards > 1) are not ported yet "
+            "(ROADMAP A13b); the port runs replicated sketches")
     hp = hparams if hparams is not None else SketchHParams()
     m_store = v_store = None
     if stores is not None:
         # the tree's moment layout is authoritative
         m_store, v_store, track_first_moment = resolve_sparse_stores(
             stores, path, (n_rows, dim))
-    opt = opt_lib.sparse_rows_adam(
-        lr, b1=b1, b2=b2, eps=eps, shape=(n_rows, dim), path=path,
-        hparams=hp, track_first_moment=track_first_moment,
-        cleaning=cleaning, m_store=m_store, v_store=v_store, device=device)
+    if dp_axis is None:
+        opt = opt_lib.sparse_rows_adam(
+            lr, b1=b1, b2=b2, eps=eps, shape=(n_rows, dim), path=path,
+            hparams=hp, track_first_moment=track_first_moment,
+            cleaning=cleaning, m_store=m_store, v_store=v_store,
+            device=device)
+    else:
+        opt = opt_lib.sparse_rows_adam_dp(
+            lr, b1=b1, b2=b2, eps=eps, shape=(n_rows, dim), path=path,
+            axis_name=dp_axis, hparams=hp,
+            track_first_moment=track_first_moment, cleaning=cleaning,
+            error_feedback=error_feedback, dir_clip=dir_clip,
+            m_store=m_store, v_store=v_store, device=device)
 
     def init_fn(generator: torch.Generator) -> torch.Tensor:
         scale = 1.0 / torch.sqrt(torch.tensor(dim, dtype=torch.float32))
@@ -267,12 +305,18 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
                             dtype=torch.float32, device=device)
         return table * scale.to(device)
 
-    first_only = opt_lib.first_occurrence_only(hp, v_store, device)
+    if dp_axis is None:
+        first_only = opt_lib.first_occurrence_only(hp, v_store, device)
+
+        def apply(table, updates):
+            return opt_lib.apply_sparse_updates(table, updates,
+                                                first_only=first_only)
+    else:
+        apply = opt_lib.apply_unique_updates
 
     def step_fn(table, opt_state, ids, grad_rows):
         updates, opt_state = opt.update(
             {"ids": ids, "rows": grad_rows}, opt_state)
-        return opt_lib.apply_sparse_updates(
-            table, updates, first_only=first_only), opt_state
+        return apply(table, updates), opt_state
 
     return init_fn, step_fn, opt

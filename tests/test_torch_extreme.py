@@ -405,8 +405,9 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="moment layout"):
         tx.make_extreme_step(T_CFG, optimizer="cs_adam", device="cpu",
                              plan=tx.plan_extreme(T_CFG, "0.5x"))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tx.make_extreme_step(T_CFG, dp_axis="data", device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A13c"):
         tx.make_extreme_step(T_CFG, optimizer="cs_adam", mesh=object(),
                              device="cpu")
+    # dp_axis is ported (tests/test_torch_dp.py)
+    _, _, opts = tx.make_extreme_step(T_CFG, dp_axis="data", device="cpu")
+    assert all("residual" in o.init() for o in opts.values())

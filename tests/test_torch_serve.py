@@ -605,8 +605,8 @@ def test_dp_only_args_rejected_without_dp_axis():
         _make_step(dir_clip=5.0)
     with pytest.raises(ValueError, match="dir_clip"):
         _make_step(dir_clip=None)     # explicit None is still explicit
-    with pytest.raises(NotImplementedError, match="A13"):
-        _make_step(dp_axis="dp")
+    init_fn, _ = _make_step(dp_axis="dp", error_feedback=True, dir_clip=5.0)
+    assert init_fn()["residual"] is not None   # the dp path takes both
     _adapt_once(*_make_step())        # defaults stay valid
 
 

@@ -125,9 +125,10 @@ def test_store_tree_drives_the_step():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="A13"):
-        t_make(N, D, dp_axis="data", device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A13b"):
         t_make(N, D, sketch_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        t_adapt(N, D, dp_axis="data", device="cpu")
+    # data parallelism is ported (tests/test_torch_dp.py): the dp steps
+    # build, with the reference's {"step", "m", "v", "residual"} state
+    assert set(t_make(N, D, dp_axis="data", device="cpu")[2].init()) \
+        == {"step", "m", "v", "residual"}
+    assert t_adapt(N, D, dp_axis="data", device="cpu")[0]()["m"] is None

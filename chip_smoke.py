@@ -239,19 +239,55 @@ own line; any failure raises and the exit code is not 0:
      rtol 1e-5 of the single-device loss on the concatenated batch and
      its grad norm within rtol 1e-5 of sqrt(sum of the shards' squared
      single-device norms).  ``--phases 12`` runs phase 12 alone.
+ 13. sharded sketches (``sketch_shards``; the replicas are
+     ``ReplicaMesh`` threads on the one card, a model of the devices, not
+     a speed).  13a: ``make_sparse_embedding_step(sketch_shards=)`` on
+     phase 3's table, lr and 16,384 zipf ids a step, 10 steps on each of
+     a 1 x 4 grid (width and hash layouts, lw 2,560: 27,525,120 B a
+     moment a shard) and a 2 x 2 grid (width, with and without error
+     feedback, lw 5,120): every shard's slab exactly
+     ``spec.shard_nbytes()``, B5 exactly 5 (6) launches a replica-step
+     and no B1, the held loss falls, every replica's table and each
+     shard's slabs equal to the bit after every step, and the final
+     table and joined state against the DP step at the grid's dp on
+     stores stamped with the same sharding on the same general data
+     (printed); ms a step, the launches, three steps under the profiler
+     and one under ``set_sync_debug_mode("error")``; the reference's
+     byte models.  Under the dyadic protocol (β₁ = β₂ = 0.5, integer
+     rows, 3 steps) each grid equals that DP step to the bit after every
+     step.  B5's slab mode (``cs_update_slab``) at a 4-shard slab (3,
+     2,560, 896) and a step's deduplicated ids: bit-equal to its plain
+     version on a CPU copy, within atol 2e-5 of it on the card,
+     bit-equal on a collision-free batch, and timed (the kernels' line:
+     ``cs_update.slab_mode``).  13b: the llama4-maverick vocab pair
+     (202,048 x 5,120 each, ``CONFIG.aux_budget_bytes`` 48 MiB a device)
+     under ``plan_for_tables(..., shards=8)`` (the unsharded call must
+     raise ``InfeasibleBudgetError``), ``make_sparse_embedding_step(
+     path="tok_embed/table", stores=plan.store_tree(), sketch_shards=8)``
+     on a 1 x 8 grid for 5 steps of 4,096 zipf ids (cut from 16,384 for
+     device memory: 8 replicas each hold the 4,137,943,040 B table):
+     each shard's m + v bytes equal to the leaf's per-device share of
+     the plan, the replicas equal, the loss falls; ms a step, peak
+     memory.  13c: phase 9c's 200,000,000 B plan with
+     ``with_sharding(4, "width")`` equal to the unsharded plan to the
+     bit and ``with_sharding(4, "hash")`` equal to its ``xla`` witness to
+     the bit, 5 steps each on ``make_optimizer(backend="auto")``: B3
+     twice a step, the loss falls.  ``--phases 13`` runs phase 13 alone.
 
 Phase 2 also holds B3's bf16 branch to its plain version (bit-equal on a
 CPU copy; within one bf16 ulp plus the f32 collision envelope of the
 plain version on the card, whose index_add_ sums in atomic order), and
 phase 5 times it at the dense path's shapes.  Each phase prints its wall
 time.  It prints the kernels' JSON line (each path's launches beside the
-total: ``launches_dp_path`` is phase 12's), the
+total: ``launches_dp_path`` is phase 12's, ``launches_sharded_path``
+phase 13's), the
 card's name and power limit and, last, ``{"ok": true, "device":
 {...}}``.  With no card it prints no result and exits 2.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import shutil
 import statistics
@@ -4090,6 +4126,503 @@ def phase_dp_fleet(dev, seed: int):
     return totals
 
 
+# ---------------------------------------------------------------- phase 13
+SH_STEPS, SH_DYADIC_STEPS = 10, 3
+# (grid (dp, shards), layout, error feedback)
+SH_CASES = [((1, 4), "width", False), ((1, 4), "hash", False),
+            ((2, 2), "width", False), ((2, 2), "width", True)]
+# src/repro/configs/llama4_maverick_400b_a17b.py: the vocab pair
+L4_SHAPE, L4_SHARDS = (202_048, 5_120), 8
+L4_BATCH, L4_STEPS = 4_096, 5     # batch cut from 16,384: device memory
+SD_STEPS = 5
+
+
+def mesh_step(mesh, step_fn, tables, states, ids_np, rows_of, dev):
+    """One step of every replica of a (dp, shards) ``ReplicaMesh``: replica
+    r = d·shards + s takes the d-th dp shard of ``ids_np``, its rows
+    ``rows_of(r, ids)``, its own table and its shard's slabs.  Returns
+    (tables, states)."""
+    dp, sh = mesh.shape
+    shards = dp_shards(ids_np, dp, dev)
+    args = [(tables[r], states[r], shards[r // sh],
+             rows_of(r, shards[r // sh])) for r in range(mesh.size)]
+    outs = mesh.run(step_fn, args)
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
+def mesh_consistent(mesh, tables, states) -> bool:
+    """Every replica's table equal to the bit, and each shard's slabs
+    equal across the data axis."""
+    import torch
+    dp, sh = mesh.shape
+    return all(torch.equal(t, tables[0]) for t in tables[1:]) and all(
+        equal_trees(states[d * sh + s], states[s])
+        for d in range(1, dp) for s in range(sh))
+
+
+def sharded_pair(dev, grid, layout, fb, hp, **kw):
+    """(mesh, sharded step, its optimizer, (group, DP step, its
+    optimizer)): the sharded step on ``ReplicaMesh(grid)`` and its
+    witness, the DP step at the grid's dp on stores stamped with the same
+    sharding (the reference's pairing, ``tests/test_sharded.py``)."""
+    from repro_torch.core.stores import StoreTree
+    from repro_torch.distributed import ReplicaGroup, ReplicaMesh
+    from repro_torch.train.steps import (make_sparse_embedding_step,
+                                         sparse_embedding_stores)
+    dp, sh = grid
+    mesh = ReplicaMesh(grid, timeout=GROUP_TIMEOUT)
+    _, step, opt = make_sparse_embedding_step(
+        VOCAB, D_MODEL, hparams=hp, sketch_shards=sh, shard_layout=layout,
+        dp_axis=mesh.axis("data") if dp > 1 else None,
+        shard_axis=mesh.axis("model"), error_feedback=fb, device=dev, **kw)
+    m_st, v_st = sparse_embedding_stores(VOCAB, D_MODEL, hparams=hp,
+                                         sketch_shards=sh,
+                                         shard_layout=layout)
+    group = ReplicaGroup(dp, timeout=GROUP_TIMEOUT)
+    _, w_step, w_opt = make_sparse_embedding_step(
+        VOCAB, D_MODEL, hparams=hp,
+        stores=StoreTree(rules=(("sparse_embedding", m_st, v_st),)),
+        dp_axis=group, error_feedback=fb, device=dev, **kw)
+    return mesh, step, opt, (group, w_step, w_opt)
+
+
+def sharded_start(mesh, opt, table0):
+    """Each replica's own table and its shard's contiguous slabs."""
+    from repro_torch.distributed import shard_state
+    sh = mesh.shape[1]
+    full = opt.init()
+    return ([table0.clone() for _ in range(mesh.size)],
+            [shard_state(full, sh, r % sh) for r in range(mesh.size)])
+
+
+def witness_steps(group, w_step, w_opt, table0, batches, rows_fn, dev):
+    """The DP witness over ``batches``: returns the tables and states
+    after each step."""
+    tables = [table0.clone() for _ in range(group.size)]
+    states = [w_opt.init() for _ in range(group.size)]
+    out = []
+    for b in batches:
+        tables, states = dp_round(group, w_step, tables, states,
+                                  dp_shards(b, group.size, dev),
+                                  lambda r, ids: rows_fn(tables, r, ids))
+        out.append((tables[0], states[0]))
+    return out
+
+
+def joined_equal(states, sh, want) -> tuple:
+    """(equal to the bit, largest |difference|) of the shards' joined
+    state against a full state, m, v and the residual."""
+    import torch
+    from repro_torch.distributed import join_slabs
+    got = join_slabs(states[:sh])
+    same, err = True, 0.0
+    for k in ("m", "v", "residual"):
+        if (got[k] is None) != (want[k] is None):
+            return False, float("inf")
+        if got[k] is not None:
+            same &= torch.equal(got[k], want[k])
+            err = max(err, float((got[k] - want[k]).abs().max()))
+    return same, err
+
+
+def sharded_byte_line(hp, k: int) -> str:
+    """The reference's byte models at 13a's shapes."""
+    from repro_torch.distributed import sketched_reduce as sr
+    m = hp.spec("t", (VOCAB, D_MODEL), signed=True)
+    v = hp.spec("t", (VOCAB, D_MODEL), signed=False)
+    parts = [f"replicated all-reduce (12a) {sr.sketched_reduce_bytes(m, v)}"
+             f" B a replica"]
+    for sh in (4, 2):
+        ms, vs = (dataclasses.replace(s, shards=sh) for s in (m, v))
+        parts.append(
+            f"{sh} shards: gradient-slab psum "
+            f"{sr.sharded_reduce_bytes(ms, vs)} B a device "
+            f"({sr.sharded_reduce_bytes(ms, vs, vs)} with feedback), "
+            f"routing psum of the 4 query groups at {k} ids "
+            f"{sr.routing_bytes(k, ms, vs, vs, ms)} B")
+    return "; ".join(parts)
+
+
+def phase_sharded(dev, seed: int):
+    """Phase 13a: ``make_sparse_embedding_step(sketch_shards=)`` at full
+    width (see the module docstring).  Returns (the launches of the
+    sharded steps, B5's slab-mode row for the kernels' line)."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.train.steps import (make_sparse_embedding_step,
+                                         sparse_embedding_stores)
+    hp = SketchHParams()
+    init_fn, _, _ = make_sparse_embedding_step(VOCAB, D_MODEL, hparams=hp,
+                                               device=dev)
+    table0 = init_fn(torch.Generator(device=dev).manual_seed(seed))
+    target = init_fn(torch.Generator(device=dev).manual_seed(seed + 1))
+    batches = zipf_ids(np.random.RandomState(seed), SH_STEPS)
+    held = torch.from_numpy(batches[0]).to(dev).long()
+
+    def loss_on(tab) -> float:
+        rows = tab[held] - target[held]
+        return float(torch.mean(rows * rows))
+
+    def rows_fn(tables, r, ids):
+        return tables[r][ids.long()] - target[ids.long()]
+
+    log(f"phase 13a: table {VOCAB} x {D_MODEL}, SketchHParams() (m, v "
+        f"{hp.spec('t', (VOCAB, D_MODEL), signed=True).shape}), lr {LR}, "
+        f"{BATCH * SEQ} zipf({ZIPF_A}) ids a step cut into the dp shards; "
+        f"replicas are ReplicaMesh threads on one card (a model of the "
+        f"devices, not a speed)")
+    log(f"phase 13a: byte models: "
+        f"{sharded_byte_line(hp, BATCH * SEQ)}")
+    totals, ms_by_case = {}, {}
+    for grid, layout, fb in SH_CASES:
+        dp, sh = grid
+        tag = f"phase 13a: {dp} x {sh} {layout} feedback={fb}"
+        mesh, step, opt, witness = sharded_pair(dev, grid, layout, fb, hp,
+                                                lr=LR)
+        m_st, v_st = sparse_embedding_stores(VOCAB, D_MODEL, hparams=hp,
+                                             sketch_shards=sh,
+                                             shard_layout=layout)
+        tables, states = sharded_start(mesh, opt, table0)
+        want = {"m": m_st.spec.shard_nbytes(), "v": v_st.spec.shard_nbytes(),
+                "residual": v_st.spec.shard_nbytes() if fb else None}
+        got = {k: None if states[0][k] is None else states[0][k].nbytes
+               for k in want}
+        log(f"{tag}: lw {v_st.spec.local_width}; a shard's slab bytes "
+            f"{got} (spec.shard_nbytes() {want})")
+        if got != want or any(tuple(st["v"].shape) != v_st.spec.slab_shape
+                              for st in states):
+            raise AssertionError(f"{tag}: a slab is not spec.shard_nbytes()")
+        before = loss_on(tables[0])
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, consistent = [], True
+        for ids_np in batches:
+            t0 = time.perf_counter()
+            tables, states = mesh_step(
+                mesh, step, tables, states, ids_np,
+                lambda r, ids: rows_fn(tables, r, ids), dev)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            consistent &= mesh_consistent(mesh, tables, states)
+        counts = read_counts()
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        after = loss_on(tables[0])
+        per_b5 = counts["cs_update"] / SH_STEPS / mesh.size
+        ms_by_case[(grid, layout, fb)] = statistics.median(ms[1:])
+        log(f"{tag}: {SH_STEPS} steps: ms/step median of steps "
+            f"2..{SH_STEPS} {statistics.median(ms[1:])} (first {ms[0]}); "
+            f"all {ms}")
+        log(f"{tag}: launches {counts}; B5 {per_b5} a replica-step; loss on "
+            f"the first batch's ids {before} -> {after}; every replica's "
+            f"table and each shard's slabs equal at every step: "
+            f"{consistent}")
+        w = witness_steps(*witness, table0, batches, rows_fn, dev)[-1]
+        same, err = joined_equal(states, sh, w[1])
+        same &= torch.equal(tables[0], w[0])
+        err = max(err, float((tables[0] - w[0]).abs().max()))
+        log(f"{tag}: against the DP step at dp {dp} on the same general "
+            f"data: table and state equal to the bit {same} (largest "
+            f"difference {err})")
+        want_b5 = 6 if fb else 5
+        if per_b5 != want_b5 or counts["cs_adam_tiled"]:
+            raise AssertionError(f"{tag}: B5 {per_b5} a replica-step, not "
+                                 f"{want_b5} (dedup, the gradient slabs, M "
+                                 f"and V), or B1 launched")
+        if not consistent:
+            raise AssertionError(f"{tag}: the replicas' bits differ")
+        if not after < before or not torch.isfinite(tables[0]).all():
+            raise AssertionError(f"{tag}: the loss did not fall, or the "
+                                 f"table is not finite")
+        if grid == (2, 2) and fb:
+            more = zipf_ids(np.random.RandomState(seed + 33), 4)
+
+            def three():
+                nonlocal tables, states
+                for ids_np in more[:3]:
+                    tables, states = mesh_step(
+                        mesh, step, tables, states, ids_np,
+                        lambda r, ids: rows_fn(tables, r, ids), dev)
+                torch.cuda.synchronize()
+            profile_steps(f"{tag} (profile)", three,
+                          statistics.median(ms[1:]), n=3, by_name=True)
+            shards = dp_shards(more[3], dp, dev)
+            rows = [rows_fn(tables, r, shards[r // sh])
+                    for r in range(mesh.size)]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs = mesh.run(step, [(tables[r], states[r], shards[r // sh],
+                                        rows[r]) for r in range(mesh.size)])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            del outs
+            log(f"{tag}: one step of the 4 replicas under "
+                f"set_sync_debug_mode('error'): no host-device "
+                f"synchronisation")
+        del tables, states, w
+    phase_sharded_dyadic(dev, hp, table0, seed)
+    slab_row = phase_slab_scatter(dev, hp, batches[-1], seed)
+    return totals, slab_row
+
+
+def phase_sharded_dyadic(dev, hp, table0, seed: int) -> None:
+    """13a's binding check: β₁ = β₂ = 0.5 and integer rows in [-3, 3]
+    make every sum exact, so each case's sharded step must equal the DP
+    step at its dp to the bit, after every step."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    batches = zipf_ids(np.random.RandomState(seed + 13), SH_DYADIC_STEPS)
+    rows = [torch.randint(-3, 4, (BATCH * SEQ, D_MODEL), generator=gen,
+                          device=dev).to(torch.float32) for _ in batches]
+    for grid, layout, fb in SH_CASES:
+        dp, sh = grid
+        mesh, step, opt, (group, w_step, w_opt) = sharded_pair(
+            dev, grid, layout, fb, hp, lr=LR, b1=0.5, b2=0.5)
+        tables, states = sharded_start(mesh, opt, table0)
+        w_tables = [table0.clone() for _ in range(dp)]
+        w_states = [w_opt.init() for _ in range(dp)]
+        k = BATCH * SEQ // dp
+        same_all, err_all = True, 0.0
+        for b, g in zip(batches, rows):
+            tables, states = mesh_step(
+                mesh, step, tables, states, b,
+                lambda r, ids: g[(r // sh) * k:(r // sh + 1) * k], dev)
+            w_tables, w_states = dp_round(
+                group, w_step, w_tables, w_states, dp_shards(b, dp, dev),
+                lambda r, ids: g[r * k:(r + 1) * k])
+            same, err = joined_equal(states, sh, w_states[0])
+            same_all &= same and torch.equal(tables[0], w_tables[0]) \
+                and mesh_consistent(mesh, tables, states)
+            err_all = max(err_all, err)
+        log(f"phase 13a (dyadic): {dp} x {sh} {layout} feedback={fb}: "
+            f"{SH_DYADIC_STEPS} steps, the sharded table and state equal to "
+            f"the DP step's at dp {dp} to the bit after every step: "
+            f"{same_all} (largest difference {err_all})")
+        if not same_all:
+            raise AssertionError("the sharded step is not the DP step under "
+                                 "the dyadic protocol")
+        del tables, states, w_tables, w_states
+
+
+def phase_slab_scatter(dev, hp, ids_np, seed: int) -> dict:
+    """B5 in slab mode (``cs_update_slab``) against its plain version at
+    13a's shapes: a 4-shard slab (3, 2,560, 896) of the M sketch and the
+    deduplicated ids of a step.  Bit-equal on a collision-free batch,
+    within atol 2e-5 of the plain version on the card under collisions
+    and bit-equal to it on a CPU copy; then timed.  Returns the
+    ``slab_mode`` entry of B5's row in the kernels' line."""
+    import torch
+    from repro_torch.core import sketch as cs
+    from repro_torch.kernels import dedup as dd, ref
+    from repro_torch.kernels.cs_update import cs_update_slab
+    spec = dataclasses.replace(
+        hp.spec("sparse_embedding", (VOCAB, D_MODEL), signed=True), shards=4)
+    depth, lw, d = spec.slab_shape
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    ids = torch.from_numpy(ids_np).to(dev)
+    batch = dd.dedup_rows(ids, torch.zeros((ids.numel(), d), device=dev))
+    uids, k = batch.unique_ids, batch.unique_ids.numel()
+    # the step's slab deltas are zero at the padding slots (int32 max,
+    # which all hash to one bucket)
+    rows = torch.randn((k, d), generator=gen, device=dev) \
+        * batch.mask[:, None]
+    signs = spec.family.sign(uids)
+    err, cpu_same = 0.0, True
+    for s in range(spec.shards):
+        local, _ = cs._slab_buckets(spec, uids, s)
+        start = torch.randn(spec.slab_shape, generator=gen, device=dev)
+        got = cs_update_slab(start.clone(), local, signs, rows)
+        plain = ref.cs_update_slab_ref(start.clone(), local, signs, rows)
+        host = ref.cs_update_slab_ref(start.cpu(), local.cpu(), signs.cpu(),
+                                      rows.cpu())
+        err = max(err, float((got - plain).abs().max()))
+        cpu_same &= torch.equal(got.cpu(), host)
+    n_free = min(2048, lw + 1)
+    free = torch.stack([torch.randperm(lw + 1, generator=gen,
+                                       device=dev)[:n_free]
+                        for _ in range(depth)]).to(torch.int32)
+    x = torch.randn((n_free, d), generator=gen, device=dev)
+    start = torch.randn(spec.slab_shape, generator=gen, device=dev)
+    free_same = torch.equal(cs_update_slab(start.clone(), free, None, x),
+                            ref.cs_update_slab_ref(start.clone(), free, None,
+                                                   x))
+    log(f"phase 13a: B5 slab mode at slab {spec.slab_shape}, "
+        f"{int(batch.n_unique)} unique ids of {ids.numel()} (padded to "
+        f"{k}, zero rows): every shard bit-equal to the "
+        f"plain version on a CPU copy {cpu_same}, max_abs_err {err} against "
+        f"it on the card; a collision-free batch ({n_free} distinct local "
+        f"buckets a row, some of them the drop bucket) bit-equal {free_same}")
+    if not (cpu_same and free_same and err <= COLLISION_ATOL):
+        raise AssertionError("B5's slab mode disagrees with its plain "
+                             "version")
+    local, own = cs._slab_buckets(spec, uids, 0)
+    work = torch.randn(spec.slab_shape, generator=gen, device=dev)
+    ms = cuda_ms(lambda: cs_update_slab(work, local, signs, rows), reps=20,
+                 warmup=3)
+    plain_ms = cuda_ms(lambda: ref.cs_update_slab_ref(work, local, signs,
+                                                      rows), reps=5)
+    flat = work.view(depth * lw, d)
+    idx = (local.long() + lw * torch.arange(depth, device=dev)[:, None])[own]
+    vals = (signs[:, :, None] * rows[None])[own]
+    library_ms = cuda_ms(lambda: flat.index_add_(0, idx, vals), reps=20,
+                         warmup=3)
+    needed = int(own.any(0).sum())
+    touched = int(torch.unique(idx).numel())
+    nbytes = 4 * (needed * d + 2 * touched * d + 2 * depth * k)
+    row = dict(shape=list(spec.slab_shape), k=k,
+               k_unique=int(batch.n_unique), owned_items=int(own.sum()),
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=library_ms, bytes=nbytes)
+    log(f"phase 13a: B5 slab mode, shard 0 of 4: {ms} ms as called (its "
+        f"CSR over {lw + 1} buckets built in the call), plain {plain_ms} "
+        f"ms, index_add_ of the {int(own.sum())} owned rows already "
+        f"compacted {library_ms} ms, bound {row['bound_ms']} ms ({nbytes} B "
+        f"at 3.35 TB/s: {needed} item rows read, {touched} slab rows read "
+        f"and written, buckets and signs)")
+    return row
+
+
+def phase_sharded_llama4(dev, seed: int):
+    """Phase 13b: the llama4-maverick vocab table under its own 8-shard
+    plan (see the module docstring).  Returns the launches of its
+    steps."""
+    import torch
+    from repro_torch.configs.llama4_maverick_400b_a17b import CONFIG
+    from repro_torch.distributed import ReplicaMesh
+    from repro_torch.plan import InfeasibleBudgetError, plan_for_tables
+    from repro_torch.distributed import shard_state
+    from repro_torch.train.steps import make_sparse_embedding_step
+    tables_spec = {"tok_embed/table": L4_SHAPE, "lm_head/table": L4_SHAPE}
+    budget = CONFIG.aux_budget_bytes
+    try:
+        plan_for_tables(tables_spec, budget, optimizer="cs_adam")
+    except InfeasibleBudgetError as e:
+        log(f"phase 13b: plan_for_tables(llama4 vocab pair, {budget} B, "
+            f"cs_adam) without shards: InfeasibleBudgetError (floor "
+            f"{e.floor} B)")
+    else:
+        raise AssertionError("the unsharded llama4 plan did not refuse")
+    plan = plan_for_tables(tables_spec, budget, optimizer="cs_adam",
+                           shards=L4_SHARDS)
+    for line in plan.shard_table().splitlines():
+        log(f"phase 13b:   {line}")
+    n, d = L4_SHAPE
+    mesh = ReplicaMesh((1, L4_SHARDS), timeout=GROUP_TIMEOUT)
+    init_fn, step, opt = make_sparse_embedding_step(
+        n, d, lr=LR, path="tok_embed/table", stores=plan.store_tree(),
+        sketch_shards=L4_SHARDS, shard_axis=mesh.axis("model"), device=dev)
+    leaf = plan.leaf("tok_embed/table")
+    share = -(-leaf.bytes_m // L4_SHARDS) + -(-leaf.bytes_v // L4_SHARDS)
+    full = opt.init()
+    states = [shard_state(full, L4_SHARDS, s) for s in range(L4_SHARDS)]
+    del full
+    got = [st["m"].nbytes + st["v"].nbytes for st in states]
+    log(f"phase 13b: tok_embed/table m {tuple(states[0]['m'].shape)} and v "
+        f"{tuple(states[0]['v'].shape)} a shard: {got[0]} B, the plan's "
+        f"per-device share of the leaf {share} B (per device in all "
+        f"{plan.predicted_aux_bytes_per_device} B of {budget} B)")
+    if any(g != share for g in got):
+        raise AssertionError("a shard's m + v bytes are not the plan's "
+                             "per-device share")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    table = init_fn(gen)
+    tables = [table] + [table.clone() for _ in range(L4_SHARDS - 1)]
+    del table
+    rng = np.random.RandomState(seed + 13)
+    batches = [((rng.zipf(ZIPF_A, L4_BATCH) - 1) % n).astype(np.int32)
+               for _ in range(L4_STEPS)]
+    held = torch.from_numpy(batches[0]).to(dev).long()
+
+    def loss_on(tab) -> float:        # regression of the rows to zero
+        return float(torch.mean(tab[held] * tab[held]))
+
+    log(f"phase 13b: {L4_SHARDS} replicas (ReplicaMesh threads), each "
+        f"holding the {n} x {d} table ({n * d * 4} B) as the reference's "
+        f"replicated table spec does; {L4_BATCH} zipf({ZIPF_A}) ids a step "
+        f"(cut from 16,384: the stacked query groups and their psum "
+        f"copies in 8 threads beside 8 tables would pass 80 GB); rows = "
+        f"the table's rows (the loss pulls them to zero); lr {LR}")
+    before = loss_on(tables[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, consistent = [], True
+    for ids_np in batches:
+        t0 = time.perf_counter()
+        tables, states = mesh_step(mesh, step, tables, states, ids_np,
+                                   lambda r, ids: tables[r][ids.long()],
+                                   dev)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        consistent &= mesh_consistent(mesh, tables, states)
+    counts = read_counts()
+    after = loss_on(tables[0])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 13b: {L4_STEPS} steps: ms/step median of steps "
+        f"2..{L4_STEPS} {statistics.median(ms[1:])} (first {ms[0]}); all "
+        f"{ms}; launches {counts}; peak device memory {peak} B; loss on "
+        f"the first batch's ids {before} -> {after}; replicas equal "
+        f"{consistent}")
+    if not (consistent and after < before
+            and torch.isfinite(tables[0]).all()):
+        raise AssertionError("the llama4 sharded step's replicas differ, "
+                             "or its loss did not fall")
+    del tables, states
+    return counts
+
+
+def phase_sharded_dense(dev, task):
+    """Phase 13c: phase 9c's plan sharded, on the dense path (see the
+    module docstring).  Returns the launches of the sharded runs."""
+    import torch
+    from repro_torch.plan import plan_for_params
+    plan = plan_for_params(softmax_shapes(), DENSE_BUDGET)
+    held0, _ = task.held_fresh()
+    runs = {}
+    for name, p, backend in (
+            ("unsharded", plan, "auto"),
+            ("width", plan.with_sharding(4, "width"), "auto"),
+            ("hash", plan.with_sharding(4, "hash"), "auto"),
+            ("hash xla", plan.with_sharding(4, "hash"), "xla")):
+        torch.cuda.synchronize()
+        reset_counts()
+        params, state, losses, ms, _s, _d = task.run(
+            p.make_optimizer(DENSE_LR, backend=backend), DENSE_LR,
+            steps=SD_STEPS)
+        counts = read_counts()
+        held, _ = task.held_fresh(params)
+        spec = p.specs()["tok_embed/table"]["v"]
+        runs[name] = (params, state, counts)
+        log(f"phase 13c: {name} ({spec.shards} x {spec.layout}, v "
+            f"{spec.shape}), backend {backend}: {SD_STEPS} steps, ms/step "
+            f"median of steps 2..{SD_STEPS} {statistics.median(ms[1:])}; "
+            f"loss on batch 0's tokens {held0} -> {held}; per-step "
+            f"{losses}; launches {counts}")
+        if backend == "auto" and counts["cs_ema_tiled"] != 2 * SD_STEPS:
+            raise AssertionError(f"B3 launched {counts['cs_ema_tiled']} "
+                                 f"times, not {2 * SD_STEPS}")
+        if not held < held0:
+            raise AssertionError(f"phase 13c {name}: the loss did not fall")
+    for a, b in (("width", "unsharded"), ("hash", "hash xla")):
+        same = leaves_equal(runs[a][0], runs[b][0]) \
+            and leaves_equal(runs[a][1], runs[b][1])
+        log(f"phase 13c: {a} against {b}: params and state equal to the "
+            f"bit {same}")
+        if not same:
+            raise AssertionError(f"phase 13c: {a} differs from {b}")
+    differs = not torch.equal(runs["hash"][1]["v"]["tok_embed"]["table"],
+                              runs["width"][1]["v"]["tok_embed"]["table"])
+    log(f"phase 13c: the hash layout's V differs from the width layout's "
+        f"(it hashes otherwise): {differs}")
+    return {name: runs["width"][2][name] + runs["hash"][2][name]
+            for name in runs["width"][2]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4143,6 +4676,11 @@ def main(argv=None) -> int:
         ("12", lambda: (phase_dp(dev, args.seed),
                         phase_dp_nccl(dev, args.seed),
                         phase_dp_fleet(dev, args.seed))),
+        ("13", lambda: (phase_sharded(dev, args.seed),
+                        phase_sharded_llama4(dev, args.seed),
+                        phase_sharded_dense(
+                            dev, out["6"][1] if "6" in out
+                            else SoftmaxTask(dev, args.seed)))),
     ]
     if args.phases:
         keep = args.phases.split(",")
@@ -4166,6 +4704,11 @@ def main(argv=None) -> int:
     # 12a-c's DP steps: the sparse, serve, extreme and LM dp_axis paths
     dp = {name: sum(part[name] for part in out["12"])
           for name in ("cs_update", "bucket_csr", "cs_ema_tiled")}
+    # 13a-c's sharded steps: the slabbed sparse step, the llama4 vocab
+    # plan and the sharded plans' dense path
+    (sh_a, slab_row), sh_b, sh_c = out["13"]
+    sharded = {name: sh_a[name] + sh_b[name] + sh_c[name]
+               for name in ("cs_update", "bucket_csr", "cs_ema_tiled")}
     launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
                                   + extreme["cs_adam_tiled"]
                                   + planned["cs_adam_tiled"]
@@ -4175,12 +4718,14 @@ def main(argv=None) -> int:
                 "cs_ema_tiled": (out["6"][0]["cs_ema_tiled"]
                                  + planned_dense["cs_ema_tiled"]
                                  + lm_b3["cs_ema_tiled"]
-                                 + dp["cs_ema_tiled"]),
+                                 + dp["cs_ema_tiled"]
+                                 + sharded["cs_ema_tiled"]),
                 "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"],
                 # the main, extreme, planned, serving, observed and DP
                 # paths' dedup sums and sketch writes, and the sketch
                 # ops' update
                 "cs_update": (out["3"][4]["cs_update"] + dp["cs_update"]
+                              + sharded["cs_update"]
                               + extreme["cs_update"]
                               + planned["cs_update"]
                               + planned_dense["cs_update"]
@@ -4191,6 +4736,7 @@ def main(argv=None) -> int:
                 # observed paths, prev for B2, B5's CSR in the sketch ops,
                 # and B3's cached dense-row CSRs
                 "bucket_csr": (out["3"][4]["bucket_csr"] + dp["bucket_csr"]
+                               + sharded["bucket_csr"]
                                + extreme["bucket_csr"]
                                + planned["bucket_csr"]
                                + serving["bucket_csr"]
@@ -4216,6 +4762,11 @@ def main(argv=None) -> int:
         if row["name"] in dp:
             # the DP paths (12a-c), in the total above as well
             row["launches_dp_path"] = dp[row["name"]]
+        if row["name"] in sharded:
+            # the sharded paths (13a-c), in the total above as well
+            row["launches_sharded_path"] = sharded[row["name"]]
+        if row["name"] == "cs_update":
+            row["slab_mode"] = slab_row
     log(f"peak device memory of the whole run {max(peak, out['8'][4])} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -144,12 +144,11 @@ class HashFamily:
         """The family after a Hokusai fold: width halved, the same hash
         taken mod the new width.  ``(h mod w) mod (w/2) == h mod (w/2)``
         for even ``w``, so ``S[:, :w/2] + S[:, w/2:]`` is the state this
-        family addresses.  The hash layout's per-slab fold waits for the
-        sharded sketches (ROADMAP A13b)."""
-        if self.layout == "hash" and self.shards > 1:
-            raise NotImplementedError(
-                "folding a hash-layout sharded family is not ported yet "
-                "(ROADMAP A13b)")
+        family addresses.  The hash layout's buckets are ``owner·lw + h
+        mod lw``, and ``lw`` halves with the width, so the fold is per
+        slab and never crosses a shard (``sketch.fold``); the width
+        layout's classic fold pairs columns ``shards/2`` slabs apart.
+        Both need the halved width to divide into the shards."""
         if self.width % 2 != 0:
             raise ValueError("fold requires an even sketch width")
         if (self.width // 2) % self.shards != 0:

@@ -385,6 +385,47 @@ def sparse_rows_adam_dp(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
     return _with_lr(rule, lr)
 
 
+def sparse_rows_adam_sharded(lr: Schedule, b1: float = 0.9,
+                             b2: float = 0.999, eps: float = 1e-8, *,
+                             shape: Tuple[int, int],
+                             path: str = "sparse_rows", shards: int,
+                             shard_layout: str = "width",
+                             shard_axis="model", dp_axis=None,
+                             hparams: SketchHParams = SketchHParams(),
+                             track_first_moment: bool = True,
+                             cleaning: Optional[CleaningSchedule] = None,
+                             error_feedback: bool = False,
+                             dir_clip: Optional[float] = 10.0,
+                             m_store=None, v_store=None,
+                             device="cuda") -> Transform:
+    """``sparse_rows_adam_dp`` with the sketch state sharded over
+    ``shard_axis`` into ``shards`` width slabs: the same store derivation
+    and ``{"step", "m", "v", "residual"}`` layout, the state given to
+    ``update`` one replica's slabs (``scale_by_adam_rows_sharded``).
+    ``shard_layout`` 'width' leaves the hashing as it is (the state is
+    byte-identical to the unsharded run's); 'hash' sends all of an id's
+    rows to one owning shard.  Explicit stores are re-stamped with the
+    requested sharding (``with_sharding``), so planner StoreTrees
+    compose."""
+    m_store, v_store = _sparse_rows_stores(
+        shape, path, hparams, track_first_moment=track_first_moment,
+        cleaning=cleaning, m_store=m_store, v_store=v_store)
+    if v_store.spec is None or v_store.spec.shards != shards \
+            or v_store.spec.layout != shard_layout:
+        v_store = v_store.with_sharding(shards, shard_layout)
+    if m_store is not None and (
+            m_store.spec is None or m_store.spec.shards != shards
+            or m_store.spec.layout != shard_layout):
+        m_store = m_store.with_sharding(shards, shard_layout)
+    backend = getattr(v_store, "backend", None) or hparams.backend
+    rule = T.scale_by_adam_rows_sharded(
+        b1=b1, b2=b2, eps=eps, m_store=m_store, v_store=v_store,
+        shard_axis=shard_axis, dp_axis=dp_axis,
+        error_feedback=error_feedback, dir_clip=dir_clip, backend=backend,
+        device=device)
+    return _with_lr(rule, lr)
+
+
 def _sparse_rows_stores(shape: Tuple[int, int], path: str,
                         hparams: SketchHParams, *,
                         track_first_moment: bool,

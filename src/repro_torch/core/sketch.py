@@ -28,6 +28,17 @@ value rounds to itself); int8 adds into the dequantized sketch, grows
 the block scales (they never shrink between cleanings) and re-rounds the
 touched and regrown blocks only.  An int8 state is a ``QuantState``,
 whose two tensors are written in place.
+
+Sharded sketches split the width into ``shards`` contiguous slabs; shard
+``s`` holds ``S[:, s·lw:(s+1)·lw]`` (``lw = width/shards``).  The slab
+primitives hash with the full-width family and mask to the slab, so
+
+    update(S)           == concat_s(update_slab(slab_s))
+    query's gather      == Σ_s gather_slab(slab_s)   (then finish_query)
+
+exactly: each (hash row, id) cell is owned by one shard.  On CUDA a slab
+write is B5's run scatter in slab mode (``kernels/cs_update.py``
+``cs_update_slab``), which drops the rows another shard owns.
 """
 from __future__ import annotations
 
@@ -102,6 +113,16 @@ class SketchSpec:
     def shape(self) -> Tuple[int, int, int]:
         return (self.depth, self.width, self.dim)
 
+    @property
+    def local_width(self) -> int:
+        """Width of one shard's slab."""
+        return self.width // self.shards
+
+    @property
+    def slab_shape(self) -> Tuple[int, int, int]:
+        """Shape of one shard's slab: (depth, width/shards, dim)."""
+        return (self.depth, self.local_width, self.dim)
+
     def nbytes(self) -> int:
         """Bytes of ``init(self)``: the cells at their dtype's size, plus
         the f32 block scales of int8 cells."""
@@ -111,6 +132,10 @@ class SketchSpec:
             return cells + self.depth * qz.n_blocks(self.width,
                                                     self.scale_block) * 4
         return cells
+
+    def shard_nbytes(self) -> int:
+        """Bytes of one shard's slab: ``nbytes() / shards``."""
+        return self.nbytes() // self.shards
 
     def fold(self) -> "SketchSpec":
         """The spec after a Hokusai fold (width halved); the family's
@@ -379,6 +404,127 @@ def decay(S, alpha: float):
     if S.dtype == torch.bfloat16:
         return S.mul_(float(torch.tensor(alpha, dtype=torch.bfloat16)))
     return S.mul_(alpha)
+
+
+# ---------------------------------------------------------------------------
+# Shard-slab primitives: the model-parallel halves of UPDATE and QUERY
+# ---------------------------------------------------------------------------
+
+def init_slab(spec: SketchSpec, device="cuda") -> torch.Tensor:
+    """A zero slab of one shard on ``device``: (depth, width/shards,
+    dim)."""
+    return torch.zeros(spec.slab_shape, dtype=qz.torch_dtype(spec.dtype),
+                       device=device)
+
+
+def slab_of(spec: SketchSpec, S: torch.Tensor, shard: int) -> torch.Tensor:
+    """Shard ``shard``'s width slab of a full sketch: a strided view."""
+    lw = spec.local_width
+    return S[:, shard * lw:(shard + 1) * lw]
+
+
+def _slab_buckets(spec: SketchSpec, ids: torch.Tensor, shard: int):
+    """(local buckets in [0, lw], ownership mask), each (depth, k), for one
+    shard.  A bucket of another shard becomes ``lw``, one past the slab:
+    the scatter drops it and the gather clamps and masks it."""
+    lw = spec.local_width
+    local = spec.family.bucket(ids) - int(shard) * lw
+    own = (local >= 0) & (local < lw)
+    return torch.where(own, local, lw).to(torch.int32), own
+
+
+def _add_slab_rows(spec: SketchSpec, acc: torch.Tensor, ids: torch.Tensor,
+                   local: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Add ``s_j·delta`` (or ``delta``) at the local buckets into the f32
+    slab ``acc``, IN PLACE, in batch order, dropping bucket ``lw``:
+    ``index_add_`` of the owned rows on the CPU, B5's slab scatter on
+    CUDA."""
+    from repro_torch.kernels.cs_update import cs_update_slab
+    signs = spec.family.sign(ids) if spec.signed else None
+    return cs_update_slab(acc, local, signs,
+                          delta.to(torch.float32).contiguous())
+
+
+def update_slab(spec: SketchSpec, slab: torch.Tensor, ids: torch.Tensor,
+                delta: torch.Tensor, shard: int, sr_seed=None
+                ) -> torch.Tensor:
+    """Shard-local UPDATE, IN PLACE: add the slab-owned part of ``delta``
+    at ``ids``; rows hashing to another shard are dropped.  A bf16 slab
+    sums its increments from zero in f32, adds them to the widened slab
+    and re-rounds every cell with the bits of the slab's own linear
+    index, so it is not the matching columns of a full-width bf16
+    update.  Returns ``slab``."""
+    local, _ = _slab_buckets(spec, ids, shard)
+    if slab.dtype == torch.bfloat16:
+        inc = _add_slab_rows(spec, torch.zeros(
+            slab.shape, dtype=torch.float32, device=slab.device), ids,
+            local, delta)
+        bits = qz.cell_bits(sr_seed_or_default(spec, sr_seed),
+                            qz._lin_index(slab.shape, device=slab.device))
+        return slab.copy_(qz.sr_bfloat16(slab.to(torch.float32) + inc,
+                                         bits))
+    return _add_slab_rows(spec, slab, ids, local, delta)
+
+
+def gather_slab(spec: SketchSpec, slab: torch.Tensor, ids: torch.Tensor,
+                shard: int) -> torch.Tensor:
+    """Shard-local half of QUERY: this slab's (depth, k, dim) share of the
+    gathered cells, in the slab's dtype, unsigned, zero where another
+    shard owns the cell.  Sum over the shards, then ``finish_query``."""
+    local, own = _slab_buckets(spec, ids, shard)
+    idx = torch.clamp_max(local, spec.local_width - 1).long()
+    return torch.stack([
+        slab[j].index_select(0, idx[j]).masked_fill(~own[j][:, None], 0)
+        for j in range(spec.depth)])
+
+
+def finish_query(spec: SketchSpec, assembled: torch.Tensor,
+                 ids: torch.Tensor) -> torch.Tensor:
+    """QUERY's estimator half on assembled (depth, k, dim) cells (the sum
+    over shards of ``gather_slab``): signs and median for a Count-Sketch,
+    min for a Count-Min, in ``assembled``'s dtype.  The same
+    ``median_rows``/``min_rows`` forms as ``query``: on f32 cells the
+    same bits."""
+    rows = [assembled[j] for j in range(spec.depth)]
+    if spec.signed:
+        s = spec.family.sign(ids).to(assembled.dtype)
+        return median_rows([r * s[j][:, None] for j, r in enumerate(rows)])
+    return min_rows(rows)
+
+
+def fold(spec: SketchSpec, S):
+    """Hokusai fold of a state (paper §5): ``(spec.fold(), S')`` with the
+    width halved, as new tensors.  f32 adds the upper half into the
+    lower; bf16 adds in f32 and re-rounds once stochastically; int8
+    dequantizes, adds and requantizes under fresh scales (both seeded by
+    ``step_seed(spec.seed)``).  The hash layout's buckets are ``owner·lw
+    + h mod lw``, so it folds each slab's upper half into its lower half
+    and never crosses a shard."""
+    if spec.width % 2 != 0:
+        raise ValueError("fold requires an even width")
+    half = spec.width // 2
+    if spec.quantized:
+        dense = qz.dequantize(S, spec.scale_block)
+        return spec.fold(), qz.quantize(dense[:, :half] + dense[:, half:],
+                                        qz.step_seed(spec.seed),
+                                        scale_block=spec.scale_block)
+    dense = S.to(torch.float32) if S.dtype == torch.bfloat16 else S
+    if spec.layout == "hash" and spec.shards > 1 and not spec.identity:
+        lw = spec.local_width
+        if lw % 2 != 0:
+            raise ValueError(f"hash-layout fold needs an even local width, "
+                             f"got {lw}")
+        ranged = dense.reshape(spec.depth, spec.shards, lw, spec.dim)
+        folded = (ranged[:, :, :lw // 2] + ranged[:, :, lw // 2:]).reshape(
+            spec.depth, half, spec.dim)
+    else:
+        folded = dense[:, :half] + dense[:, half:]
+    if S.dtype == torch.bfloat16:
+        bits = qz.cell_bits(qz.step_seed(spec.seed),
+                            qz._lin_index(folded.shape,
+                                          device=folded.device))
+        return spec.fold(), qz.sr_bfloat16(folded, bits)
+    return spec.fold(), folded
 
 
 def ema_delta(est_old: torch.Tensor, x: torch.Tensor, beta: float,

@@ -301,9 +301,12 @@ class _SketchStoreBase(AuxStore):
 
     def with_sharding(self, shards: int,
                       layout: str = "width") -> "_SketchStoreBase":
-        """The same store laid out over ``shards`` slabs under ``layout``,
-        as data: the factory fields and (when bound) the spec.  Running a
-        sharded store waits for ROADMAP A13b."""
+        """The same store laid out over ``shards`` slabs under ``layout``:
+        the factory fields and (when bound) the spec.  ``init`` still
+        makes the full (depth, width, dim) state; the sharded step
+        (``sparse_rows_adam_sharded``) runs on one shard's slab of it
+        (``distributed.slabs.shard_state``), and the dense path runs the
+        full tensor on one device."""
         out = dataclasses.replace(self, shards=int(shards),
                                   shard_layout=layout)
         if self.spec is not None:
@@ -392,6 +395,11 @@ class _SketchStoreBase(AuxStore):
 
     def bytes(self, state=None) -> int:
         return self.spec.nbytes()
+
+    def shard_bytes(self, state=None) -> int:
+        """Bytes of one width slab: what a device holds of this store when
+        it is sharded."""
+        return self.spec.shard_nbytes()
 
     def stats(self, state) -> Dict[str, Any]:
         """Sketch-health gauges, all device scalars:
@@ -578,6 +586,49 @@ class StoreTree:
             return None if pair is None else (None, pair[1])
 
         return dataclasses.replace(out, resolver=resolver)
+
+    def sketch_specs(self, params_like) -> Dict[str, Dict[str, SketchSpec]]:
+        """{path: {"m": spec?, "v": spec?}} for every leaf of
+        ``params_like`` (tensors or shaped leaves) that resolves to a
+        sketch-backed store."""
+        from repro_torch.core.partition import leaf_paths
+        out: Dict[str, Dict[str, SketchSpec]] = {}
+        for path, leaf in leaf_paths(params_like):
+            m, v = self.resolve(path, tuple(leaf.shape),
+                                getattr(leaf, "dtype", None))
+            d = {}
+            if m is not None and m.kind in ("sketch", "countmin"):
+                d["m"] = m.spec
+            if v is not None and v.kind in ("sketch", "countmin"):
+                d["v"] = v.spec
+            if d:
+                out[path] = d
+        return out
+
+    def sketch_state_shapes(self, param_shapes: Dict[str, Tuple[int, ...]]
+                            ) -> Dict[Tuple[str, str], Tuple[int, int, int]]:
+        """{(slot, path): (depth, width, dim)} for every parameter whose
+        ``m``/``v`` slot resolves to a sketch-backed store (the
+        error-feedback ``residual`` shares the 'v' geometry)."""
+        return {k: tuple(spec.shape)
+                for k, spec in self.sketch_state_specs(param_shapes).items()}
+
+    def sketch_state_specs(self, param_shapes: Dict[str, Tuple[int, ...]]
+                           ) -> Dict[Tuple[str, str], SketchSpec]:
+        """{(slot, path): bound SketchSpec}, the richer form of
+        ``sketch_state_shapes``: the spec carries ``shards``/``layout``.
+        A leaf its stores reject is left out."""
+        out: Dict[Tuple[str, str], SketchSpec] = {}
+        for path, shape in param_shapes.items():
+            try:
+                m, v = self.resolve(path, shape, torch.float32)
+            except Exception:   # noqa: BLE001 - stores rejecting the leaf
+                continue
+            for slot, st in (("m", m), ("v", v)):
+                if st is not None and st.kind in ("sketch", "countmin") \
+                        and getattr(st, "spec", None) is not None:
+                    out[(slot, path)] = st.spec
+        return out
 
     def to_json(self) -> Dict[str, Any]:
         """The reference's JSON form (rule-based trees only)."""

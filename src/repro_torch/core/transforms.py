@@ -582,3 +582,64 @@ def scale_by_adam_rows_dp(b1: float = 0.9, b2: float = 0.999,
                  "residual": out.residual})
 
     return Transform(init, update)
+
+
+def scale_by_adam_rows_sharded(b1: float = 0.9, b2: float = 0.999,
+                               eps: float = 1e-8, *, m_store, v_store,
+                               shard_axis="model", dp_axis=None,
+                               error_feedback: bool = False,
+                               dir_clip: Optional[float] = 10.0,
+                               backend: Optional[str] = None,
+                               device="cuda") -> Transform:
+    """``scale_by_adam_rows_dp`` with the sketch state sharded over
+    ``shard_axis`` into width slabs: the stores' specs must declare
+    ``shards > 1`` (``with_sharding`` or the planner's
+    ``sketch_shards``), and each replica of the (dp × shard) grid calls
+    ``update`` with its own (depth, local_width, dim) slab of every
+    rank-3 state leaf (``distributed.slabs.shard_state``) and its dp
+    shard of the batch (``distributed.sketched_reduce.
+    sharded_adam_rows``).  ``init`` returns FULL (depth, width, dim)
+    tensors, as the reference's does: sharding is placement.
+    ``dp_axis`` None is the shard-only grid."""
+    for name, store, kinds in (("m_store", m_store, ("sketch",)),
+                               ("v_store", v_store, ("countmin", "sketch"))):
+        if store is None:
+            continue
+        if store.kind not in kinds or store.spec is None:
+            raise ValueError(f"{name} must be a bound (explicit-spec) "
+                             f"{'/'.join(kinds)} store, got {store!r}")
+        if store.spec.shards < 2:
+            raise ValueError(f"{name} is not sharded (spec.shards == "
+                             f"{store.spec.shards}); use "
+                             f"scale_by_adam_rows_dp for replicated state "
+                             f"or with_sharding() the store")
+    spec_m = m_store.spec if m_store is not None else None
+    spec_v = v_store.spec
+    if spec_m is not None and (spec_m.shards != spec_v.shards
+                               or spec_m.layout != spec_v.layout):
+        raise ValueError(f"m/v stores disagree on the shard layout: "
+                         f"{spec_m.shards}×{spec_m.layout!r} vs "
+                         f"{spec_v.shards}×{spec_v.layout!r}")
+
+    def init(params=None):
+        from repro_torch.distributed import sketched_reduce as sr
+        return {"step": _host_step(),
+                "m": m_store.init(device) if m_store is not None else None,
+                "v": v_store.init(device),
+                "residual": (sr.init_feedback(spec_v, device)
+                             if error_feedback else None)}
+
+    def update(grads, state, params=None):
+        from repro_torch.distributed import sketched_reduce as sr
+        step = state["step"] + 1
+        V_in = v_store.clean(state["v"], step)      # a decay: slab-safe
+        out = sr.sharded_adam_rows(
+            spec_m, spec_v, state["m"], V_in, grads["ids"], grads["rows"],
+            step, shard_axis=shard_axis, dp_axis=dp_axis, b1=b1, b2=b2,
+            eps=eps, residual=state["residual"], dir_clip=dir_clip,
+            backend=backend)
+        return ({"ids": out.uids, "rows": out.rows},
+                {"step": step, "m": out.M, "v": out.V,
+                 "residual": out.residual})
+
+    return Transform(init, update)

@@ -1,11 +1,16 @@
-"""Distributed pieces of the port: the data-parallel collectives
-(``collectives``: ``ReplicaGroup``, ``ProcessGroupAxis``), the sketched
-gradient reduction (``sketched_reduce``) and the trainer's
-``StragglerMonitor`` (``elastic``).  Sharded sketches wait for ROADMAP
-A13b; placement on a mesh and elastic restore for A13c."""
+"""Distributed pieces of the port: the collectives (``collectives``:
+``ReplicaGroup``, ``ReplicaMesh``, ``ProcessGroupAxis``,
+``process_group_mesh``), the sketched gradient reduction and the sharded
+step (``sketched_reduce``), a sharded state's slabs (``slabs``) and the
+trainer's ``StragglerMonitor`` (``elastic``).  Placement on a mesh and
+elastic restore wait for ROADMAP A13c."""
 from repro_torch.distributed.collectives import (  # noqa: F401
-    ProcessGroupAxis, ReplicaGroup, as_axis)
+    ProcessGroupAxis, ReplicaGroup, ReplicaMesh, as_axis,
+    process_group_mesh)
 from repro_torch.distributed.sketched_reduce import (  # noqa: F401
     DpAdamResult, dense_reduce_bytes, dp_adam_rows, global_unique_ids,
     init_feedback, local_sketch, reduce_gradient_sketch, reduce_moments,
+    routing_bytes, sharded_adam_rows, sharded_query, sharded_reduce_bytes,
     sketched_reduce_bytes, traffic_ratio)
+from repro_torch.distributed.slabs import (  # noqa: F401
+    join_slabs, shard_state)

@@ -22,6 +22,13 @@ replica's step body.  Two kinds exist:
     outs = group.run(step_fn, [(table[r], state[r], ids[r], rows[r])
                                for r in range(4)])
 
+Sharded sketches add a second axis.  ``ReplicaMesh((dp, shards))`` runs
+``dp·shards`` replicas in threads, rank ``d·shards + s`` at coordinates
+(d, s); ``mesh.axis("data")`` and ``mesh.axis("model")`` are the two
+axes, each joining only the replicas that share the other coordinate.
+Over ``torch.distributed``, ``process_group_mesh`` makes the same two
+axes from ``new_group`` sub-groups.
+
 Every collective returns a new tensor and leaves its input as it was.
 The threads of a ``ReplicaGroup`` launch on the default CUDA stream,
 which they share, so the barrier also orders on the card what one
@@ -156,10 +163,127 @@ class ReplicaGroup:
         return results
 
 
+class _MeshAxis:
+    """One axis of a ``ReplicaMesh``, as a replica sees it: ``size``,
+    ``rank`` (the replica's coordinate on this axis) and the collectives,
+    which join the replicas on the replica's line of this axis."""
+
+    def __init__(self, mesh: "ReplicaMesh", dim: int):
+        self._mesh, self._dim = mesh, dim
+
+    @property
+    def size(self) -> int:
+        return self._mesh.shape[self._dim]
+
+    @property
+    def rank(self) -> int:
+        return self._mesh.coords[self._dim]
+
+    def _line(self) -> ReplicaGroup:
+        return self._mesh._lines[self._dim][self._mesh.coords[1 - self._dim]]
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        return self._line().psum(t)
+
+    def pmean(self, t: torch.Tensor) -> torch.Tensor:
+        return self._line().pmean(t)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        return self._line().all_gather(t)
+
+
+class ReplicaMesh:
+    """A (dp, shards) grid of replicas in ``dp·shards`` threads of this
+    process, in row-major rank order.  Each line of an axis is a
+    ``ReplicaGroup``: a collective of ``axis(name)`` adds in rank order
+    along that axis, among the replicas that share the other coordinate.
+    ``timeout``: seconds a replica waits at a collective (None: no
+    limit)."""
+
+    def __init__(self, shape: Sequence[int],
+                 axis_names: Sequence[str] = ("data", "model"),
+                 timeout: Optional[float] = None):
+        shape = tuple(int(n) for n in shape)
+        if len(shape) != 2 or min(shape) < 1 or len(axis_names) != 2:
+            raise ValueError(f"a replica mesh is a 2-D grid with two axis "
+                             f"names, got {shape} and {tuple(axis_names)}")
+        self.shape, self.axis_names = shape, tuple(axis_names)
+        self.size = shape[0] * shape[1]
+        self._all = ReplicaGroup(self.size, timeout=timeout)
+        # _lines[dim][c]: the replicas whose other coordinate is c
+        self._lines = [[ReplicaGroup(shape[dim], timeout=timeout)
+                        for _ in range(shape[1 - dim])] for dim in (0, 1)]
+        self._axes = [_MeshAxis(self, 0), _MeshAxis(self, 1)]
+
+    @property
+    def rank(self) -> int:
+        return self._all.rank
+
+    @property
+    def coords(self) -> tuple:
+        return divmod(self.rank, self.shape[1])
+
+    def axis(self, name: str) -> _MeshAxis:
+        """The axis called ``name`` (one of ``axis_names``)."""
+        return self._axes[self.axis_names.index(name)]
+
+    def run(self, fn: Callable, args: Sequence[Sequence[Any]]) -> list:
+        """``fn(*args[r])`` in replica r's thread, r in rank order; returns
+        the results in rank order (``ReplicaGroup.run``).  A failing
+        replica breaks every line's barrier too, so no replica waits on a
+        line for it."""
+        lines = [g for groups in self._lines for g in groups]
+
+        def body(*a):
+            d, s = self.coords
+            self._lines[0][s]._local.rank = d
+            self._lines[1][d]._local.rank = s
+            try:
+                return fn(*a)
+            except Exception:
+                for g in lines:
+                    g._barrier.abort()
+                raise
+
+        try:
+            return self._all.run(body, args)
+        finally:
+            for g in lines:
+                g._slots = [None] * g.size
+                if g._barrier.broken:
+                    g._barrier.reset()
+
+
+def process_group_mesh(shape: Sequence[int]) -> tuple:
+    """The two axes of a (dp, shards) grid over the default process group,
+    rank ``d·shards + s`` at (d, s): ``(data, model)`` as
+    ``ProcessGroupAxis`` objects over ``new_group`` sub-groups.  Every
+    process must call it, in the same order, after
+    ``init_process_group``: each builds every sub-group."""
+    dp, shards = (int(n) for n in shape)
+    if dp * shards != torch.distributed.get_world_size():
+        raise ValueError(f"a {dp} x {shards} grid needs {dp * shards} "
+                         f"processes, the world has "
+                         f"{torch.distributed.get_world_size()}")
+    d, s = divmod(torch.distributed.get_rank(), shards)
+    data = model = None
+    for c in range(shards):         # the data axis: one group a column
+        g = torch.distributed.new_group([r * shards + c for r in range(dp)])
+        if c == s:
+            data = g
+    for r in range(dp):             # the model axis: one group a row
+        g = torch.distributed.new_group([r * shards + c
+                                         for c in range(shards)])
+        if r == d:
+            model = g
+    return ProcessGroupAxis(data), ProcessGroupAxis(model)
+
+
 def as_axis(dp_axis):
-    """The collectives object of a ``dp_axis`` argument: None stays None,
-    a string (the reference's mesh-axis name) is the default process
-    group, and an axis object is itself."""
+    """The collectives object of a ``dp_axis`` or ``shard_axis`` argument:
+    None stays None, a string (the reference's mesh-axis name) is the
+    default process group, and an axis object (a ``ReplicaGroup``, a
+    ``ReplicaMesh`` axis, a ``ProcessGroupAxis``) is itself."""
     if dp_axis is None:
         return None
     if isinstance(dp_axis, str):

@@ -27,6 +27,14 @@ replica's own state, and every sketch a collective returns is the
 replica's own copy.  On a card every ``sketch.update`` is B5's run
 scatter (``kernels/cs_update.py``); the queries are the plain
 ``sketch.query``, as the reference's are.
+
+``sharded_adam_rows`` is the same step with the sketch state SHARDED
+into width slabs over a ``shard_axis`` (``ReplicaMesh.axis("model")``,
+or a ``ProcessGroupAxis``): each replica holds one shard's (depth,
+local_width, dim) slab of M, V and the residual, sketches its rows into
+slabs, and one routing psum over the shard axis assembles the cells its
+queries need (``sharded_query``).  Every slab write on a card is B5 in
+slab mode.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import kernels
+from repro_torch.core import quantize as qz
 from repro_torch.core import sketch as cs
 from repro_torch.distributed.collectives import as_axis
 from repro_torch.kernels import dedup as dd
@@ -96,6 +106,19 @@ def traffic_ratio(spec: cs.SketchSpec, n_rows: int, *,
     dense = dense_reduce_bytes(n_rows, spec.dim, grad_dtype=grad_dtype,
                                with_ids=with_ids)
     return dense / sketched_reduce_bytes(spec, *extra_specs)
+
+
+def sharded_reduce_bytes(*specs: Optional[cs.SketchSpec]) -> int:
+    """Bytes the sharded gradient-sketch psum moves per device: one slab
+    per live sketch, ``1/shards`` of the replicated payload."""
+    return sum(s.shard_nbytes() for s in specs if s is not None)
+
+
+def routing_bytes(n_rows: int, *specs: Optional[cs.SketchSpec]) -> int:
+    """Bytes of the shard-axis routing psum per device and step: each live
+    sketch's (depth, n_rows, dim) query cells, once per query group."""
+    return sum(s.depth * n_rows * s.dim * qz.torch_dtype(s.dtype).itemsize
+               for s in specs if s is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +284,130 @@ def dp_adam_rows(spec_m: Optional[cs.SketchSpec], spec_v: cs.SketchSpec,
     g2hat = cs.query(spec_v, G_v, uids) * col         # ≈ Σg² (+ feedback)
     V = cs.update(spec_v, V.add_((1.0 - b2) * G_v), uids,
                   -(1.0 - b2) * v_old)
+    vhat = true_div(torch.clamp_min(v_old + (1.0 - b2) * (g2hat - v_old),
+                                    0.0), bc2)
+    direction = col * mhat / (torch.sqrt(vhat) + eps)
+    if dir_clip is not None:
+        direction = torch.clamp(direction, -dir_clip, dir_clip)
+    return DpAdamResult(M=M, V=V, residual=residual, uids=uids,
+                        rows=direction, mask=mask)
+
+
+# ---------------------------------------------------------------------------
+# Model-parallel sketches: the sharded-slab step
+# ---------------------------------------------------------------------------
+
+def sharded_query(spec: cs.SketchSpec, slab: torch.Tensor, ids: torch.Tensor,
+                  shard_axis, *, backend: Optional[str] = None
+                  ) -> torch.Tensor:
+    """``cs.query`` against a width-sharded sketch: each shard gathers its
+    slab's cells (``gather_slab``), a psum over ``shard_axis`` assembles
+    them (each cell lives on one shard) and ``finish_query`` applies the
+    signs and the median or min."""
+    axis = as_axis(shard_axis)
+    part = kernels.gather_slab(spec, slab, ids, axis.rank, backend=backend)
+    with scope("obs.route"):
+        part = axis.psum(part)
+    return cs.finish_query(spec, part, ids)
+
+
+def sharded_adam_rows(spec_m: Optional[cs.SketchSpec], spec_v: cs.SketchSpec,
+                      M: Optional[torch.Tensor], V: torch.Tensor,
+                      ids: torch.Tensor, rows: torch.Tensor, step, *,
+                      shard_axis, dp_axis=None,
+                      b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                      residual: Optional[torch.Tensor] = None,
+                      fill_id: Optional[int] = None,
+                      dir_clip: Optional[float] = 10.0,
+                      backend: Optional[str] = None) -> DpAdamResult:
+    """``dp_adam_rows`` with the sketch state sharded over ``shard_axis``:
+    ``M``, ``V`` and ``residual`` are this replica's (depth, local_width,
+    dim) slabs, updated IN PLACE, and the specs carry ``shards`` and
+    ``layout``.  Every replica of a (dp × shard) grid calls it with its
+    dp shard of the batch (the same batch across ``shard_axis``) and its
+    own copy of the table; ``dp_axis`` None is the shard-only grid.
+
+    The collectives: the gradient-sketch psum over ``dp_axis`` moves one
+    slab a sketch (``sharded_reduce_bytes``); one routing psum over
+    ``shard_axis`` assembles the stacked query groups' (depth, k, dim)
+    cells (``routing_bytes``); the id all-gather over ``dp_axis`` is the
+    DP step's.  Slab updates concatenate to the full-width update and
+    assembled queries equal full-width ones, so the step equals
+    ``dp_adam_rows`` at the same dp, to the bit under the dyadic
+    protocol.  The shard index is ``shard_axis.rank``."""
+    sh_axis = as_axis(shard_axis)
+    dp = as_axis(dp_axis)
+    shard = sh_axis.rank
+    track_m = spec_m is not None
+    # replace(), not a field list: the g sketch must hash as spec_v does
+    spec_g = spec_m if track_m else dataclasses.replace(spec_v, signed=True)
+    if fill_id is None:
+        fill_id = FILL_ID
+    t = int(step)
+    bc1, bc2 = bias_correction(b1, t), bias_correction(b2, t)
+    dev = rows.device
+
+    def slab_update(spec, slab, at, delta):
+        return kernels.update_slab(spec, slab, at, delta, shard,
+                                   backend=backend)
+
+    def slab_gather(spec, slab, at):
+        return kernels.gather_slab(spec, slab, at, shard, backend=backend)
+
+    # 1. local dedup, as in the replicated step
+    batch = dd.dedup_rows(ids, rows, fill_id=fill_id)
+    lids, lrows = batch.unique_ids, batch.rows
+
+    # 2. the gradient sketches as slabs, psum'd over dp: slab bytes
+    G_g = slab_update(spec_g, cs.init_slab(spec_g, dev), lids, lrows)
+    G_v = slab_update(spec_v, cs.init_slab(spec_v, dev), lids,
+                      torch.square(lrows))
+    if dp is not None:
+        with scope("obs.collective"):
+            G_g, G_v = dp.psum(G_g), dp.psum(G_v)
+
+    # the error feedback on slabs: the cross share needs Σg at the local
+    # ids (one routing query); banking and injection are per bucket
+    if residual is not None:
+        g_sum = sharded_query(spec_g, G_g, lids, sh_axis, backend=backend)
+        cross = torch.maximum(lrows * (g_sum - lrows), -torch.square(lrows))
+        G_c = slab_update(spec_v, cs.init_slab(spec_v, dev), lids, cross)
+        if dp is not None:
+            with scope("obs.collective"):
+                G_c = dp.psum(G_c)
+        G_v, residual = _inject_feedback(G_v, residual, G_c)
+
+    # 3. the global touched set (dp only; shard-only keeps the local set)
+    if dp is not None:
+        uids, mask = global_unique_ids(lids, dp, fill_id=fill_id)
+    else:
+        uids, mask = lids, (lids != fill_id).to(torch.float32)
+    col = mask[:, None]
+
+    # 4. the state update: the query groups share one routing psum; the
+    #    scatters are shard-local.  Every read precedes the in-place
+    #    writes of M and V.
+    parts = [slab_gather(spec_g, G_g, uids), slab_gather(spec_v, V, uids),
+             slab_gather(spec_v, G_v, uids)]
+    if track_m:
+        parts.append(slab_gather(spec_m, M, uids))
+    stacked = torch.stack(parts)
+    del parts                   # the psum's copy is the one that stays
+    with scope("obs.route"):
+        parts = sh_axis.psum(stacked).unbind(0)
+    del stacked
+    ghat = cs.finish_query(spec_g, parts[0], uids) * col
+    v_old = cs.finish_query(spec_v, parts[1], uids) * col
+    g2hat = cs.finish_query(spec_v, parts[2], uids) * col
+    if track_m:
+        m_old = cs.finish_query(spec_m, parts[3], uids) * col
+        M = slab_update(spec_m, M.add_((1.0 - b1) * G_g), uids,
+                        -(1.0 - b1) * m_old)
+        mhat = true_div(m_old + (1.0 - b1) * (ghat - m_old), bc1)
+    else:
+        mhat = ghat
+    V = slab_update(spec_v, V.add_((1.0 - b2) * G_v), uids,
+                    -(1.0 - b2) * v_old)
     vhat = true_div(torch.clamp_min(v_old + (1.0 - b2) * (g2hat - v_old),
                                     0.0), bc2)
     direction = col * mhat / (torch.sqrt(vhat) + eps)

@@ -30,6 +30,16 @@
   tiled   B3 on CUDA tensors, whole-batch semantics; plain on the CPU;
           the ``auto`` choice for CUDA tensors
 
+('sketch' | 'countmin', 'update_slab' | 'gather_slab') backends, the
+shard-local halves of the sharded step:
+
+  ref     ``core.sketch.update_slab`` / ``gather_slab``: the scatter is
+          B5 in slab mode on CUDA tensors, plain on the CPU; the gather
+          is plain everywhere
+  xla     the same functions (the reference's 'xla' unrolls its vmapped
+          'ref'); ``None``, ``auto`` and backends with no slab op
+          resolve here
+
 Low-precision cells: bf16 and int8 sparse rows run ``xla`` under every
 backend; on the dense path ``ref`` and ``xla`` share one form, ``tiled``
 runs B3's bf16 kernel for bf16 cells and ``xla`` for int8 cells.
@@ -38,6 +48,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+from repro_torch.core import sketch as cs
 from repro_torch.kernels import ops, registry
 
 
@@ -82,6 +93,37 @@ def update_read(spec, S, ids, delta, *, beta: float, scale: float,
               sr_seed=sr_seed)
 
 
+def _slab_backend(kind: str, op: str, backend: Optional[str]) -> str:
+    """None, 'auto' and backends with no slab op ('stream', 'tiled', e.g.
+    a store pinned to 'tiled' for its dense path) resolve to 'xla'."""
+    if backend in (None, "auto") or backend not in registry.backends(kind,
+                                                                     op):
+        return "xla"
+    return backend
+
+
+def update_slab(spec, slab, ids, delta, shard: int, *,
+                backend: Optional[str] = None):
+    """Scatter ``delta`` rows into ONE shard's (depth, local_width, dim)
+    slab, IN PLACE; rows hashing outside the slab are dropped, so the
+    shards' results concatenate to the full-width ``sketch.update``."""
+    kind = "sketch" if spec.signed else "countmin"
+    fn = registry.lookup(kind, "update_slab",
+                         _slab_backend(kind, "update_slab", backend))
+    return fn(spec, slab, ids, delta, shard)
+
+
+def gather_slab(spec, slab, ids, shard: int, *,
+                backend: Optional[str] = None):
+    """This shard's (depth, k, dim) query cells, zero off-slab; their sum
+    over the shards, finished by ``sketch.finish_query``, is the
+    full-width ``sketch.query``."""
+    kind = "sketch" if spec.signed else "countmin"
+    fn = registry.lookup(kind, "gather_slab",
+                         _slab_backend(kind, "gather_slab", backend))
+    return fn(spec, slab, ids, shard)
+
+
 register_backend("ref", ops.adam_rows_ref)
 register_backend("xla", ops.adam_rows_xla)
 register_backend("stream", ops.adam_rows_stream)
@@ -92,4 +134,8 @@ for _kind in ("sketch", "countmin"):
     registry.register(_kind, "update_read", "xla", ops.ema_update_read_xla)
     registry.register(_kind, "update_read", "tiled",
                       ops.ema_update_read_tiled)
+    registry.register(_kind, "update_slab", "ref", cs.update_slab)
+    registry.register(_kind, "update_slab", "xla", ops.slab_update_xla)
+    registry.register(_kind, "gather_slab", "ref", cs.gather_slab)
+    registry.register(_kind, "gather_slab", "xla", ops.slab_gather_xla)
 del _kind

@@ -59,8 +59,9 @@ SIGNATURES = {
     + [ctypes.c_uint32, P],
     # S, b, s, out, depth, width, d, k, stream
     "cs_query_launch": [P] * 4 + [I] * 4 + [P],
-    # S, order, starts, buckets, s, delta, depth, width, d, k, stream
-    "cs_update_launch": [P] * 6 + [I] * 4 + [P],
+    # S, order, starts, buckets, s, delta, depth, width, csr_width, d, k,
+    # stream
+    "cs_update_launch": [P] * 6 + [I] * 5 + [P],
 }
 
 

@@ -21,7 +21,11 @@ CPU tensors; for CUDA tensors they launch the kernels or raise.
 The same run scatter makes every colliding sum of the port deterministic
 on the card: B1's scatter (M and V as two targets of one launch, from
 ``csrc/cs_adam_tiled.cu``), the dedup segment sum, ``core.sketch.update``
-and ``DenseStore.accumulate`` (these three through ``cs_update``).
+and ``DenseStore.accumulate`` (these three through ``cs_update``), and a
+shard's slab update (``cs_update_slab``): there the buckets lie in
+``[0, lw]``, ``lw`` meaning another shard's, the CSR spans ``lw + 1``
+buckets and the scatter walks the first ``lw``, so the other shards' rows
+are never read (no mask compaction, no scratch slab).
 """
 from __future__ import annotations
 
@@ -117,6 +121,35 @@ def scatter_shapes(name: str, S, buckets, signs, rows) -> Tuple[int, ...]:
     return depth, width, d, k
 
 
+def _scatter_kernel(name: str, S, buckets, signs, delta, csr,
+                    csr_width: int) -> torch.Tensor:
+    """One launch of B5 into S (v, w, d) over the CSR of ``buckets`` across
+    ``csr_width`` buckets (``w``, or ``w + 1`` with bucket ``w`` dropped);
+    counted on ``cs_update``."""
+    dev = S.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    depth, width, d, k = scatter_shapes(name, S, buckets, signs, delta)
+    build.check_cuda_inputs(name, dev, S=S, buckets=buckets, signs=signs,
+                            delta=delta)
+    order, starts = csr if csr is not None \
+        else bucket_csr(buckets, csr_width)
+    build.check_cuda_inputs(name, dev, order=order, starts=starts)
+    if tuple(starts.shape) != (depth, csr_width + 1):
+        raise ValueError(f"{name}: starts {tuple(starts.shape)} is not the "
+                         f"CSR of {csr_width} buckets")
+    lib = build.library()
+    with torch.cuda.device(dev):
+        rc = lib.cs_update_launch(build.ptr(S), build.ptr(order),
+                                  build.ptr(starts), build.ptr(buckets),
+                                  build.ptr(signs), build.ptr(delta), depth,
+                                  width, csr_width, d, k,
+                                  build.stream_handle(dev))
+    build.check_launch(rc, name)
+    cs_update.launches += 1
+    return S
+
+
 def cs_update(S: torch.Tensor, buckets: torch.Tensor,
               signs: Optional[torch.Tensor], delta: torch.Tensor, *,
               csr=None) -> torch.Tensor:
@@ -125,23 +158,23 @@ def cs_update(S: torch.Tensor, buckets: torch.Tensor,
     caller has it already."""
     if S.device.type == "cpu":
         return ref.cs_update_ref(S, buckets, signs, delta)
-    dev = S.device
-    if dev.type != "cuda":
-        raise ValueError(f"cs_update: no kernel for device {dev}")
-    depth, width, d, k = scatter_shapes("cs_update", S, buckets, signs, delta)
-    build.check_cuda_inputs("cs_update", dev, S=S, buckets=buckets,
-                            signs=signs, delta=delta)
-    order, starts = csr if csr is not None else bucket_csr(buckets, width)
-    build.check_cuda_inputs("cs_update", dev, order=order, starts=starts)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        rc = lib.cs_update_launch(build.ptr(S), build.ptr(order),
-                                  build.ptr(starts), build.ptr(buckets),
-                                  build.ptr(signs), build.ptr(delta), depth,
-                                  width, d, k, build.stream_handle(dev))
-    build.check_launch(rc, "cs_update")
-    cs_update.launches += 1
-    return S
+    return _scatter_kernel("cs_update", S, buckets, signs, delta, csr,
+                           S.shape[1])
+
+
+def cs_update_slab(slab: torch.Tensor, local: torch.Tensor,
+                   signs: Optional[torch.Tensor], delta: torch.Tensor, *,
+                   csr=None) -> torch.Tensor:
+    """B5 in slab mode: add ``signs*delta`` (k, d) at the local buckets
+    (v, k) in ``[0, lw]`` into one shard's contiguous slab (v, lw, d), IN
+    PLACE, dropping bucket ``lw`` (another shard's); returns the slab.  On
+    CUDA one launch (its CSR over ``lw + 1`` buckets, ``csr`` when the
+    caller has it), counted on ``cs_update``; on the CPU the plain version
+    ``ref.cs_update_slab_ref``."""
+    if slab.device.type == "cpu":
+        return ref.cs_update_slab_ref(slab, local, signs, delta)
+    return _scatter_kernel("cs_update_slab", slab, local, signs, delta, csr,
+                           slab.shape[1] + 1)
 
 
 cs_update.launches = 0

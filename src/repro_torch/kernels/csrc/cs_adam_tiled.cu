@@ -225,9 +225,9 @@ extern "C" int cs_adam_tiled_launch(
       M != nullptr
           ? cs::RunScatter{M, dm, sm, depth_m, width_m, V, dv, width_v,
                            order, starts, buckets, n_valid,
-                           depth_m + depth_v, w, d, d, k, true}
+                           depth_m + depth_v, w, d, d, k, true, w + 1}
           : cs::RunScatter{V, dv, nullptr, depth_v, width_v, nullptr,
                            nullptr, width_v, order, starts, buckets,
-                           n_valid, depth_v, w, d, d, k, true};
+                           n_valid, depth_v, w, d, d, k, true, w + 1};
   return cs::launch_run_scatter(sc, s);
 }

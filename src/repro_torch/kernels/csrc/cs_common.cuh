@@ -149,10 +149,12 @@ inline int row_threads(int cols) {
 // when given, into S0 (depth0, width0 rows of ld floats); rows [depth0,
 // depth) add the rows of x1, unsigned, into S1 (width1 rows of ld).  Both
 // add ncols columns: x0 and x1 are (k, ncols), and S0, S1 point at the
-// first column.  order (depth, k) and starts (depth, width + 1) are the
-// stable bucket CSR of buckets (depth, k); n_valid is a device int32
-// scalar (items at or past it add nothing) or null.  With skip_single,
-// runs of one item are left as they are.
+// first column.  order (depth, k) and starts (depth, starts_ld) are the
+// stable bucket CSR of buckets (depth, k) over starts_ld - 1 >= width
+// buckets; items in buckets at or past width add nothing (a slab's
+// update: bucket width is another shard's, and its run is never read).
+// n_valid is a device int32 scalar (items at or past it add nothing) or
+// null.  With skip_single, runs of one item are left as they are.
 struct RunScatter {
   float* S0;
   const float* x0;
@@ -167,6 +169,7 @@ struct RunScatter {
   const int* n_valid;
   int depth, width, ncols, ld, k;
   bool skip_single;
+  int starts_ld;
 };
 int launch_run_scatter(const RunScatter& a, cudaStream_t stream);
 

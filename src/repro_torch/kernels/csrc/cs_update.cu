@@ -43,7 +43,10 @@
 // run cut at the first dedup padding slot, n_valid, runs of one item
 // left to B1's read), the dedup segment sum (depth 1 over dedup's own
 // sort), core/sketch.py::update and DenseStore.accumulate (depth 1 over
-// the table's rows).
+// the table's rows), and a shard's slab update (core/sketch.py::
+// update_slab): its CSR spans lw + 1 buckets, bucket lw holding the items
+// another shard owns, and the scatter walks the first lw only, so those
+// items are never read.
 #include "cs_common.cuh"
 
 namespace {
@@ -228,8 +231,9 @@ __device__ __forceinline__ int live_end(const int* __restrict__ ord, int lo,
 // kChunk buckets, slice of 32 columns); warp 0 finds the long runs of its
 // chunk from ``starts`` and adds each for its slice.  The other blocks:
 // (hash row j, kPositions sorted positions); a position starts a run when
-// starts[j][bucket] equals it, and the block's warps add the short runs
-// that start in its range, a run a warp.
+// starts[j][bucket] equals it and bucket < width, and the block's warps
+// add the short runs that start in its range, a run a warp.  starts has
+// rows of starts_ld entries.
 // With ``n_valid``, items at or past it add nothing: each run is cut at
 // its first such item, and a run is long or short by its live length.
 // With ``skip_single``, runs of one item are skipped (B1's read writes
@@ -239,8 +243,8 @@ __global__ void run_scatter(Targets<T> tg, const int* __restrict__ order,
                             const int* __restrict__ starts,
                             const int* __restrict__ buckets,
                             const int* __restrict__ n_valid, int width,
-                            int ncols, int k, int long_blocks,
-                            bool skip_single) {
+                            int starts_ld, int ncols, int k,
+                            int long_blocks, bool skip_single) {
   __shared__ float s_sgn[4 * 32];        // long runs: signs of 4 batches
   __shared__ int s_run[kPositions][3];  // bucket, lo, hi
   __shared__ int s_runs;
@@ -257,7 +261,7 @@ __global__ void run_scatter(Targets<T> tg, const int* __restrict__ order,
     const int j = blockIdx.x / (chunks * slices);
     const int rem = blockIdx.x - j * chunks * slices;
     const int chunk = rem / slices, slice = rem - chunk * slices;
-    const int* st = starts + (size_t)j * (width + 1);
+    const int* st = starts + (size_t)j * starts_ld;
     const int* ord = order + (size_t)j * k;
     target_of(tg, j, k, S, x, sj);
     // the chunk's buckets are strided, chunk + m * chunks: the heavy
@@ -285,13 +289,14 @@ __global__ void run_scatter(Targets<T> tg, const int* __restrict__ order,
   const int j = bid / per_row;
   const int p0 = (bid - j * per_row) * kPositions;
   const int* ord = order + (size_t)j * k;
-  const int* st = starts + (size_t)j * (width + 1);
+  const int* st = starts + (size_t)j * starts_ld;
   if (threadIdx.x == 0) s_runs = 0;
   __syncthreads();
   const int p = p0 + threadIdx.x;
   if (threadIdx.x < kPositions && p < k) {
     const int bucket = buckets[(size_t)j * k + ord[p]];
-    if (st[bucket] == p && !(skip_single && st[bucket + 1] == p + 1)) {
+    if (bucket < width && st[bucket] == p &&
+        !(skip_single && st[bucket + 1] == p + 1)) {
       int hi = st[bucket + 1];  // p starts its bucket's run
       if (n_valid != nullptr) hi = live_end(ord, p, hi, nv);
       if (hi > p && hi - p < kLong) {
@@ -318,7 +323,7 @@ namespace cs {
 int launch_run_scatter(const RunScatter& a, cudaStream_t st) {
   if (a.k <= 0 || a.ncols <= 0) return (int)cudaGetLastError();
   if (a.depth0 < 0 || a.depth0 > a.depth ||
-      (a.depth0 < a.depth && a.S1 == nullptr)) {
+      (a.depth0 < a.depth && a.S1 == nullptr) || a.starts_ld < a.width + 1) {
     return (int)cudaErrorInvalidValue;
   }
   auto aligned = [](const void* p) {
@@ -349,14 +354,14 @@ int launch_run_scatter(const RunScatter& a, cudaStream_t st) {
                              reinterpret_cast<const float4*>(a.x1), a.width1,
                              ld};
     run_scatter<float4><<<(unsigned)blocks, kThreads, ring, st>>>(
-        tg, a.order, a.starts, a.buckets, a.n_valid, a.width, ncols, a.k,
-        (int)long_blocks, a.skip_single);
+        tg, a.order, a.starts, a.buckets, a.n_valid, a.width, a.starts_ld,
+        ncols, a.k, (int)long_blocks, a.skip_single);
   } else {
     const Targets<float> tg{a.S0, a.x0, a.s0, a.depth0, a.width0,
                             a.S1, a.x1, a.width1, ld};
     run_scatter<float><<<(unsigned)blocks, kThreads, ring, st>>>(
-        tg, a.order, a.starts, a.buckets, a.n_valid, a.width, ncols, a.k,
-        (int)long_blocks, a.skip_single);
+        tg, a.order, a.starts, a.buckets, a.n_valid, a.width, a.starts_ld,
+        ncols, a.k, (int)long_blocks, a.skip_single);
   }
   return (int)cudaGetLastError();
 }
@@ -364,14 +369,18 @@ int launch_run_scatter(const RunScatter& a, cudaStream_t st) {
 }  // namespace cs
 
 // S (depth, width, d) f32 in place; order (depth, k) and starts (depth,
-// width + 1) from bucket_csr of buckets (depth, k); s (depth, k) or null;
+// csr_width + 1) from bucket_csr of buckets (depth, k) over csr_width >=
+// width buckets (csr_width = width + 1 for a slab: bucket width is
+// another shard's, and its items add nothing); s (depth, k) or null;
 // delta (k, d).
 extern "C" int cs_update_launch(float* S, const int* order, const int* starts,
                                 const int* buckets, const float* s,
                                 const float* delta, int depth, int width,
-                                int d, int k, void* stream) {
-  const cs::RunScatter a{S,     delta,  s,       depth,   width, nullptr,
-                         nullptr, width, order,  starts,  buckets, nullptr,
-                         depth, width,  d,       d,       k,       false};
+                                int csr_width, int d, int k, void* stream) {
+  if (csr_width < width) return (int)cudaErrorInvalidValue;
+  const cs::RunScatter a{S,       delta,   s,       depth,   width,
+                         nullptr, nullptr, width,   order,   starts,
+                         buckets, nullptr, depth,   width,   d,
+                         d,       k,       false,   csr_width + 1};
   return cs::launch_run_scatter(a, static_cast<cudaStream_t>(stream));
 }

@@ -16,6 +16,12 @@ is hashed once per (spec, n, device) and kept on the device.
 ``cs_update`` too (``_ordered_scatter``): on a card B5, in the CPU
 ``index_add_``'s order.
 
+The shard-local slab ops, ``ref | xla``: ``update_slab`` ``(spec, slab,
+ids, delta, shard) -> slab`` and ``gather_slab`` ``(spec, slab, ids,
+shard) -> (depth, k, dim)``, both ``core.sketch``'s forms: the gather is
+plain PyTorch on every device, the scatter B5 in slab mode on CUDA
+(``cs_update_slab``), its plain version on the CPU.
+
 Low-precision cells (bf16, int8; ``_lowp``) follow the reference's
 routes: the batch sketch ops and every sparse-rows backend run the
 whole-batch ``xla`` form through ``core.sketch`` (no B1, B2, B4 or B5),
@@ -304,3 +310,16 @@ def ema_update_read_tiled(spec: SketchSpec, S, ids, x, *, beta: float,
     seed = cs.sr_seed_or_default(spec, sr_seed) if spec.lowp else None
     return cs_ema_tiled(S, b, s, x.contiguous(), mask, beta=beta,
                         scale=scale, csr=csr, sr_seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# Shard-local slab ops
+# ---------------------------------------------------------------------------
+# The reference's 'xla' slab ops unroll its vmapped 'ref' forms into flat
+# XLA ops.  ``core.sketch``'s forms are already one gather a hash row and
+# one B5 launch (slab mode) a call, so 'xla' and 'ref' are one code here.
+# A bf16 slab sums in f32 and re-rounds stochastically under both names:
+# the reference's 'xla' adds in bf16 inside XLA's scatter, a rounding
+# order neither its own 'ref' nor any torch op follows.
+slab_update_xla = cs.update_slab
+slab_gather_xla = cs.gather_slab

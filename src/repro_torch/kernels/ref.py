@@ -54,6 +54,21 @@ def cs_update_ref(S: torch.Tensor, buckets: torch.Tensor,
     return S
 
 
+def cs_update_slab_ref(S: torch.Tensor, local: torch.Tensor,
+                       signs: Optional[torch.Tensor],
+                       delta: torch.Tensor) -> torch.Tensor:
+    """Slab UPDATE, IN PLACE: ``cs_update_ref`` of the items whose local
+    bucket lies in the slab, ``[0, S.shape[1])``; bucket ``S.shape[1]``
+    (another shard's) is dropped.  Returns S."""
+    lw = S.shape[1]
+    delta = delta.to(S.dtype)
+    for j in range(S.shape[0]):
+        keep = local[j] < lw
+        u = delta if signs is None else signs[j][:, None].to(S.dtype) * delta
+        S[j].index_add_(0, local[j][keep].long(), u[keep])
+    return S
+
+
 def adam_fused_ref(M: Optional[torch.Tensor], V: torch.Tensor,
                    bm: Optional[torch.Tensor], sm: Optional[torch.Tensor],
                    bv: torch.Tensor, g: torch.Tensor, *,

@@ -14,8 +14,11 @@ Counterpart of ``repro.plan.plan``; a plan is what the allocator emits:
   dict key for key, so a plan either package writes loads in the other;
 * ``table()`` / ``shard_table()``: the human-readable tables.
 
-A plan with ``sketch_shards > 1`` loads, serialises and accounts here;
-executing one (``store_tree``, ``make_optimizer``) waits for ROADMAP A13b.
+A plan with ``sketch_shards > 1`` stamps its stores and specs with the
+sharding: the sparse step runs each shard's slabs
+(``train.steps.make_sparse_embedding_step(sketch_shards=)``), and
+``make_optimizer``'s dense path runs the full tensors on one device, for
+which sharding is placement only.
 """
 from __future__ import annotations
 
@@ -135,19 +138,11 @@ class Plan:
                                        layout=self.shard_layout)
         return spec
 
-    def _single_device(self, what: str) -> None:
-        if self.sketch_shards > 1:
-            raise NotImplementedError(
-                f"{what} of a plan with sketch_shards={self.sketch_shards} "
-                f"is not ported yet (ROADMAP A13b); the port runs "
-                f"single-device plans")
-
     def store_tree(self, cleaning=None) -> StoreTree:
         """The per-path ``StoreTree`` executing this plan: exact-path
         rules with explicit specs (serialisable; rides in checkpoint
         manifests).  ``cleaning`` installs the Count-Min cleaning hook on
         every sketched 2nd moment."""
-        self._single_device("store_tree")
         track = self.track_first_moment
         default_m = DenseStore() if track else None
         rules = []
@@ -161,6 +156,14 @@ class Plan:
                 v = CountMinStore(spec=self._leaf_spec(l, signed=False),
                                   shape=l.shape, cleaning=cleaning,
                                   backend=self.backend)
+                if self.sketch_shards > 1:
+                    # the specs carry the sharding already; the factory
+                    # fields get it too, so the JSON round-trips it
+                    v = v.with_sharding(self.sketch_shards,
+                                        self.shard_layout)
+                    if isinstance(m, CountSketchStore):
+                        m = m.with_sharding(self.sketch_shards,
+                                            self.shard_layout)
                 rules.append((l.path, m, v))
             elif l.mode == MODE_RANK1:
                 rules.append((l.path, default_m, Rank1Store()))
@@ -202,8 +205,9 @@ class Plan:
         (dense_chunk, lazy, strict_paper); ``backend`` overrides the
         plan's own for this optimizer: every sketched leaf then runs its
         fused ``update_read`` through that kernel backend ('auto':
-        ``tiled``, B3, on a card) instead of the composed chunked form."""
-        self._single_device("make_optimizer")
+        ``tiled``, B3, on a card) instead of the composed chunked form.
+        A sharded plan's dense path runs the full tensors here, so B3
+        runs as for an unsharded one."""
         plan = self if backend is None else self.with_backend(backend)
         hp = base_hparams if base_hparams is not None else SketchHParams()
         return adam_from_stores(

@@ -5,9 +5,10 @@ Counterpart of ``repro.train.steps``.  ``dp_axis`` runs a step body as
 one replica of a data-parallel axis (``repro_torch.distributed.
 collectives``): each replica calls ``step_fn`` with its own shard of the
 batch and its own copy of the replicated params and state, where the
-reference wraps the body in ``shard_map``.  Placement on a mesh
-(``TrainStep.shardings``) waits for ROADMAP A13c, sharded sketches for
-A13b.
+reference wraps the body in ``shard_map``.  ``sketch_shards > 1`` runs
+the sparse step on one shard's slabs of the sketch state, each replica
+of a (dp × shard) grid holding its own (``distributed.slabs``).
+Placement on a mesh (``TrainStep.shardings``) waits for ROADMAP A13c.
 
 ``make_train_step(cfg, ...)`` returns a ``TrainStep``:
 
@@ -222,18 +223,26 @@ def sparse_embedding_stores(n_rows: int, dim: int, *,
                             hparams: Optional[SketchHParams] = None,
                             track_first_moment: bool = True,
                             cleaning: Optional[CleaningSchedule] = None,
-                            path: str = "sparse_embedding", stores=None):
+                            path: str = "sparse_embedding", stores=None,
+                            sketch_shards: int = 1,
+                            shard_layout: str = "width"):
     """The (m_store, v_store) pair ``make_sparse_embedding_step`` binds
-    for the same table arguments."""
+    for the same table arguments, re-stamped with the sharding as
+    ``sparse_rows_adam_sharded`` re-stamps it."""
     hp = hparams if hparams is not None else SketchHParams()
     m_store = v_store = None
     if stores is not None:
         m_store, v_store, track_first_moment = resolve_sparse_stores(
             stores, path, (n_rows, dim))
-    return opt_lib.sparse_rows_stores(
+    m_store, v_store = opt_lib.sparse_rows_stores(
         (int(n_rows), int(dim)), path, hp,
         track_first_moment=track_first_moment, cleaning=cleaning,
         m_store=m_store, v_store=v_store)
+    if sketch_shards > 1:
+        if m_store is not None:
+            m_store = m_store.with_sharding(sketch_shards, shard_layout)
+        v_store = v_store.with_sharding(sketch_shards, shard_layout)
+    return m_store, v_store
 
 
 def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
@@ -248,6 +257,8 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
                                error_feedback: bool = False,
                                dir_clip: Optional[float] = 10.0,
                                sketch_shards: int = 1,
+                               shard_layout: str = "width",
+                               shard_axis="model",
                                device="cuda"):
     """Train step for the (ids, grad-rows) regime, where per-step work is
     O(touched rows).  Returns ``(init_fn, step_fn, optimizer)``:
@@ -273,19 +284,37 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
     evolves as the single-device step's on the concatenated batch; the
     2nd misses the cross-replica square terms unless ``error_feedback``
     adds the residual sketch, and ``dir_clip`` trust-clamps the direction
-    (None disables).  Both apply only with ``dp_axis``.  Sharded sketches
-    (``sketch_shards > 1``) wait for ROADMAP A13b."""
-    if sketch_shards > 1:
-        raise NotImplementedError(
-            "sharded sketches (sketch_shards > 1) are not ported yet "
-            "(ROADMAP A13b); the port runs replicated sketches")
+    (None disables).  Both apply only with ``dp_axis`` or sharding.
+
+    ``sketch_shards > 1``: the sketch state is cut into width slabs over
+    ``shard_axis`` (layout 'width' or 'hash'; ``sparse_rows_adam_
+    sharded``).  ``opt.init()`` is the full state; each replica of the
+    (dp × shard) grid calls ``step_fn`` with its shard's slabs of it
+    (``distributed.slabs.shard_state(state, sketch_shards,
+    shard_axis.rank)``), its dp shard of the batch (the whole batch
+    without ``dp_axis``) and its own copy of the table, which every
+    replica updates alike.  The shard axis must have exactly
+    ``sketch_shards`` replicas, checked at call time with the slab's
+    shape."""
     hp = hparams if hparams is not None else SketchHParams()
     m_store = v_store = None
     if stores is not None:
         # the tree's moment layout is authoritative
         m_store, v_store, track_first_moment = resolve_sparse_stores(
             stores, path, (n_rows, dim))
-    if dp_axis is None:
+    if sketch_shards > 1:
+        m_store, v_store = sparse_embedding_stores(
+            n_rows, dim, hparams=hp, track_first_moment=track_first_moment,
+            cleaning=cleaning, path=path, stores=stores,
+            sketch_shards=sketch_shards, shard_layout=shard_layout)
+        opt = opt_lib.sparse_rows_adam_sharded(
+            lr, b1=b1, b2=b2, eps=eps, shape=(n_rows, dim), path=path,
+            shards=sketch_shards, shard_layout=shard_layout,
+            shard_axis=shard_axis, dp_axis=dp_axis, hparams=hp,
+            track_first_moment=track_first_moment, cleaning=cleaning,
+            error_feedback=error_feedback, dir_clip=dir_clip,
+            m_store=m_store, v_store=v_store, device=device)
+    elif dp_axis is None:
         opt = opt_lib.sparse_rows_adam(
             lr, b1=b1, b2=b2, eps=eps, shape=(n_rows, dim), path=path,
             hparams=hp, track_first_moment=track_first_moment,
@@ -305,7 +334,7 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
                             dtype=torch.float32, device=device)
         return table * scale.to(device)
 
-    if dp_axis is None:
+    if dp_axis is None and sketch_shards == 1:
         first_only = opt_lib.first_occurrence_only(hp, v_store, device)
 
         def apply(table, updates):
@@ -315,8 +344,29 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
         apply = opt_lib.apply_unique_updates
 
     def step_fn(table, opt_state, ids, grad_rows):
+        if sketch_shards > 1:
+            _check_slab(v_store.spec.slab_shape, sketch_shards, shard_axis,
+                        opt_state)
         updates, opt_state = opt.update(
             {"ids": ids, "rows": grad_rows}, opt_state)
         return apply(table, updates), opt_state
 
     return init_fn, step_fn, opt
+
+
+def _check_slab(want, sketch_shards: int, shard_axis, opt_state) -> None:
+    """The shard axis has ``sketch_shards`` replicas and the state handed
+    in holds one shard's (depth, local_width, dim) slab."""
+    from repro_torch.distributed.collectives import as_axis
+    size = as_axis(shard_axis).size
+    if size != sketch_shards:
+        raise ValueError(
+            f"sketch_shards={sketch_shards} needs the shard axis to be "
+            f"exactly that size, got {size}: each replica must hold one "
+            f"shard's (depth, local_width, dim) slab")
+    got = tuple(opt_state["v"].shape)
+    if got != want:
+        raise ValueError(
+            f"the v state handed to a sharded step is {got}, not one "
+            f"shard's slab {want}: cut opt.init() with "
+            f"distributed.slabs.shard_state")

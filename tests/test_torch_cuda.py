@@ -1113,3 +1113,103 @@ def test_decode_matches_prefill_on_the_card(cuda_device):
         logits, cache = ss.decode_fn(params, cache, nxt)
         want, _ = ss.prefill_fn(params, {"tokens": seq})
         torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------------ sharded slabs
+@pytest.mark.parametrize("layout", ["width", "hash"])
+@pytest.mark.parametrize("signed", [True, False])
+def test_slab_scatter_equals_plain_and_cpu(cuda_device, layout, signed):
+    """B5 in slab mode (``cs_update_slab``): bit-equal to its plain version
+    on a collision-free batch, within atol 2e-5 of it under collisions and
+    bit-equal to a CPU copy there; the shards' slabs concatenate to the
+    full-width B5 update to the bit."""
+    from repro_torch.kernels.cs_update import cs_update_slab
+    dev = cuda_device
+    spec = cs.SketchSpec(depth=3, width=4096, dim=96, signed=signed,
+                         seed=5, shards=4, layout=layout)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for ids in (torch.randperm(4096, generator=gen, device=dev)[:64],
+                torch.randint(0, 300, (2048,), generator=gen, device=dev)):
+        ids = ids.to(torch.int32)
+        rows = torch.randn((ids.numel(), spec.dim), generator=gen,
+                           device=dev)
+        signs = spec.family.sign(ids) if signed else None
+        full = cs.update(spec, cs.init(spec, dev), ids, rows)
+        slabs = []
+        for s in range(spec.shards):
+            local, _ = cs._slab_buckets(spec, ids, s)
+            start = torch.randn(spec.slab_shape, generator=gen, device=dev)
+            got = cs_update_slab(start.clone(), local, signs, rows)
+            want = ref.cs_update_slab_ref(start.clone(), local, signs, rows)
+            host = ref.cs_update_slab_ref(start.cpu(), local.cpu(),
+                                          None if signs is None
+                                          else signs.cpu(), rows.cpu())
+            assert torch.equal(got.cpu(), host)
+            assert float((got - want).abs().max()) <= 2e-5
+            if ids.numel() == 64:
+                assert torch.equal(got, want)
+            slabs.append(cs.update_slab(spec, cs.init_slab(spec, dev), ids,
+                                        rows, s))
+        assert torch.equal(torch.cat(slabs, dim=1), full)
+
+
+def test_sharded_step_on_the_card_equals_dp_step(cuda_device):
+    """The 2 x 2 sharded step (``ReplicaMesh`` threads on the card) equals
+    the DP step at dp 2 to the bit over 3 dyadic steps, and a CPU copy."""
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.core.stores import StoreTree
+    from repro_torch.distributed import (ReplicaGroup, ReplicaMesh,
+                                         join_slabs, shard_state)
+    from repro_torch.train.steps import sparse_embedding_stores
+    n, d, k = 4096, 64, 512
+    hp = SketchHParams(compression=4.0, width_multiple=64)
+    kw = dict(lr=1e-2, b1=0.5, b2=0.5, hparams=hp)
+    gen = torch.Generator().manual_seed(1)
+    batches = [(torch.randint(0, n // 4, (k,), generator=gen,
+                              dtype=torch.int32),
+                torch.randint(-3, 4, (k, d), generator=gen).float())
+               for _ in range(3)]
+    table0 = torch.randn((n, d), generator=gen)
+
+    def sharded(dev):
+        mesh = ReplicaMesh((2, 2), timeout=120.0)
+        _, step, opt = make_sparse_embedding_step(
+            n, d, sketch_shards=2, dp_axis=mesh.axis("data"),
+            shard_axis=mesh.axis("model"), error_feedback=True,
+            device=dev, **kw)
+        full = opt.init()
+        tabs = [table0.clone().to(dev) for _ in range(4)]
+        sts = [shard_state(full, 2, r % 2) for r in range(4)]
+        for ids, rows in batches:
+            outs = mesh.run(step, [
+                (tabs[r], sts[r], ids[(r // 2) * (k // 2):][:k // 2].to(dev),
+                 rows[(r // 2) * (k // 2):][:k // 2].to(dev))
+                for r in range(4)])
+            tabs, sts = [o[0] for o in outs], [o[1] for o in outs]
+        return tabs[0].cpu(), {key: v.cpu() for key, v in
+                               join_slabs(sts[:2]).items()
+                               if isinstance(v, torch.Tensor)}
+
+    def dp(dev):
+        m_st, v_st = sparse_embedding_stores(n, d, hparams=hp,
+                                             sketch_shards=2)
+        group = ReplicaGroup(2, timeout=120.0)
+        _, step, opt = make_sparse_embedding_step(
+            n, d, stores=StoreTree(rules=(("sparse_embedding", m_st,
+                                           v_st),)),
+            dp_axis=group, error_feedback=True, device=dev, **kw)
+        tabs = [table0.clone().to(dev) for _ in range(2)]
+        sts = [opt.init() for _ in range(2)]
+        for ids, rows in batches:
+            outs = group.run(step, [
+                (tabs[r], sts[r], ids[r * (k // 2):][:k // 2].to(dev),
+                 rows[r * (k // 2):][:k // 2].to(dev)) for r in range(2)])
+            tabs, sts = [o[0] for o in outs], [o[1] for o in outs]
+        return tabs[0].cpu(), {key: v.cpu() for key, v in sts[0].items()
+                               if isinstance(v, torch.Tensor)}
+
+    got, want, host = sharded(cuda_device), dp(cuda_device), sharded("cpu")
+    for other in (want, host):
+        assert torch.equal(got[0], other[0])
+        for key in ("m", "v", "residual"):
+            assert torch.equal(got[1][key], other[1][key]), key

@@ -644,9 +644,23 @@ def test_dp_arguments_rejected_as_in_the_reference():
         t_adapt(N, D, error_feedback=True, device="cpu")
     with pytest.raises(ValueError, match="dir_clip"):
         t_adapt(N, D, dir_clip=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        TS.make_sparse_embedding_step(N, D, sketch_shards=2,
-                                      dp_axis=_group(), device="cpu")
+    # the sharded dp step is ported (tests/test_torch_sharded.py): it
+    # refuses a shard axis of another size than sketch_shards, as the
+    # reference's refuses such a mesh
+    from repro.distributed import sharding as shd
+    from repro.train.steps import make_sparse_embedding_step as j_make
+    ids, rows = (a[0] for a in _shards(0))
+    _, t_step, t_opt = TS.make_sparse_embedding_step(
+        N, D, sketch_shards=2, dp_axis=_group(), shard_axis=_group(),
+        device="cpu")
+    with pytest.raises(ValueError, match="exactly that size"):
+        t_step(_t(_table0()), t_opt.init(), _t(ids), _t(rows))
+    _, j_step, j_opt = j_make(N, D, sketch_shards=2, dp_axis="data",
+                              mesh=shd.make_mesh_compat((1, 1),
+                                                        ("data", "model")))
+    with pytest.raises(ValueError, match="exactly that size"):
+        j_step(jnp.asarray(_table0()), j_opt.init(), jnp.asarray(ids),
+               jnp.asarray(rows))
     with pytest.raises(NotImplementedError, match="A13c"):
         tx.make_extreme_step(tx.MachConfig(**X_KW), mesh=object(),
                              dp_axis=_group(), device="cpu")

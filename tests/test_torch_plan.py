@@ -127,8 +127,14 @@ def test_fold_errors():
         TS.SketchSpec(depth=3, width=6 * 64 + 1, dim=4).fold()
     with pytest.raises(ValueError, match="shard"):
         TS.SketchSpec(depth=3, width=6, dim=4, shards=6).fold()
-    with pytest.raises(NotImplementedError, match="A13"):
-        TS.SketchSpec(depth=3, width=64, dim=4, shards=2,
+    # the hash layout folds per slab, as the reference's does
+    got = TS.SketchSpec(depth=3, width=64, dim=4, shards=2,
+                        layout="hash").fold()
+    want = JS.SketchSpec(depth=3, width=64, dim=4, shards=2,
+                         layout="hash").fold()
+    assert TST.spec_to_json(got) == JST.spec_to_json(want)
+    with pytest.raises(ValueError, match="shard"):
+        TS.SketchSpec(depth=3, width=12, dim=4, shards=4,
                       layout="hash").fold()
 
 
@@ -299,7 +305,7 @@ def test_plan_for_tables_matches_reference(mode, dtype):
             except TP.InfeasibleBudgetError as e:
                 got, plan = ("infeasible", e.floor), None
             assert got == want, (budget, shards)
-            if plan is not None and shards == 1:
+            if plan is not None:
                 state = plan.make_optimizer(1e-3).init(
                     TP.accounting.meta_params(
                         {p: TP.ShapeDtype(s) for p, s in TABLES.items()}))
@@ -315,10 +321,22 @@ def test_plan_errors_match_reference():
     with pytest.raises(ValueError, match="divisible"):
         TP.plan_for_params(_pair(_shapes())[1], 10**9, width_multiple=16,
                            shards=3)
+    # a sharded plan executes: its StoreTree is the reference's, and its
+    # optimizer's state the full tensors, as the reference's is
     plan = TP.plan_for_tables(TABLES, "0.05x").with_sharding(2)
-    for call in (plan.store_tree, lambda: plan.make_optimizer(1e-3)):
-        with pytest.raises(NotImplementedError, match="A13"):
-            call()
+    jplan = JP.plan_for_tables(TABLES, "0.05x").with_sharding(2)
+    assert plan.store_tree().to_json() == jplan.store_tree().to_json()
+    shapes = {p: TP.ShapeDtype(s) for p, s in TABLES.items()}
+    state = plan.make_optimizer(1e-3).init(
+        TP.accounting.meta_params(shapes))
+    j_state = jax.eval_shape(jplan.make_optimizer(1e-3).init, {
+        p: jax.ShapeDtypeStruct(s, jnp.float32) for p, s in TABLES.items()})
+    for moment in ("m", "v"):
+        for path in TABLES:
+            got, want = state[moment][path], j_state[moment][path]
+            assert (got is None) == (want is None)
+            assert got is None or tuple(got.shape) == tuple(want.shape)
+    assert TP.measure_aux_bytes(state) == plan.predicted_aux_bytes
     # registry models plan now; the families the port lacks name A14b
     from repro_torch import configs
     from repro_torch.plan import cli
@@ -406,9 +424,7 @@ def test_plan_json_round_trips_through_the_port():
         tplan = TP.Plan.from_json(d)
         assert tplan.to_json() == d
         assert tplan.table() == jplan.table()
-        if tplan.sketch_shards == 1:
-            assert tplan.store_tree().to_json() == \
-                jplan.store_tree().to_json()
+        assert tplan.store_tree().to_json() == jplan.store_tree().to_json()
 
 
 def test_port_specs_serialise_as_the_reference():

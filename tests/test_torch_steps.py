@@ -125,8 +125,23 @@ def test_store_tree_drives_the_step():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="A13b"):
-        t_make(N, D, sketch_shards=2, device="cpu")
+    # sharded sketches are ported (tests/test_torch_sharded.py): the
+    # sharded step's optimizer makes the reference's full-width state,
+    # and its stores carry the reference's sharded specs
+    t_state = t_make(N, D, sketch_shards=2, device="cpu")[2].init()
+    j_state = j_make(N, D, sketch_shards=2)[2].init()
+    assert set(t_state) == set(j_state) == {"step", "m", "v", "residual"}
+    for k in ("m", "v"):
+        assert tuple(t_state[k].shape) == tuple(j_state[k].shape)
+    assert t_state["residual"] is None and j_state["residual"] is None
+    from repro.core.stores import spec_to_json as j_json
+    from repro.train.steps import sparse_embedding_stores as j_stores
+    from repro_torch.core.stores import spec_to_json as t_json
+    from repro_torch.train.steps import sparse_embedding_stores as t_stores
+    for t, j in zip(t_stores(N, D, sketch_shards=2, shard_layout="hash"),
+                    j_stores(N, D, sketch_shards=2, shard_layout="hash")):
+        assert t_json(t.spec) == j_json(j.spec)
+        assert (t.shards, t.shard_layout) == (j.shards, j.shard_layout)
     # data parallelism is ported (tests/test_torch_dp.py): the dp steps
     # build, with the reference's {"step", "m", "v", "residual"} state
     assert set(t_make(N, D, dp_axis="data", device="cpu")[2].init()) \

@@ -273,6 +273,35 @@ own line; any failure raises and the exit code is not 0:
      bit and ``with_sharding(4, "hash")`` equal to its ``xla`` witness to
      the bit, 5 steps each on ``make_optimizer(backend="auto")``: B3
      twice a step, the loss falls.  ``--phases 13`` runs phase 13 alone.
+ 14. placement, elastic recovery and the launcher's distributed flags,
+     ``--workload sparse_embedding`` at phase 3's table (compression 5,
+     width 10,240), 16,384 ids a step (``--batch 8 --seq 2048``), lr
+     3e-5.  14a: ``launch.train.main`` in this process, 20 steps, a
+     checkpoint every 10: B1 exactly 20 launches, ms a step printed,
+     finite losses whose median over the last 10 steps is below the
+     first 10's, and the exit code the launcher's own rule of its
+     windows (their means also carry the spikes of rows a polluted
+     count-sketch median threw off, which are counted: PERF.md §6).
+     14b: ``python -m torch.distributed.run --standalone
+     --nproc-per-node 1`` (NCCL at world size 1) of this script's
+     ``--launcher-child``, which calls ``launch.train.main`` as ``-m
+     repro_torch.launch.train`` does and prints its launches: the sparse
+     workload under ``--dp --error-feedback`` for 10 steps (B5, no B1)
+     and qwen2-0.5b ``--dp`` for 3 steps (B3 exactly 12); each exits 0
+     with dp=True in its line.  14c: ``plan_resize(3, model_axis=1,
+     old_data_axis=4)`` gives data 2 and a fold; ``elastic_restore`` of
+     14a's checkpoint on the card folds M and V to width 5,120, equal to
+     ``fold_sketches`` of a CPU copy to the bit, the table unchanged;
+     10 steps on the folded family (B1 10) with finite losses whose
+     median is below 14a's first 10's.  14d: ``recovery_loop`` around the
+     launcher's ``Trainer`` failing once at step 15: one restart, the
+     step-20 table and sketches equal to 14a's to the bit.  14e: the
+     launcher's sparse run on ``ReplicaMesh`` threads, 1 x 4 width
+     layout, 5 steps (B5 only); its global-leaf checkpoint restored with
+     ``restore(shardings=)`` onto 1 x 2, each slab its block to the bit;
+     5 further steps there (the re-placement message); a hash-layout
+     checkpoint refused at another shard count.  ``--phases 14`` runs
+     phase 14 alone.
 
 Phase 2 also holds B3's bf16 branch to its plain version (bit-equal on a
 CPU copy; within one bf16 ulp plus the f32 collision envelope of the
@@ -280,7 +309,7 @@ plain version on the card, whose index_add_ sums in atomic order), and
 phase 5 times it at the dense path's shapes.  Each phase prints its wall
 time.  It prints the kernels' JSON line (each path's launches beside the
 total: ``launches_dp_path`` is phase 12's, ``launches_sharded_path``
-phase 13's), the
+phase 13's, ``launches_placement_path`` phase 14's), the
 card's name and power limit and, last, ``{"ok": true, "device":
 {...}}``.  With no card it prints no result and exits 2.
 """
@@ -4623,12 +4652,445 @@ def phase_sharded_dense(dev, task):
             for name in runs["width"][2]}
 
 
+# ---------------------------------------------------------------- phase 14
+# lr 3e-5: at this table the single-device step's loss trend falls for
+# every lr from 1e-5 up, but an id whose count-sketch median of M is
+# polluted by a head id while its count-min V is clean takes a step of
+# many lr, and its row spikes the loss of every later batch that holds
+# it, in proportion to lr squared (PERF.md §6); the DP route's
+# dir_clip bounds such steps
+P14_STEPS, P14_CKPT_EVERY, P14_LR = 20, 10, 3e-5
+P14_FOLD_STEPS, P14_SH_STEPS, P14_DP_STEPS, P14_FAIL_AT = 10, 5, 10, 15
+P14_TIMEOUT = 900.0            # s for one torch.distributed.run child
+
+
+def p14_argv(dev, seed: int, ckpt: Path, steps: int, *extra) -> list:
+    """The launcher's ``--workload sparse_embedding`` flags at qwen2-0.5b's
+    full table (compression 5, depth 3: width 10,240), 16,384 ids a
+    step."""
+    argv = ["--workload", "sparse_embedding", "--sparse-rows", str(VOCAB),
+            "--sparse-dim", str(D_MODEL), "--sparse-compression", "5",
+            "--batch", str(BATCH), "--seq", str(SEQ), "--lr", str(P14_LR),
+            "--seed", str(seed), "--steps", str(steps), "--ckpt-every",
+            str(P14_CKPT_EVERY), "--ckpt-dir", str(ckpt), *extra]
+    return argv + (["--device", "cpu"] if dev.type == "cpu" else [])
+
+
+def p14_main(argv) -> tuple:
+    """``(exit code, stdout lines, per-step losses)`` of
+    ``launch.train.main(argv)`` in this process."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    base, losses = train.Trainer, []
+
+    class Kept(base):
+        def fit(self, state):
+            try:
+                return super().fit(state)
+            finally:
+                losses.extend(h["loss"] for h in self.history)
+
+    out = io.StringIO()
+    train.Trainer = Kept
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train.main(argv)
+    finally:
+        train.Trainer = base
+    return rc, out.getvalue().splitlines(), losses
+
+
+def spikes(losses) -> int:
+    """Steps whose loss passes the lowest before them by more than 10%:
+    batches holding a row that a polluted-median step threw off."""
+    return sum(l > 1.1 * min(losses[:i]) for i, l in enumerate(losses)
+               if i)
+
+
+def p14_line(lines, prefix="[train] workload=") -> str:
+    got = [l for l in lines if l.startswith(prefix)]
+    if not got:
+        raise AssertionError(f"no {prefix!r} line in {lines[-5:]}")
+    return got[-1]
+
+
+def p14_ms(lines) -> str:
+    """The launcher's ms-a-step line."""
+    got = [l for l in lines if l.startswith("[train] ") and "ms a step" in l]
+    if not got:
+        raise AssertionError("the launcher printed no ms a step")
+    return got[-1][len("[train] "):]
+
+
+def p14_leaves(ckpt: Path, step=None, device="cpu") -> dict:
+    """A sparse_embedding checkpoint's global leaves."""
+    from repro_torch.checkpoint import store
+    like = {"params": 0, "opt_state": {"step": 0, "m": 0, "v": 0}}
+    return store.restore(ckpt, like, step=step, device=device)[1]
+
+
+def launcher_child(argv) -> int:
+    """``--launcher-child ARGS``: ``repro_torch.launch.train.main(ARGS)``
+    as ``python -m repro_torch.launch.train ARGS`` runs it (phase 14b
+    starts it under ``torch.distributed.run``), then, on rank 0, the
+    kernels' launch counts of the run as ``[counts] {json}``."""
+    import os
+    from repro_torch.launch import train
+    reset_counts()
+    rc = train.main(argv)
+    if os.environ.get("RANK", "0") == "0":
+        print("[counts] " + json.dumps(read_counts()), flush=True)
+    return rc
+
+
+def phase_placement(dev, seed: int):
+    """Phase 14: placement, elastic recovery and the launcher's
+    distributed flags (14a-e).  Returns the launches of the path."""
+    import torch
+    tmp = ROOT / "build" / "ckpt-14"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    totals: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    try:
+        counts, losses = phase_p14_launcher(dev, seed, tmp)
+        add(counts)
+        add(phase_p14_torchrun(dev, seed, tmp))
+        add(phase_p14_fold(dev, seed, tmp, losses))
+        add(phase_p14_recovery(dev, seed, tmp))
+        add(phase_p14_replace(dev, seed, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    log(f"phase 14: launches of the path {totals}")
+    return totals
+
+
+def phase_p14_launcher(dev, seed: int, tmp: Path) -> tuple:
+    """14a: the launcher in this process, 20 steps, a checkpoint every 10:
+    B1 once a step, finite losses whose median over the last 10 steps is
+    below the first 10's (the trend; the mean the exit code reads also
+    carries the spikes, which are counted), the exit code the launcher's
+    own rule of its windows.  Returns the launches and the losses."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, lines, losses = p14_main(p14_argv(dev, seed, tmp / "a", P14_STEPS))
+    counts = read_counts()
+    h = P14_STEPS // 2
+    med = (float(np.median(losses[:h])), float(np.median(losses[h:])))
+    fell = float(np.mean(losses[h:])) < float(np.mean(losses[:h]))
+    log(f"phase 14a: launch.train --workload sparse_embedding rc {rc} in "
+        f"{time.perf_counter() - t0:.1f} s: {p14_line(lines)}; "
+        f"{p14_ms(lines)}; per-step losses {losses}; medians of the two "
+        f"halves {med[0]} -> {med[1]}; {spikes(losses)} spiked steps; "
+        f"launches {counts}")
+    if counts["cs_adam_tiled"] != P14_STEPS or len(losses) != P14_STEPS \
+            or not np.all(np.isfinite(losses)) or rc != (0 if fell else 1) \
+            or not med[1] < med[0]:
+        raise AssertionError("14a: the sparse_embedding launcher did not "
+                             "train through B1")
+    return counts, losses
+
+
+def phase_p14_torchrun(dev, seed: int, tmp: Path) -> dict:
+    """14b: ``torch.distributed.run --standalone --nproc-per-node 1`` (NCCL
+    at world size 1): the sparse workload under ``--dp --error-feedback``
+    and qwen2-0.5b under ``--dp``; each exits 0 with dp=True in its
+    line."""
+    import os
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()      # the children share the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs = [("sparse_embedding --dp --error-feedback",
+             p14_argv(dev, seed, tmp / "b", P14_DP_STEPS, "--dp",
+                      "--error-feedback")),
+            ("lm --dp", ["--arch", LM_ARCH, "--steps", "3", "--batch",
+                         str(LM_BATCH), "--seq", str(LM_SEQ),
+                         "--store-backend", "auto", "--seed", str(seed),
+                         "--dp"] + (["--device", "cpu", "--reduced"]
+                                    if dev.type == "cpu" else []))]
+    totals = {}
+    for name, argv in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", str(ROOT / "chip_smoke.py"),
+             "--launcher-child", *argv], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=P14_TIMEOUT)
+        lines = proc.stdout.splitlines()
+        if proc.returncode != 0:
+            log(proc.stdout[-3000:])
+            log(proc.stderr[-3000:])
+            raise AssertionError(f"14b: {name} exited {proc.returncode}")
+        counts = json.loads(p14_line(lines, "[counts] ")[len("[counts] "):])
+        line = p14_line(lines, "[train] ")
+        ms = p14_ms(lines) if name.startswith("sparse") else "(3 steps)"
+        log(f"phase 14b: torch.distributed.run {name}: rc 0 in "
+            f"{time.perf_counter() - t0:.1f} s: {line}; {ms}; launches "
+            f"{counts}")
+        if "dp=True" not in line:
+            raise AssertionError(f"14b: {name} did not run with dp=True")
+        want_b3 = 12 if name.startswith("lm") else 0
+        if counts["cs_ema_tiled"] != want_b3 or (
+                name.startswith("sparse") and (counts["cs_update"] == 0
+                                               or counts["cs_adam_tiled"])):
+            raise AssertionError(f"14b: {name} launched {counts}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def phase_p14_fold(dev, seed: int, tmp: Path, trained) -> dict:
+    """14c: ``plan_resize`` and ``elastic_restore`` of 14a's checkpoint on
+    the card: M and V folded from width 10,240 to 5,120 bit-equal to
+    ``fold_sketches`` of a CPU copy, the table unchanged, then 10 steps
+    on the folded family (B1) with finite losses whose median is below
+    that of 14a's first 10 (``trained``: 14a's losses)."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.core.stores import StoreTree
+    from repro_torch.data import ZipfLM, ZipfLMConfig
+    from repro_torch.distributed import elastic_restore, plan_resize
+    from repro_torch.launch import train
+    from repro_torch.train.steps import (make_sparse_embedding_step,
+                                         sparse_embedding_stores)
+    plan = plan_resize(3, model_axis=1, old_data_axis=4)
+    log(f"phase 14c: plan_resize(3, model_axis=1, old_data_axis=4) -> "
+        f"{plan}")
+    if (plan.data_axis, plan.fold_sketch) != (2, True):
+        raise AssertionError("14c: plan_resize did not give data 2 and a "
+                             "fold")
+    like = {"params": 0, "opt_state": {"step": 0, "m": 0, "v": 0}}
+    bare = ("opt_state/m", "opt_state/v")
+    t0 = time.perf_counter()
+    step, tree, folded = elastic_restore(
+        tmp / "a", like, plan, device=dev,
+        is_sketch=lambda path, _leaf: path in bare)
+    secs = time.perf_counter() - t0
+    host = p14_leaves(tmp / "a")
+    want = store.fold_sketches(host, lambda path, _leaf: path in bare)
+    st = tree["opt_state"]
+    before = sum(sketch_bytes(host["opt_state"][k]) for k in ("m", "v"))
+    after = sum(sketch_bytes(st[k]) for k in ("m", "v"))
+    same = {k: torch.equal(st[k].cpu(), want["opt_state"][k])
+            for k in ("m", "v")}
+    table_same = torch.equal(tree["params"].cpu(), host["params"])
+    log(f"phase 14c: elastic_restore of 14a's step-{step} checkpoint in "
+        f"{secs:.2f} s: folded {folded}, M {tuple(host['opt_state']['m'].shape)}"
+        f" -> {tuple(st['m'].shape)}, V -> {tuple(st['v'].shape)}, equal to "
+        f"fold_sketches of a CPU copy to the bit {same}; table unchanged "
+        f"{table_same}; sketch state {before} B -> {after} B")
+    if step != P14_STEPS or not all(same.values()) or not table_same \
+            or st["v"].shape[1] * 2 != host["opt_state"]["v"].shape[1] \
+            or after * 2 != before:
+        raise AssertionError("14c: the folded restore is wrong")
+    hp = SketchHParams(compression=5.0)
+    m_st, v_st = sparse_embedding_stores(VOCAB, D_MODEL, hparams=hp)
+    stores = StoreTree(rules=(("sparse_embedding",
+                               dataclasses.replace(m_st, spec=m_st.spec.fold()),
+                               dataclasses.replace(v_st, spec=v_st.spec.fold())),))
+    init_fn, step_fn, _opt = make_sparse_embedding_step(
+        VOCAB, D_MODEL, lr=P14_LR, hparams=hp, stores=stores, device=dev)
+    target = train.sparse_target(init_fn, seed, dev)
+    data = ZipfLM(ZipfLMConfig(vocab_size=VOCAB, seq_len=SEQ,
+                               global_batch=BATCH, seed=seed))
+    table = tree["params"]
+    reset_counts()
+    losses = []
+    for s in range(P14_STEPS, P14_STEPS + P14_FOLD_STEPS):
+        ids = torch.from_numpy(data.batch(s)["tokens"].reshape(-1)).to(dev)
+        rows = table[ids] - target[ids]
+        losses.append(float(torch.mean(torch.square(rows))))
+        table, st = step_fn(table, st, ids, rows)
+    counts = read_counts()
+    first = float(np.median(trained[:P14_STEPS // 2]))
+    last = float(np.median(losses))
+    log(f"phase 14c: {P14_FOLD_STEPS} steps on the folded family: losses "
+        f"{losses}; median {last} against 14a's first {P14_STEPS // 2} "
+        f"steps' {first}; {spikes(trained + losses)} spiked steps in 14a "
+        f"and 14c; launches {counts}")
+    if not np.all(np.isfinite(losses)) or not last < first \
+            or counts["cs_adam_tiled"] != P14_FOLD_STEPS:
+        raise AssertionError("14c: the folded family did not train on B1")
+    return counts
+
+
+def phase_p14_recovery(dev, seed: int, tmp: Path) -> dict:
+    """14d: ``recovery_loop`` around the launcher's ``Trainer`` failing
+    once at step 15 of 20: one restart (from the step-10 checkpoint), and
+    the step-20 table and sketches equal to 14a's to the bit."""
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.distributed import recovery_loop
+    from repro_torch.launch import train
+    fail = [P14_FAIL_AT]
+    base = train.Trainer
+
+    class FailOnce(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, fail_at=fail.pop() if fail else None, **kw)
+
+        def fit(self, state):
+            try:
+                return super().fit(state)
+            except RuntimeError:
+                if self._pending_ckpt is not None:
+                    self._pending_ckpt.join()   # the step-10 write
+                raise
+
+    ckpt = tmp / "d"
+    rcs, seen = [], []
+
+    def run_steps(start, total):
+        rc, lines, _losses = p14_main(p14_argv(dev, seed, ckpt, total))
+        rcs.append((rc, p14_line(lines)))
+        return store.latest_step(ckpt)
+
+    def restore():
+        return store.latest_step(ckpt) or 0
+
+    reset_counts()
+    train.Trainer = FailOnce
+    try:
+        out = recovery_loop(run_steps, restore, total_steps=P14_STEPS,
+                            on_failure=lambda e: seen.append(str(e)))
+    finally:
+        train.Trainer = base
+    counts = read_counts()
+    got, want = p14_leaves(ckpt, P14_STEPS), p14_leaves(tmp / "a",
+                                                        P14_STEPS)
+    same = {"table": torch.equal(got["params"], want["params"]),
+            **{k: torch.equal(got["opt_state"][k], want["opt_state"][k])
+               for k in ("m", "v")}}
+    log(f"phase 14d: recovery_loop: {out}; failures {seen}; launcher "
+        f"runs {rcs}; step-20 state equal to 14a's to the bit {same}; "
+        f"launches {counts}")
+    if out.restarts != 1 or out.final_step != P14_STEPS \
+            or not all(same.values()) \
+            or counts["cs_adam_tiled"] != P14_STEPS + P14_FAIL_AT \
+            - P14_CKPT_EVERY:
+        raise AssertionError("14d: the recovered run is not 14a's")
+    return counts
+
+
+def phase_p14_replace(dev, seed: int, tmp: Path) -> dict:
+    """14e: the launcher's sharded run on ``ReplicaMesh`` threads (1 x 4,
+    width layout, phase 13a's table and 16,384 ids) for 5 steps, its
+    global-leaf checkpoint restored onto 1 x 2 (each slab the block of
+    the saved leaf, to the bit), 5 further steps there on B5's slab mode;
+    a hash-layout checkpoint refused at another shard count."""
+    import argparse
+    import contextlib
+    import io
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.distributed import ReplicaMesh
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+
+    def on_mesh(shape, argv):
+        """The launcher's sparse run on ``ReplicaMesh`` threads: (each
+        replica's exit code or refusal, the printed lines)."""
+        args = train.parser().parse_args(argv)
+        size = shape[0] * shape[1]
+        _shape, grid = train.grid_shapes(args, size)
+        mesh = ReplicaMesh(shape, timeout=GROUP_TIMEOUT)
+
+        def replica():
+            a = argparse.Namespace(**vars(args))
+            a.rank = mesh.rank
+            try:
+                return train.run_sparse_embedding(a, dev, mesh, grid)
+            except ValueError as e:
+                return f"ValueError: {e}"
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):   # one redirect, all threads
+            rcs = mesh.run(replica, [()] * size)
+        return rcs, out.getvalue().splitlines()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rcs, lines = on_mesh((1, 4), p14_argv(dev, seed, tmp / "e",
+                                          P14_SH_STEPS, "--sketch-shards",
+                                          "4"))
+    first = read_counts()
+    log(f"phase 14e: 1 x 4 width-layout launcher run, {P14_SH_STEPS} steps:"
+        f" exit codes {rcs} in {time.perf_counter() - t0:.1f} s: "
+        f"{p14_line(lines)}; {p14_ms(lines)}; launches {first}")
+    if first["cs_update"] == 0 or first["cs_adam_tiled"]:
+        raise AssertionError("14e: the sharded run did not write slabs "
+                             "through B5 alone")
+    saved = p14_leaves(tmp / "e")
+    like = {"params": 0, "opt_state": {"step": 0, "m": 0, "v": 0}}
+    specs = {"params": (), "opt_state": {"step": (), "m": (None, "model"),
+                                         "v": (None, "model")}}
+    half = ReplicaMesh((1, 2), timeout=GROUP_TIMEOUT)
+
+    def reread():
+        _, tree = store.restore(tmp / "e", like, device=dev,
+                                shardings=shd.Placement(specs, half))
+        s, st = half.coords[1], tree["opt_state"]
+        lw = saved["opt_state"]["v"].shape[1] // 2
+        return all(torch.equal(st[k].cpu(),
+                               saved["opt_state"][k][:, s * lw:(s + 1) * lw])
+                   for k in ("m", "v")) and torch.equal(
+            tree["params"].cpu(), saved["params"])
+
+    blocks = half.run(reread, [()] * 2)
+    log(f"phase 14e: restore(shardings=) onto 1 x 2: each replica's slabs "
+        f"(3, {saved['opt_state']['v'].shape[1] // 2}, {D_MODEL}) equal to "
+        f"its block of the saved global leaf to the bit {blocks}")
+    if not all(blocks):
+        raise AssertionError("14e: a restored slab is not its block")
+    reset_counts()
+    rcs2, lines = on_mesh((1, 2), p14_argv(dev, seed, tmp / "e",
+                                           2 * P14_SH_STEPS,
+                                           "--sketch-shards", "2"))
+    second = read_counts()
+    replaced = [l for l in lines if "re-placed: 4 -> 2 shards" in l]
+    log(f"phase 14e: {P14_SH_STEPS} further steps on 1 x 2: exit codes "
+        f"{rcs2}; {replaced[:1]}; {p14_line(lines)}; {p14_ms(lines)}; "
+        f"launches {second}")
+    if not replaced or second["cs_update"] == 0 \
+            or second["cs_adam_tiled"] or store.latest_step(tmp / "e") \
+            != 2 * P14_SH_STEPS:
+        raise AssertionError("14e: the re-placed run failed")
+    reset_counts()
+    rcs3, _lines = on_mesh((1, 4), p14_argv(dev, seed, tmp / "h", 1,
+                                            "--sketch-shards", "4",
+                                            "--shard-layout", "hash"))
+    third = read_counts()
+    refused, _lines = on_mesh((1, 2), p14_argv(dev, seed, tmp / "h", 2,
+                                               "--sketch-shards", "2",
+                                               "--shard-layout", "hash"))
+    log(f"phase 14e: hash layout at 4 shards, 1 step: exit codes {rcs3}; "
+        f"resumed at 2 shards: {refused[0][:160]}")
+    if not all(isinstance(r, str) and "bakes the shard count" in r
+               for r in refused):
+        raise AssertionError("14e: the hash layout was not refused")
+    return {k: first[k] + second[k] + third[k] for k in first}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default="",
                         help="comma-separated phase names to run (default: "
                              "all; the kernels' line needs all)")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--launcher-child"]:
+        return launcher_child(argv[1:])
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4681,6 +5143,7 @@ def main(argv=None) -> int:
                         phase_sharded_dense(
                             dev, out["6"][1] if "6" in out
                             else SoftmaxTask(dev, args.seed)))),
+        ("14", lambda: phase_placement(dev, args.seed)),
     ]
     if args.phases:
         keep = args.phases.split(",")
@@ -4709,7 +5172,11 @@ def main(argv=None) -> int:
     (sh_a, slab_row), sh_b, sh_c = out["13"]
     sharded = {name: sh_a[name] + sh_b[name] + sh_c[name]
                for name in ("cs_update", "bucket_csr", "cs_ema_tiled")}
+    # 14a-e: the launcher's sparse_embedding and --dp runs, the folded
+    # restore's steps, the recovered run and the re-placed sharded runs
+    placed = out["14"]
     launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
+                                  + placed["cs_adam_tiled"]
                                   + extreme["cs_adam_tiled"]
                                   + planned["cs_adam_tiled"]
                                   + serving["cs_adam_tiled"]
@@ -4719,13 +5186,14 @@ def main(argv=None) -> int:
                                  + planned_dense["cs_ema_tiled"]
                                  + lm_b3["cs_ema_tiled"]
                                  + dp["cs_ema_tiled"]
-                                 + sharded["cs_ema_tiled"]),
+                                 + sharded["cs_ema_tiled"]
+                                 + placed["cs_ema_tiled"]),
                 "cs_ema_tiled_bf16": out["7"]["cs_ema_tiled_bf16"],
                 # the main, extreme, planned, serving, observed and DP
                 # paths' dedup sums and sketch writes, and the sketch
                 # ops' update
                 "cs_update": (out["3"][4]["cs_update"] + dp["cs_update"]
-                              + sharded["cs_update"]
+                              + sharded["cs_update"] + placed["cs_update"]
                               + extreme["cs_update"]
                               + planned["cs_update"]
                               + planned_dense["cs_update"]
@@ -4737,6 +5205,7 @@ def main(argv=None) -> int:
                 # and B3's cached dense-row CSRs
                 "bucket_csr": (out["3"][4]["bucket_csr"] + dp["bucket_csr"]
                                + sharded["bucket_csr"]
+                               + placed["bucket_csr"]
                                + extreme["bucket_csr"]
                                + planned["bucket_csr"]
                                + serving["bucket_csr"]
@@ -4767,6 +5236,8 @@ def main(argv=None) -> int:
             row["launches_sharded_path"] = sharded[row["name"]]
         if row["name"] == "cs_update":
             row["slab_mode"] = slab_row
+        # the placement path (14a-e), in the total above as well
+        row["launches_placement_path"] = placed.get(row["name"], 0)
     log(f"peak device memory of the whole run {max(peak, out['8'][4])} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

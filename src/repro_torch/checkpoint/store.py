@@ -29,9 +29,14 @@ Leaf paths are the reference's strings: dict keys sorted and joined with
   the manifest says ``"bfloat16"`` and restore views the words as
   ``torch.bfloat16``;
 * **fold**: ``fold_sketches`` halves every sketch leaf (Hokusai, paper
-  §5), the state-side mirror of ``Plan.fold``.
-
-Placement on a new mesh (``restore(shardings=)``) waits for ROADMAP A13c.
+  §5), the state-side mirror of ``Plan.fold``;
+* **placed**: ``shardings`` is a ``distributed.sharding.Placement`` (a
+  spec tree, the mesh and this replica's coordinates).  ``save`` gathers
+  each placed leaf over its axes first, so the files hold global leaves
+  whatever the mesh; the replica at the mesh's origin alone writes and
+  the others wait at the mesh's barrier.  ``restore`` loads each leaf as
+  this replica's block of it, so a checkpoint restores onto another
+  mesh.
 """
 from __future__ import annotations
 
@@ -111,12 +116,56 @@ def _write_leaf(path: pathlib.Path, arr: np.ndarray, bf16: bool) -> None:
         f.write(arr.tobytes())
 
 
+class _PlacedWrite:
+    """What ``save(async_=True, shardings=)`` returns on every replica:
+    ``join`` waits for the writer thread (the origin's; None elsewhere),
+    then at the mesh's barrier, so no replica reads the checkpoint before
+    it is complete.  Every replica must join."""
+
+    def __init__(self, thread: Optional[threading.Thread], mesh):
+        self.thread, self.mesh = thread, mesh
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        if self.thread is not None:
+            self.thread.join(timeout)
+        self.mesh.barrier()
+
+
+def _global_leaves(tree, shardings) -> List[Tuple[str, Any]]:
+    """``tree``'s leaves, each placed one gathered into its global tensor
+    (a collective every replica makes in the same order)."""
+    from repro_torch.distributed.sharding import global_leaf
+    out = []
+    for (path, leaf), spec in zip(_flatten(tree),
+                                  shardings.spec_leaves(tree)):
+        if isinstance(leaf, torch.Tensor) and spec:
+            leaf = global_leaf(leaf, spec, shardings.mesh)
+        out.append((path, leaf))
+    return out
+
+
 def save(ckpt_dir, step: int, tree, *, async_: bool = False, keep: int = 3,
-         extra: Optional[Dict[str, Any]] = None
-         ) -> Optional[threading.Thread]:
+         extra: Optional[Dict[str, Any]] = None, shardings=None):
     """Write ``tree`` as step-<step>; returns the writer thread when
     ``async_``, after every leaf is copied to the host.  ``extra`` is
-    JSON metadata for the manifest (``read_manifest``)."""
+    JSON metadata for the manifest (``read_manifest``).
+
+    ``shardings`` (a ``Placement`` of ``tree``): every replica of the
+    mesh calls ``save`` with its blocks; the placed leaves are gathered
+    into global ones, the replica at the mesh's origin writes them, and
+    the others wait for it at the mesh's barrier.  With ``async_`` every
+    replica gets a handle whose ``join`` does that wait."""
+    if shardings is not None:
+        flat = _global_leaves(tree, shardings)
+        writer = None
+        if shardings.is_writer():
+            writer = save(ckpt_dir, step, _rebuild(
+                tree, iter(leaf for _p, leaf in flat)), async_=async_,
+                keep=keep, extra=extra)
+        if async_:
+            return _PlacedWrite(writer, shardings.mesh)
+        shardings.mesh.barrier()
+        return None
     ckpt_dir = pathlib.Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     host = [(path, _to_host(leaf),
@@ -190,15 +239,18 @@ def read_manifest(ckpt_dir, step: Optional[int] = None) -> Dict[str, Any]:
     return json.loads((d / "manifest.json").read_text())
 
 
-def _load_leaf(d: pathlib.Path, entry, path: str, device):
+def _load_leaf(d: pathlib.Path, entry, path: str, device, block=None):
     arr = np.load(d / entry["file"])
     if path == "step" or path.endswith("/step"):
         # the host step counter, where the port keeps it
         return torch.tensor(int(arr), dtype=torch.int32)
     if entry.get("dtype") == BF16:
-        return torch.from_numpy(arr.view(np.int16)).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(arr).to(device)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    if block is not None:
+        t = block(t)
+    return t.to(device)
 
 
 def restore(ckpt_dir, tree_like, step: Optional[int] = None,
@@ -207,18 +259,26 @@ def restore(ckpt_dir, tree_like, step: Optional[int] = None,
     checkpoint as NEW tensors on ``device`` (never written into
     ``tree_like``'s), leaves matched by path; a leaf the checkpoint lacks
     or saved as None comes back None, a ``step`` leaf as the host int32
-    counter.  Shapes may differ from ``tree_like``'s (fold afterwards)."""
-    if shardings is not None:
-        raise NotImplementedError("placing a restore on a mesh (shardings=)"
-                                  " is not ported yet (ROADMAP A13c)")
+    counter.  Shapes may differ from ``tree_like``'s (fold afterwards).
+    ``shardings`` (a ``Placement`` of ``tree_like``): each placed leaf
+    comes back as this replica's block of the saved global leaf."""
+    from repro_torch.distributed.sharding import local_block
     step, d = _step_dir(ckpt_dir, step)
     manifest = json.loads((d / "manifest.json").read_text())
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    flat = _flatten(tree_like)
+    specs = (shardings.spec_leaves(tree_like) if shardings is not None
+             else [None] * len(flat))
     leaves = []
-    for path, _like in _flatten(tree_like):
+    for (path, _like), spec in zip(flat, specs):
         e = by_path.get(path)
+        block = None
+        if spec:
+            def block(t, spec=spec):
+                return local_block(t, spec, shardings.mesh,
+                                   shardings.coords)
         leaves.append(None if e is None or e["file"] is None
-                      else _load_leaf(d, e, path, device))
+                      else _load_leaf(d, e, path, device, block))
     return step, _rebuild(tree_like, iter(leaves))
 
 

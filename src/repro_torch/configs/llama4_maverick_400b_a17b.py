@@ -6,8 +6,9 @@ vocab=202048, 128 routed experts top-1 + 1 shared expert.  MoE layers
 interleave with dense-FFN layers (``moe_every=2``, dense d_ff=16384) —
 that is what makes the total ≈400 B with 17 B active, matching the
 "-400b-a17b" name; every-layer MoE would be ≈775 B.  ``fsdp=True`` is
-the reference's sharding of the master weights over its data axes; the
-port has no mesh yet (ROADMAP A13c) and the MoE family waits for A14b.
+the reference's sharding of the master weights over its data axes
+(``distributed.sharding.spec_for``'s 'fsdp:' entries); the MoE family
+waits for ROADMAP A14b.
 """
 from repro_torch.models.config import ArchConfig
 

@@ -27,7 +27,10 @@ Sharded sketches add a second axis.  ``ReplicaMesh((dp, shards))`` runs
 (d, s); ``mesh.axis("data")`` and ``mesh.axis("model")`` are the two
 axes, each joining only the replicas that share the other coordinate.
 Over ``torch.distributed``, ``process_group_mesh`` makes the same two
-axes from ``new_group`` sub-groups.
+axes from ``new_group`` sub-groups.  Both meshes carry ``axis_names``,
+``shape``, ``coords``, ``axis(name)`` and ``barrier()``, which is what
+the placement rules (``distributed.sharding``) and a checkpoint saved
+from a mesh need.
 
 Every collective returns a new tensor and leaves its input as it was.
 The threads of a ``ReplicaGroup`` launch on the default CUDA stream,
@@ -37,7 +40,7 @@ replica reads of another's tensor before that replica writes it again.
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -227,6 +230,10 @@ class ReplicaMesh:
         """The axis called ``name`` (one of ``axis_names``)."""
         return self._axes[self.axis_names.index(name)]
 
+    def barrier(self) -> None:
+        """Wait until every replica of the grid has reached this call."""
+        self._all._barrier.wait()
+
     def run(self, fn: Callable, args: Sequence[Sequence[Any]]) -> list:
         """``fn(*args[r])`` in replica r's thread, r in rank order; returns
         the results in rank order (``ReplicaGroup.run``).  A failing
@@ -254,7 +261,33 @@ class ReplicaMesh:
                     g._barrier.reset()
 
 
-def process_group_mesh(shape: Sequence[int]) -> tuple:
+class GroupMesh(NamedTuple):
+    """The (data, model) axes of a grid over the default process group, as
+    ``process_group_mesh`` returns them; it unpacks as the two axes."""
+
+    data: ProcessGroupAxis
+    model: ProcessGroupAxis
+
+    @property
+    def axis_names(self) -> tuple:
+        return ("data", "model")
+
+    @property
+    def shape(self) -> tuple:
+        return (self.data.size, self.model.size)
+
+    @property
+    def coords(self) -> tuple:
+        return (self.data.rank, self.model.rank)
+
+    def axis(self, name: str) -> ProcessGroupAxis:
+        return getattr(self, name)
+
+    def barrier(self) -> None:
+        torch.distributed.barrier()
+
+
+def process_group_mesh(shape: Sequence[int]) -> GroupMesh:
     """The two axes of a (dp, shards) grid over the default process group,
     rank ``d·shards + s`` at (d, s): ``(data, model)`` as
     ``ProcessGroupAxis`` objects over ``new_group`` sub-groups.  Every
@@ -276,7 +309,24 @@ def process_group_mesh(shape: Sequence[int]) -> tuple:
                                          for c in range(shards)])
         if r == d:
             model = g
-    return ProcessGroupAxis(data), ProcessGroupAxis(model)
+    return GroupMesh(ProcessGroupAxis(data), ProcessGroupAxis(model))
+
+
+def mesh_axis(mesh, dp_axis):
+    """The axis of a collectives ``mesh`` (``ReplicaMesh``, ``GroupMesh``)
+    that ``dp_axis`` names, as the reference's ``shard_map`` runs over
+    the mesh axis of that name; None stays None."""
+    if dp_axis is None:
+        return None
+    names = getattr(mesh, "axis_names", ())
+    if not isinstance(dp_axis, str) or not callable(
+            getattr(mesh, "axis", None)) or dp_axis not in names:
+        raise ValueError(
+            f"mesh= needs a collectives mesh (ReplicaMesh, GroupMesh) with "
+            f"an axis named by dp_axis; got dp_axis={dp_axis!r} and a "
+            f"{type(mesh).__name__} with axes {tuple(names)} (or pass the "
+            f"axis object itself as dp_axis, without mesh=)")
+    return mesh.axis(dp_axis)
 
 
 def as_axis(dp_axis):

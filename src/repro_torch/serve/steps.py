@@ -20,9 +20,10 @@ Counterpart of ``repro.serve.steps``:
 
 Both adapt steps update the table and the optimizer state IN PLACE; a server
 that must keep a published generation intact hands them a copy
-(``serve.buffer.DoubleBufferedStore.begin_adapt``).  The cache and
-param placements on a mesh (``ServeStep.cache_specs``,
-``param_shardings``) wait for ROADMAP A13c.
+(``serve.buffer.DoubleBufferedStore.begin_adapt``).
+``ServeStep.cache_specs`` and ``param_shardings`` give the reference's
+placement of the cache and the params as spec trees
+(``distributed.sharding``).
 """
 from __future__ import annotations
 
@@ -66,12 +67,45 @@ class ServeStep:
         return _family(self.cfg).init(None, self.cfg, device="meta")
 
     def cache_specs(self, mesh):
-        raise NotImplementedError("placing the cache on a mesh is not "
-                                  "ported yet (ROADMAP A13c)")
+        """A spec for each cache leaf: the first batch-sized dim among the
+        leading three over the DP axes, then ONE 'model' dim: a sequence
+        dim (KV-cache sequence parallelism), else a head-count dim."""
+        from repro_torch.distributed import sharding as shd
+        cfg = self.cfg
+        model = shd.axis_sizes(mesh).get("model", 1)
+        dp = shd.dp_axes(mesh, self.batch)
+        head_sizes = set()
+        if cfg.family == "rwkv6":
+            head_sizes.add(cfg.rwkv_heads)
+        if cfg.family == "hybrid":
+            head_sizes.add(cfg.ssm_heads)
+
+        def leaf(_path, x):
+            shape = tuple(x.shape)
+            axes: list = [None] * len(shape)
+            batch_i = next((i for i, dim in enumerate(shape[:3])
+                            if dim == self.batch and dp), None)
+            if batch_i is not None:
+                axes[batch_i] = dp if len(dp) > 1 else dp[0]
+            cand = [i for i, dim in enumerate(shape)
+                    if i != batch_i and dim in (self.max_seq, cfg.enc_seq)
+                    and dim % model == 0 and dim > 8]
+            if not cand:
+                cand = [i for i, dim in enumerate(shape)
+                        if i != batch_i and dim in head_sizes
+                        and dim % model == 0]
+            if cand:
+                axes[cand[0]] = "model"
+            return shd.spec_of(axes)
+
+        return shd.map_leaves(leaf, self.cache_shape())
 
     def param_shardings(self, mesh):
-        raise NotImplementedError("placing the params on a mesh is not "
-                                  "ported yet (ROADMAP A13c)")
+        """The params' spec tree (``sharding.param_specs``)."""
+        from repro_torch.distributed import sharding as shd
+        return shd.param_specs(self.params_shape(), mesh,
+                               fsdp=self.cfg.fsdp,
+                               expert_sharding=self.cfg.expert_sharding)
 
 
 def make_serve_step(cfg: ArchConfig, *, batch: int, max_seq: int

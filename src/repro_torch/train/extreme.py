@@ -22,9 +22,9 @@ the port's sparse-rows path:
     memory-limited baseline in the same (ids, rows) calling convention.
 
 Tables and states are updated IN PLACE.  With ``dp_axis`` the step is
-one replica of a data-parallel axis (``sparse_rows_adam_dp``); placing
-it on a mesh (``mesh``) waits for ROADMAP A13c, the ``--workload
-extreme`` launcher for A14b.
+one replica of a data-parallel axis (``sparse_rows_adam_dp``), named
+on a collectives ``mesh`` when one is given; the ``--workload extreme``
+launcher waits for ROADMAP A14b.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ from repro_torch.core.hashing import mach_class_hash
 from repro_torch.core.optimizers import SketchHParams, _with_lr
 from repro_torch.core.transforms import Transform, _host_step
 from repro_torch.data import ExtremeConfig
-from repro_torch.distributed.collectives import as_axis
+from repro_torch.distributed.collectives import as_axis, mesh_axis
 from repro_torch.kernels import dedup
 from repro_torch.kernels.ops import bias_correction
 from repro_torch.kernels.ref import true_div
@@ -263,8 +263,10 @@ def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
     tables' gradients are reduced as sketches (``sparse_rows_adam_dp``
     with ``error_feedback`` and ``dir_clip``), the loss and
     ``dedup_ratio`` are ``pmean``'d and ``grad_norm`` is
-    ``sqrt(psum(gn²))`` over the replicas' rows.  ``mesh`` (placement on
-    a mesh) waits for ROADMAP A13c."""
+    ``sqrt(psum(gn²))`` over the replicas' rows.  ``mesh``: a
+    collectives mesh (``ReplicaMesh``, ``GroupMesh``) whose axis named
+    ``dp_axis`` is the data-parallel axis, as the reference's ``shard_map``
+    runs over the mesh's axis of that name."""
     if optimizer not in EXTREME_OPTIMIZERS:
         raise ValueError(
             f"extreme workload optimizers are {EXTREME_OPTIMIZERS}; "
@@ -280,10 +282,7 @@ def make_extreme_step(cfg: MachConfig, *, optimizer: str = "cs_rmsprop",
                 "dense_adam has no sketched all-reduce (moving dense (k, d)"
                 " rows is the cost DP avoids) — run it without dp_axis")
     if mesh is not None:
-        raise NotImplementedError(
-            "placing the extreme step on a mesh (mesh) is not ported yet "
-            "(ROADMAP A13c); a dp_axis step takes each replica's batch "
-            "shard as it is given")
+        dp_axis = mesh_axis(mesh, dp_axis)
     axis = as_axis(dp_axis)
     hp = hparams if hparams is not None else SketchHParams(compression=100.0)
     if backend:

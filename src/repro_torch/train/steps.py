@@ -8,7 +8,9 @@ batch and its own copy of the replicated params and state, where the
 reference wraps the body in ``shard_map``.  ``sketch_shards > 1`` runs
 the sparse step on one shard's slabs of the sketch state, each replica
 of a (dp × shard) grid holding its own (``distributed.slabs``).
-Placement on a mesh (``TrainStep.shardings``) waits for ROADMAP A13c.
+``TrainStep.shardings(mesh, batch)`` gives the reference's placement of
+the params, optimizer state, batch and metrics as spec trees
+(``distributed.sharding``).
 
 ``make_train_step(cfg, ...)`` returns a ``TrainStep``:
 
@@ -126,11 +128,24 @@ class TrainStep:
         ps = params_shape if params_shape is not None else self.params_shape()
         return self.optimizer.init(ps)
 
-    def shardings(self, mesh, batch_specs):
-        raise NotImplementedError(
-            "TrainStep.shardings (param/opt/batch placement on a mesh) is "
-            "not ported yet (ROADMAP A13c): a dp_axis step takes each "
-            "replica's batch shard as it is given")
+    def shardings(self, mesh, batch_specs: Dict[str, Any]):
+        """``(params, opt_state, batch, metrics)`` spec trees on ``mesh``:
+        the params by the rule table, the state ZeRO-1 and sketch layout
+        (exact under a plan's ``store_tree``), each batch leaf (anything
+        with a ``shape``) over the DP axes, the metrics replicated.
+        Built on ``meta`` tensors, so nothing is allocated."""
+        from repro_torch.distributed import sharding as shd
+        cfg = self.cfg
+        ps = self.params_shape()
+        pspec = shd.param_specs(ps, mesh, fsdp=cfg.fsdp,
+                                expert_sharding=cfg.expert_sharding)
+        ospec = shd.opt_specs_for_state(self.opt_shape(ps), ps, mesh,
+                                        fsdp=cfg.fsdp,
+                                        expert_sharding=cfg.expert_sharding,
+                                        store_tree=self.store_tree)
+        bspec = {k: shd.batch_spec(mesh, tuple(v.shape))
+                 for k, v in batch_specs.items()}
+        return pspec, ospec, bspec, ()
 
 
 def _grad_norm(grads) -> torch.Tensor:

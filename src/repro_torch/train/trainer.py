@@ -62,13 +62,18 @@ class Trainer:
     optimizer state; ``fit`` closes it when it completes.  ``cleaner``:
     an optional ``core.cleaning.AsyncCleaner`` dispatched between steps.
     ``fail_at``: a test hook that raises once when the loop reaches that
-    step.  Batches go to ``device`` as tensors."""
+    step.  Batches go to ``device`` as tensors.  ``shardings``: a
+    ``distributed.sharding.Placement`` of ``{"params", "opt_state"}``
+    when the state is one replica's blocks on a mesh: checkpoints gather
+    the global leaves and the mesh's origin writes them
+    (``checkpoint.store.save``), and ``restore_or_init`` loads this
+    replica's blocks; every replica runs the same ``Trainer``."""
 
     def __init__(self, step_fn: Callable, data, tcfg: TrainerConfig,
                  monitor: Optional[StragglerMonitor] = None,
                  fail_at: Optional[int] = None, plan=None,
                  store_tree=None, observer=None, cleaner=None,
-                 device="cuda"):
+                 device="cuda", shardings=None):
         self.step_fn = step_fn
         self.data = data
         self.tcfg = tcfg
@@ -84,6 +89,7 @@ class Trainer:
             raise ValueError("Trainer got both a plan and a store_tree "
                              "that disagree; the manifest must record "
                              "ONE executable vocabulary")
+        self.shardings = shardings
         self._fail_at = fail_at
         self._pending_ckpt = None
 
@@ -103,7 +109,8 @@ class Trainer:
                 extra = {"store_tree": self.store_tree.to_json()}
             self._pending_ckpt = store.save(
                 t.ckpt_dir, state.step, tree,
-                async_=t.ckpt_async, keep=t.keep, extra=extra)
+                async_=t.ckpt_async, keep=t.keep, extra=extra,
+                shardings=self.shardings)
 
     def restore_or_init(self, init_state: TrainState,
                         shardings=None) -> TrainState:
@@ -112,8 +119,9 @@ class Trainer:
             return init_state
         tree_like = {"params": init_state.params,
                      "opt_state": init_state.opt_state}
-        step, tree = store.restore(t.ckpt_dir, tree_like,
-                                   device=self.device, shardings=shardings)
+        step, tree = store.restore(
+            t.ckpt_dir, tree_like, device=self.device,
+            shardings=shardings if shardings is not None else self.shardings)
         if self.plan is None:
             saved = store.read_manifest(t.ckpt_dir, step).get("extra", {})
             if saved.get("plan") is not None:

@@ -153,8 +153,12 @@ def test_latest_tmp_and_keep(tmp_path):
         == [3.0, 4.0, 5.0, 6.0]
     (tmp_path / "LATEST").write_text("4")   # LATEST naming a missing step
     assert T.latest_step(tmp_path) is None
-    with pytest.raises(NotImplementedError, match="A13"):
-        T.restore(tmp_path, tree, step=9, shardings={})
+    # placed: this replica's block of each saved global leaf
+    from repro_torch.distributed.sharding import Grid, Placement
+    _, placed = T.restore(tmp_path, tree, step=9, device="cpu",
+                          shardings=Placement({"a": ("model",), "step": ()},
+                                              Grid((1, 2)), (0, 1)))
+    assert placed["a"].tolist() == [6.0, 7.0]
 
 
 def test_async_save_copies_before_returning(tmp_path):

@@ -661,9 +661,15 @@ def test_dp_arguments_rejected_as_in_the_reference():
     with pytest.raises(ValueError, match="exactly that size"):
         j_step(jnp.asarray(_table0()), j_opt.init(), jnp.asarray(ids),
                jnp.asarray(rows))
-    with pytest.raises(NotImplementedError, match="A13c"):
+    # a mesh= is a collectives mesh naming the dp axis, as the
+    # reference's shard_map names its mesh axis
+    with pytest.raises(ValueError, match="axis named by dp_axis"):
         tx.make_extreme_step(tx.MachConfig(**X_KW), mesh=object(),
                              dp_axis=_group(), device="cpu")
+    _, _, opts = tx.make_extreme_step(tx.MachConfig(**X_KW),
+                                      mesh=col.ReplicaMesh((2, 1)),
+                                      dp_axis="data", device="cpu")
+    assert all("residual" in o.init() for o in opts.values())
     _, _, opt = TS.make_sparse_embedding_step(N, D, dp_axis="data",
                                               device="cpu")
     assert set(opt.init()) == {"step", "m", "v", "residual"}

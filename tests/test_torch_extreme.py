@@ -405,9 +405,13 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="moment layout"):
         tx.make_extreme_step(T_CFG, optimizer="cs_adam", device="cpu",
                              plan=tx.plan_extreme(T_CFG, "0.5x"))
-    with pytest.raises(NotImplementedError, match="A13c"):
+    with pytest.raises(ValueError, match="axis named by dp_axis"):
         tx.make_extreme_step(T_CFG, optimizer="cs_adam", mesh=object(),
-                             device="cpu")
+                             dp_axis="data", device="cpu")
+    # a mesh without dp_axis is no data parallelism, as in the reference
+    _, _, opts = tx.make_extreme_step(T_CFG, optimizer="cs_adam",
+                                      mesh=object(), device="cpu")
+    assert all("residual" not in o.init() for o in opts.values())
     # dp_axis is ported (tests/test_torch_dp.py)
     _, _, opts = tx.make_extreme_step(T_CFG, dp_axis="data", device="cpu")
     assert all("residual" in o.init() for o in opts.values())

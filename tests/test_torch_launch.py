@@ -103,10 +103,6 @@ def test_launcher_runs_fresh_and_records_the_plan(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,label", [
-    (["--dp"], "A13"),
-    (["--sketch-shards", "2"], "A13"),
-    (["--error-feedback"], "A13"),
-    (["--workload", "sparse_embedding"], "A14b"),
     (["--workload", "extreme"], "A14b"),
     (["--workload", "serve-replay"], "A14b"),
     (["--arch", "rwkv6_7b", "--reduced"], "A14b"),
@@ -117,9 +113,8 @@ def test_launcher_errors_name_their_roadmap_items(args, label):
         TL.main(args + ["--steps", "1", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flag", [
-    ["--cleaning-every", "5"], ["--probe-rows", "8"], ["--classes", "100"],
-    ["--serve-requests", "10"], ["--shard-layout", "hash"]])
+@pytest.mark.parametrize("flag", [["--classes", "100"],
+                                  ["--serve-requests", "10"]])
 def test_launcher_refuses_flags_of_workloads_not_ported(flag, capsys):
     """Flags that only the other workloads read are not parsed: passing
     one is an error, not a silently ignored knob."""
@@ -173,3 +168,158 @@ def test_plan_cli_matches_the_reference(tmp_path, capsys):
     assert tout.count("[check] OK") == 3
     with pytest.raises(NotImplementedError, match="A14b"):
         TCLI.main(["--arch", "rwkv6_7b", "--budget", "floor"])
+
+
+# ---------------------------------------------------------- sparse_embedding
+# the reference's own launcher test's shapes, at an lr where the loss of
+# both of its routes falls in 20 steps
+SPARSE = ["--workload", "sparse_embedding", "--sparse-rows", "4096",
+          "--sparse-dim", "32", "--batch", "16", "--seq", "16",
+          "--lr", "0.01", "--ckpt-every", "10"]
+
+
+def _jax_target(monkeypatch, seed=0):
+    """The port launcher's target replaced by the reference's
+    ``init_fn(PRNGKey(seed + 1))``, as a copy on the CPU."""
+    import jax
+    from repro.train.steps import make_sparse_embedding_step as jmake
+    init_fn, _, _ = jmake(4096, 32)
+    target = np.array(init_fn(jax.random.PRNGKey(seed + 1)))
+    monkeypatch.setattr(TL, "sparse_target", lambda _init, _seed, device:
+                        torch.from_numpy(target.copy()).to(device))
+
+
+def _sparse_pair(tmp_path, monkeypatch, capsys, extra, steps=20):
+    """Both launchers resume the JAX launcher's step-0 checkpoint for
+    ``steps`` steps; their ``[train]`` lines."""
+    # --steps 0 leaves no loss history, so the reference exits 1
+    from repro.launch import train as JL
+    monkeypatch.setattr(sys, "argv", ["repro.launch.train"] + SPARSE + extra
+                        + ["--steps", "0", "--ckpt-dir", str(tmp_path / "j")])
+    with np.errstate(all="ignore"), pytest.warns(RuntimeWarning):
+        assert JL.main() == 1
+    assert store.latest_step(tmp_path / "j") == 0
+    shutil.copytree(tmp_path / "j", tmp_path / "t")
+    jline, jloss = _loss_line(_jax_main(
+        monkeypatch, capsys, SPARSE + extra + [
+            "--steps", str(steps), "--ckpt-dir", str(tmp_path / "j")]))
+    _jax_target(monkeypatch)
+    tline, tloss = _loss_line(_port_main(
+        capsys, SPARSE + extra + ["--steps", str(steps), "--ckpt-dir",
+                                  str(tmp_path / "t")]))
+    return jline, tline
+
+
+@pytest.fixture
+def gloo_world_1(tmp_path):
+    """A one-process gloo group over a ``file://`` rendezvous, the port's
+    counterpart of the reference's one CPU device under ``--dp``."""
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'pg'}", rank=0,
+        world_size=1)
+    yield
+    torch.distributed.destroy_process_group()
+
+
+def test_sparse_embedding_line_matches_the_jax_launcher(tmp_path, monkeypatch,
+                                                        capsys):
+    jline, tline = _sparse_pair(tmp_path, monkeypatch, capsys, [])
+    assert tline == jline
+    assert tline.startswith("[train] workload=sparse_embedding rows=4096 "
+                            "dim=32 dp=False shards=1(width) "
+                            "feedback=False steps=20 loss ")
+    assert store.latest_step(tmp_path / "t") == 20
+
+
+def test_sparse_embedding_dp_feedback_matches_the_jax_launcher(
+        tmp_path, monkeypatch, capsys, gloo_world_1):
+    jline, tline = _sparse_pair(tmp_path, monkeypatch, capsys,
+                                ["--dp", "--error-feedback"])
+    assert "dp=True" in tline and "feedback=True" in tline
+    assert tline == jline
+    # the residual rides in the checkpoint, as the reference's
+    names = {e["path"] for e in store.read_manifest(tmp_path / "t")["leaves"]}
+    assert names == {e["path"] for e in
+                     store.read_manifest(tmp_path / "j")["leaves"]}
+    assert "opt_state/residual" in names
+
+
+def test_sparse_embedding_resumes_in_either_package(tmp_path, monkeypatch,
+                                                    capsys):
+    """A fresh port run's checkpoint loads in the JAX package's restore and
+    resumes in its launcher; a resume under another cell dtype is refused
+    in the reference's words."""
+    d = str(tmp_path / "p")
+    # the exit codes say whether the loss fell (this resumes across two
+    # targets); what is held here is the checkpoint
+    assert TL.main(SPARSE + ["--steps", "10", "--ckpt-dir", d, "--device",
+                             "cpu"]) in (0, 1)
+    from repro.checkpoint import store as jstore
+    from repro.launch import train as JL
+    jstep, jtree = jstore.restore(d, {"params": 0, "opt_state": {
+        "step": 0, "m": 0, "v": 0}})
+    tstep, ttree = store.restore(d, {"params": 0, "opt_state": {
+        "step": 0, "m": 0, "v": 0}}, device="cpu")
+    assert jstep == tstep == 10
+    for k in ("m", "v"):
+        np.testing.assert_array_equal(np.asarray(jtree["opt_state"][k]),
+                                      ttree["opt_state"][k].numpy())
+    monkeypatch.setattr(sys, "argv", ["repro.launch.train"] + SPARSE + [
+        "--steps", "30", "--ckpt-dir", d])
+    capsys.readouterr()
+    assert JL.main() in (0, 1)
+    assert "steps=30 loss" in capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["repro.launch.train"] + SPARSE + [
+        "--steps", "40", "--ckpt-dir", d, "--sketch-cell-dtype",
+        "bfloat16"])
+    with pytest.raises(ValueError) as je:
+        JL.main()
+    with pytest.raises(ValueError) as te:
+        TL.main(SPARSE + ["--steps", "40", "--ckpt-dir", d,
+                          "--sketch-cell-dtype", "bfloat16", "--device",
+                          "cpu"])
+    assert str(te.value) == str(je.value)
+    assert "'float32' cells" in str(te.value)
+
+
+def test_sparse_embedding_flags_checked_as_in_the_reference(capsys):
+    with pytest.raises(SystemExit):
+        TL.main(SPARSE + ["--probe-rows", "8", "--device", "cpu"])
+    assert "--probe-rows needs --metrics-dir" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        TL.main(SPARSE + ["--dp", "--sketch-cell-dtype", "int8",
+                          "--device", "cpu"])
+    assert "does not compose with --dp" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        TL.main(["--sketch-shards", "2", "--device", "cpu"])
+    assert "sparse_embedding workload only" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="divisible by it"):
+        TL.main(SPARSE + ["--sketch-shards", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="need a process group"):
+        TL.main(SPARSE + ["--dp", "--device", "cpu"])
+
+
+def test_sparse_embedding_probes_and_cleaning(tmp_path, capsys):
+    m = tmp_path / "m"
+    out = _port_main(capsys, SPARSE + [
+        "--steps", "20", "--metrics-dir", str(m), "--probe-rows", "8",
+        "--log-every", "5", "--cleaning-every", "4", "--cleaning-mode",
+        "async", "--lr", "0.001"])
+    assert "workload=sparse_embedding" in out
+    from repro_torch.obs import validate_file
+    recs = validate_file(next(m.glob("*.jsonl")))
+    tables = [r for r in recs if r["kind"] == "table"]
+    assert [r["step"] for r in tables] == [5, 10, 15, 20]
+    assert all(r["table"] == "sparse_embedding" and r["probe_rows"] == 8
+               and np.isfinite(r["v_meas_error"]) for r in tables)
+    assert sum(r["cleans_in_window"] for r in tables) == 5
+
+
+def test_lm_dp_at_world_1_equals_the_plain_run(tmp_path, capsys,
+                                               gloo_world_1):
+    base = ["--arch", "qwen2_0_5b", "--reduced", "--batch", "2", "--seq",
+            "16", "--steps", "2"]
+    _, plain = _loss_line(_port_main(capsys, base))
+    line, dp = _loss_line(_port_main(capsys, base + ["--dp"]))
+    assert "dp=True" in line
+    assert dp == plain

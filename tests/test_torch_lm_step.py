@@ -240,12 +240,17 @@ def test_shapes_allocate_nothing_and_match_reference():
 
 def test_unported_arguments_raise():
     cfg = tconfigs.get("qwen2_0_5b").reduced()
-    # dp_axis is ported (tests/test_torch_dp.py); placement is not
+    # dp_axis is ported (tests/test_torch_dp.py)
     assert TS.make_train_step(cfg, dp_axis="data", device=CPU).dp_axis \
         == "data"
     ts = TS.make_train_step(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        ts.shardings(None, {})
+    # placement is ported (tests/test_torch_sharding.py): spec trees
+    from repro_torch.distributed.sharding import Grid
+    pspec, ospec, bspec, mspec = ts.shardings(
+        Grid((2, 4)), {"tokens": np.zeros((8, 16), np.int32)})
+    assert bspec == {"tokens": ("data",)} and mspec == ()
+    assert pspec["final_norm"] == ()
+    assert type(ospec) is type(ts.opt_shape())
     with pytest.raises(ValueError, match="unknown optimizer"):
         TS.build_optimizer(cfg, "sgd")
     from repro_torch.plan import plan_for_config

@@ -302,6 +302,70 @@ own line; any failure raises and the exit code is not 0:
      5 further steps there (the re-placement message); a hash-layout
      checkpoint refused at another shard count.  ``--phases 14`` runs
      phase 14 alone.
+ 15. the launcher's other workloads and the MoE family (the tensors of
+     earlier phases' results are dropped first).  15a:
+     ``launch.train.main`` in this process, ``--workload extreme`` at
+     phase 8's cell (8,000,000 classes into 2,097,152 meta rows, 2
+     replicas, 65,536 x 64 features, 16 nnz, 1,024 negatives, batch
+     1,024, lr 1e-2, compression 100), 20 steps a replica: exit 0 (each
+     replica's window mean falls), B1 and the dedup sum (B5) once a table
+     a step, ms a step printed; then with ``--aux-budget 5701632``
+     (phase 9a's plan): the plan table printed, exit 0, B1 as before.
+     15b: ``torch.distributed.run --standalone --nproc-per-node 1`` of
+     ``--workload extreme --dp --error-feedback`` (NCCL at world size 1),
+     10 steps a replica: exit 0 with dp=True in its line, B5, no B1.
+     15c: ``--workload serve-replay`` at phase 10's cell (the
+     qwen2-0.5b table, 600 requests of 8 ids at 500 requests/s, 256 id
+     slots, 5 ms deadline, queue of 64, lr 1e-3: ``ServerConfig()``'s
+     defaults): the count-min arm (B1, its CSR and the dedup sum once a
+     batch and once for the warm-up) with ``--metrics-dir`` under
+     ``build/`` (its ``serve`` record read back, then removed) and
+     ``--optimizer dense_adam`` (B5 once a batch, no B1); both exit 0
+     and print their ``[serve]`` lines.  15d: ``ops.adam_rows_fused`` at
+     phase 4's shapes: B2 once, equal to ``adam_rows_stream`` to the
+     bit, both timed.  15e: qwen2-moe-a2.7b (``src/repro/configs/
+     qwen2_moe_a2_7b.py``: d_model 2,048, 16 heads, 60 experts top 4 of
+     d_ff 1,408, a shared SwiGLU of 5,632, capacity factor 1.25, 32
+     dispatch groups, two 151,936 x 2,048 tables, bf16 compute) trained
+     at full width with **4 of its 24 layers** (f32 params, gradients
+     and Adam's m and v of the layers take 16 B a parameter: 36.5 GB at
+     4 layers, 61 GB before activations at 6), ``ZipfLM`` 4 x 2,048
+     tokens a step, ``make_train_step(cfg, optimizer="cs_adam",
+     kernel_backend="auto")`` at lr 1e-3 for 10 steps through
+     ``Trainer``: B3 exactly 4 launches a step, finite losses and
+     params; ms a step, peak memory, state bytes and the dropped
+     assignments a step; 3 steps under the profiler; the same batches
+     from the same start (drawn again from the seed) through plain
+     ``xla``: losses within rtol 1e-4, params and state within rtol
+     1e-4/atol 1e-5 of a host copy of the first run's (printed: equal to
+     the bit); the ``auto`` arm again: the same bits; ``dense_adam`` and
+     ``cs_adam_v`` 10 steps each: state bytes and peak memory against
+     ``cs_adam``'s, each passing the window check (w = 3: over the first
+     steps, Adam at lr 1e-3 overshoots at this width, the loss rising
+     before it falls).  15f: the
+     same model at all 24 layers on fresh params (57,262,350,336 B of
+     f32), ``make_serve_step(cfg, batch=8, max_seq=256)``: at the
+     published capacity factor a prefill of 8 x 128 tokens (ms, dropped
+     assignments by layer) and 64 greedy decode steps (ms a token,
+     tokens/s, 3 under the profiler); then at capacity factor 60 (= the
+     expert count: no assignment can drop; decode's 8 one-token groups
+     drop nothing at any factor) 64 greedy decode steps, each step's
+     logits held as in 11g to the prefill of its prefix: the causal
+     forward of each row's whole decoded sequence at that position (one
+     forward for the 64 prefixes; it is itself held to prefills of the
+     first and last prefixes), within 2^-6 of the row's largest |logit|
+     and the argmax equal wherever the top-two margin exceeds that.
+     The check runs in f32 compute: in bf16 a token whose 4th and 5th
+     router probabilities lie within bf16's rounding of the router's
+     input is routed otherwise by decode and by the forward, and one
+     such flip moves the logits past the tolerance; the bf16 run is
+     printed (its ratio and the flips by layer), not gated.
+     ``--phases 15`` runs phase 15 alone.
+
+The CUDA caching allocator runs with ``expandable_segments:True`` (set
+in ``PYTORCH_CUDA_ALLOC_CONF`` unless the caller set it): phase 15's
+dense_adam arm peaks within 3 GB of the card's memory, and blocks that
+earlier phases left cut into pieces would not hold it.
 
 Phase 2 also holds B3's bf16 branch to its plain version (bit-equal on a
 CPU copy; within one bf16 ulp plus the f32 collision envelope of the
@@ -309,7 +373,8 @@ plain version on the card, whose index_add_ sums in atomic order), and
 phase 5 times it at the dense path's shapes.  Each phase prints its wall
 time.  It prints the kernels' JSON line (each path's launches beside the
 total: ``launches_dp_path`` is phase 12's, ``launches_sharded_path``
-phase 13's, ``launches_placement_path`` phase 14's), the
+phase 13's, ``launches_placement_path`` phase 14's,
+``launches_a14b_path`` phase 15's), the
 card's name and power limit and, last, ``{"ok": true, "device":
 {...}}``.  With no card it prints no result and exits 2.
 """
@@ -318,6 +383,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -4735,7 +4801,6 @@ def launcher_child(argv) -> int:
     as ``python -m repro_torch.launch.train ARGS`` runs it (phase 14b
     starts it under ``torch.distributed.run``), then, on rank 0, the
     kernels' launch counts of the run as ``[counts] {json}``."""
-    import os
     from repro_torch.launch import train
     reset_counts()
     rc = train.main(argv)
@@ -4803,7 +4868,6 @@ def phase_p14_torchrun(dev, seed: int, tmp: Path) -> dict:
     at world size 1): the sparse workload under ``--dp --error-feedback``
     and qwen2-0.5b under ``--dp``; each exits 0 with dp=True in its
     line."""
-    import os
     import torch
     if dev.type == "cuda":
         torch.cuda.empty_cache()      # the children share the card
@@ -5082,6 +5146,649 @@ def phase_p14_replace(dev, seed: int, tmp: Path) -> dict:
     return {k: first[k] + second[k] + third[k] for k in first}
 
 
+# ---------------------------------------------------------------- phase 15
+# 15a-b: phase 8's cell through the launcher; 15c: phase 10's cell, whose
+# flags equal ServerConfig()'s defaults
+P15_X_STEPS, P15_DP_STEPS = 20, 10
+MOE_ARCH = "qwen2_moe_a2_7b"       # src/repro/configs/qwen2_moe_a2_7b.py:11-16
+# training keeps f32 params, gradients and Adam's m and v of every layer,
+# 16 B a parameter: 4 layers hold 36.5 GB of them, 6 would pass 61 GB
+MOE_LAYERS = 4
+# every arm runs 10 steps, so the window check's w is 3: the first Adam
+# steps at lr 1e-3 overshoot (the loss rises, then falls below its start)
+MOE_STEPS = 10
+
+
+def p15_extreme_argv(dev, seed: int, steps: int, *extra) -> list:
+    """The launcher's ``--workload extreme`` flags at phase 8's cell."""
+    x = EXTREME
+    argv = ["--workload", "extreme", "--classes", str(x["n_classes"]),
+            "--meta-rows", str(x["n_meta"]), "--replicas", "2",
+            "--features", str(x["n_features"]), "--extreme-dim",
+            str(x["dim"]), "--nnz", str(x["nnz"]), "--negatives",
+            str(x["n_negatives"]), "--batch", str(X_BATCH), "--lr",
+            str(X_LR), "--sparse-compression", "100", "--steps",
+            str(steps), "--seed", str(seed), *extra]
+    return argv + (["--device", "cpu"] if dev.type == "cpu" else [])
+
+
+def p15_serve_argv(dev, seed: int, *extra) -> list:
+    """The launcher's ``--workload serve-replay`` flags at phase 10's
+    cell (500 requests/s)."""
+    argv = ["--workload", "serve-replay", "--sparse-rows", str(VOCAB),
+            "--sparse-dim", str(D_MODEL), "--serve-requests",
+            str(SERVE_TRACE["n_requests"]), "--serve-ids-per-request",
+            str(SERVE_TRACE["ids_per_request"]), "--offered-load",
+            str(SERVE_LOADS[1]), "--serve-batch-ids", "256",
+            "--serve-deadline-ms", "5", "--queue-cap", "64", "--lr",
+            str(SERVE_LR), "--seed", str(seed), *extra]
+    return argv + (["--device", "cpu"] if dev.type == "cpu" else [])
+
+
+def add_counts(totals: dict, counts: dict) -> dict:
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def strip_tensors(x):
+    """``x`` with every tensor, and every object other than a number,
+    string or container, replaced by None."""
+    if isinstance(x, dict):
+        return {k: strip_tensors(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(strip_tensors(v) for v in x)
+    return x if isinstance(x, (bool, int, float, str, type(None),
+                               np.generic)) else None
+
+
+def release(out: dict) -> int:
+    """Drop the tensors that earlier phases' results hold (the kernels'
+    line reads only their counts and times); returns the bytes still
+    allocated on the card."""
+    import gc
+    import torch
+    for k in list(out):
+        out[k] = strip_tensors(out[k])
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+    return 0
+
+
+def phase_a14b(dev, seed: int, held: int = 0):
+    """Phase 15: the launcher's extreme and serve-replay workloads,
+    ``ops.adam_rows_fused`` and qwen2-moe-a2.7b (15a-f).  Returns the
+    launches of the path and the numbers for the kernels' line."""
+    import torch
+    log(f"phase 15: {held} B allocated on the card as it starts")
+    totals: dict = {}
+    add_counts(totals, phase_p15_extreme(dev, seed))
+    add_counts(totals, phase_p15_torchrun(dev, seed))
+    add_counts(totals, phase_p15_serve(dev, seed))
+    fused = phase_p15_fused(dev, seed)
+    add_counts(totals, fused.pop("counts"))
+    add_counts(totals, phase_moe_train(dev, seed))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    add_counts(totals, phase_moe_serve(dev, seed))
+    log(f"phase 15: launches of the path {totals}")
+    return totals, fused
+
+
+def phase_p15_extreme(dev, seed: int) -> dict:
+    """15a: ``--workload extreme`` in this process at phase 8's cell, 20
+    steps a replica: exit 0 (each replica's window mean falls), B1 and
+    the dedup sum (B5) once a table a step; then under ``--aux-budget``
+    5,701,632 (phase 9a's plan): the plan table printed, exit 0."""
+    runs = {}
+    for name, extra in (("cs_rmsprop", ()),
+                        ("--aux-budget", ("--aux-budget", str(X_BUDGET)))):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, lines, losses = p14_main(p15_extreme_argv(dev, seed, P15_X_STEPS,
+                                                      *extra))
+        counts = read_counts()
+        ms = [l[len("[train] "):] for l in lines if "ms a step" in l]
+        log(f"phase 15a: launch.train --workload extreme {name} rc {rc} in "
+            f"{time.perf_counter() - t0:.1f} s: {p14_line(lines)}; {ms}; "
+            f"per-step losses {losses}; launches {counts}")
+        want = 2 * 2 * P15_X_STEPS           # tables x replicas x steps
+        if rc != 0 or len(losses) != 2 * P15_X_STEPS \
+                or counts["cs_adam_tiled"] != want \
+                or counts["cs_update"] != want:
+            raise AssertionError(f"15a: the extreme launcher ({name}) did "
+                                 f"not train through B1")
+        if extra and not any("class_head/table" in l and "sketch" in l
+                             for l in lines):
+            raise AssertionError("15a: no plan table was printed")
+        if extra:
+            log("phase 15a: the plan table: " + " | ".join(
+                l for l in lines if "/table" in l))
+        runs[name] = counts
+    return add_counts(dict(runs["cs_rmsprop"]), runs["--aux-budget"])
+
+
+def phase_p15_torchrun(dev, seed: int) -> dict:
+    """15b: ``torch.distributed.run --standalone --nproc-per-node 1`` (NCCL
+    at world size 1) of ``--workload extreme --dp --error-feedback``, 10
+    steps a replica: exit 0 with dp=True in its line; its sketches go
+    through B5 and B1 is absent."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()      # the child shares the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    argv = p15_extreme_argv(dev, seed, P15_DP_STEPS, "--dp",
+                            "--error-feedback")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", str(ROOT / "chip_smoke.py"),
+         "--launcher-child", *argv], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=P14_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-3000:])
+        raise AssertionError(f"15b: extreme --dp exited {proc.returncode}")
+    counts = json.loads(p14_line(lines, "[counts] ")[len("[counts] "):])
+    line = p14_line(lines)
+    ms = [l[len("[train] "):] for l in lines if "ms a step" in l]
+    log(f"phase 15b: torch.distributed.run extreme --dp --error-feedback: "
+        f"rc 0 in {time.perf_counter() - t0:.1f} s: {line}; {ms}; launches "
+        f"{counts}")
+    if "dp=True" not in line or counts["cs_adam_tiled"] \
+            or (dev.type == "cuda" and counts["cs_update"] == 0):
+        raise AssertionError(f"15b: extreme --dp launched {counts}: {line}")
+    return counts
+
+
+def phase_p15_serve(dev, seed: int) -> dict:
+    """15c: ``--workload serve-replay`` at phase 10's cell: the count-min
+    arm (B1, its CSR and the dedup sum once a batch and once for the
+    server's warm-up) with ``--metrics-dir`` under ``build/`` (its
+    ``serve`` record read back, then removed), and ``--optimizer
+    dense_adam`` (B5 once a batch, no B1); both exit 0."""
+    from repro_torch.obs import validate_file
+    mdir = ROOT / "build" / f"metrics-15c-{seed}"
+    shutil.rmtree(mdir, ignore_errors=True)
+    totals: dict = {}
+    try:
+        for arm, extra in (("countmin", ("--metrics-dir", str(mdir))),
+                           ("dense", ("--optimizer", "dense_adam"))):
+            reset_counts()
+            t0 = time.perf_counter()
+            rc, lines, _ = p14_main(p15_serve_argv(dev, seed, *extra))
+            counts = read_counts()
+            line = p14_line(lines, "[serve] ")
+            batches = int(line.split("batches=")[1].split()[0])
+            log(f"phase 15c: launch.train --workload serve-replay rc {rc} "
+                f"in {time.perf_counter() - t0:.1f} s: {line}; launches "
+                f"{counts}")
+            b1 = batches + 1 if arm == "countmin" else 0
+            if rc != 0 or not line.startswith(f"[serve] arm={arm} ") \
+                    or (dev.type == "cuda" and (
+                        counts["cs_adam_tiled"] != b1
+                        or counts["cs_update"] != batches + 1)):
+                raise AssertionError(f"15c: the {arm} replay failed")
+            if arm == "countmin":
+                recs = [r for r in validate_file(mdir / "metrics.jsonl")
+                        if r["kind"] == "serve"]
+                if len(recs) != 1 or recs[0]["n_batches"] != batches:
+                    raise AssertionError("15c: the serve record is wrong")
+                log(f"phase 15c: the serve record: " + json.dumps(
+                    {k: v for k, v in recs[0].items()
+                     if k not in ("adapt_ms", "request_ms")}))
+            add_counts(totals, counts)
+    finally:
+        shutil.rmtree(mdir, ignore_errors=True)
+    return totals
+
+
+def phase_p15_fused(dev, seed: int) -> dict:
+    """15d: ``ops.adam_rows_fused`` at phase 4's shapes (16,384 zipf ids
+    of 896 f32, ``SketchHParams()`` M and V (3, 10,240, 896)): B2 once
+    (and its two ``bucket_prev`` CSRs), equal to ``adam_rows_stream`` to
+    the bit; ms of both."""
+    import torch
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.kernels import ops
+    hp = SketchHParams()
+    spec_m = hp.spec("p15d", (VOCAB, D_MODEL), signed=True)
+    spec_v = hp.spec("p15d", (VOCAB, D_MODEL), signed=False)
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    M = torch.randn(spec_m.shape, generator=gen, device=dev) * 1e-3
+    V = torch.rand(spec_v.shape, generator=gen, device=dev) * 1e-3
+    ids = torch.from_numpy(zipf_ids(np.random.RandomState(seed + 15), 1)[0]
+                           ).to(dev)
+    g = torch.randn((ids.shape[0], D_MODEL), generator=gen, device=dev)
+    step = torch.tensor(3, dtype=torch.int32)
+    kw = dict(lr=LR, b1=0.9, b2=0.999, eps=1e-8)
+    reset_counts()
+    got = ops.adam_rows_fused(spec_m, spec_v, M.clone(), V.clone(), ids, g,
+                              step, **kw)
+    counts = read_counts()
+    want = ops.adam_rows_stream(spec_m, spec_v, M.clone(), V.clone(), ids, g,
+                                step, **kw)
+    bits = all(torch.equal(a, b) for a, b in zip(got, want))
+    work = [M.clone(), V.clone()]
+    ms = cuda_ms(lambda: ops.adam_rows_fused(spec_m, spec_v, *work, ids, g,
+                                             step, **kw), reps=3)
+    ms_stream = cuda_ms(lambda: ops.adam_rows_stream(
+        spec_m, spec_v, *work, ids, g, step, **kw), reps=3)
+    log(f"phase 15d: ops.adam_rows_fused at ({ids.shape[0]}, {D_MODEL}), M "
+        f"and V {tuple(spec_v.shape)}: launches {counts}; M, V and the "
+        f"updates equal to adam_rows_stream's to the bit: {bits}; "
+        f"{ms} ms a call (adam_rows_stream {ms_stream})")
+    if dev.type == "cuda" and (counts["cs_adam_fused"] != 1
+                               or counts["bucket_csr"] != 2):
+        raise AssertionError(f"15d: adam_rows_fused launched {counts}")
+    if not bits:
+        raise AssertionError("15d: adam_rows_fused differs from "
+                             "adam_rows_stream")
+    return {"counts": counts, "ms": ms, "stream_ms": ms_stream}
+
+
+def moe_config(layers=None):
+    """qwen2-moe-a2.7b at full width, cut to ``layers`` layers if given."""
+    from repro_torch import configs
+    cfg = configs.get(MOE_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+class DropCount:
+    """While entered, every MoE routing call (``models.moe._route``) keeps
+    its dropped assignments as a device scalar (no host sync)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.orig, self.per_call = moe, moe._route, []
+
+        def route(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.per_call.append((~out[2]).sum())
+            return out
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.orig
+
+    @property
+    def calls(self) -> int:
+        return len(self.per_call)
+
+    def counts(self) -> list:
+        import torch
+        return torch.stack(self.per_call).tolist() if self.per_call else []
+
+    def dropped(self) -> int:
+        return int(sum(self.counts()))
+
+
+class RouteLog:
+    """While entered, the (T, K) expert ids of every MoE routing call
+    (``models.moe.route_probs``), one entry a layer, in call order;
+    ``take()`` returns them and starts a new list."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.orig, self.eids = moe, moe.route_probs, []
+
+        def route_probs(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.eids.append(out[2])
+            return out
+        moe.route_probs = route_probs
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route_probs = self.orig
+
+    def take(self) -> list:
+        out, self.eids = self.eids, []
+        return out
+
+
+class MoERun(LMRun):
+    """``LMRun`` for a model whose params and state do not fit twice on
+    the card: the start params are drawn anew from the seed for every
+    arm (the same bits each time), never kept."""
+
+    def __init__(self, dev, seed: int, cfg):
+        from repro_torch.data import ZipfLM, ZipfLMConfig
+        self.dev, self.seed, self.cfg = dev, seed, cfg
+        self.data = ZipfLM(ZipfLMConfig(vocab_size=cfg.vocab,
+                                        seq_len=LM_SEQ,
+                                        global_batch=LM_BATCH, seed=seed))
+
+    def fresh(self, ts):
+        import torch
+        from repro_torch.train.trainer import TrainState
+        params = ts.init_fn(torch.Generator(device=self.dev).manual_seed(
+            self.seed))
+        return TrainState(step=0, params=params,
+                          opt_state=ts.optimizer.init(params))
+
+
+def to_host(tree):
+    """A copy of a tree of tensors in host memory."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(v) for v in tree)
+    return tree.detach().to("cpu", copy=True) \
+        if isinstance(tree, torch.Tensor) else tree
+
+
+def host_compare(got, want) -> tuple:
+    """(max abs difference, equal to the bit) of a tree on the card
+    against its host copy, leaf by leaf (each host leaf copied back to
+    the card), each within the witness envelope."""
+    import torch
+    from repro_torch.checkpoint.store import _flatten
+    worst, bits = 0.0, True
+    for (p, a), (q, b) in zip(_flatten(got), _flatten(want)):
+        if p != q or (a is None) != (b is None):
+            raise AssertionError(f"trees differ at {p!r} / {q!r}")
+        if a is None:
+            continue
+        a, b = a.detach(), b.to(a.device)
+        bits = bits and a.dtype == b.dtype and torch.equal(a, b)
+        if a.dim() == 0:
+            continue
+        torch.testing.assert_close(a, b, **WITNESS_TOL, msg=p)
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+        del b
+    return worst, bits
+
+
+def phase_moe_train(dev, seed: int) -> dict:
+    """15e: qwen2-moe-a2.7b training at full width, 4 of its 24 layers
+    (see the module docstring).  Returns the launches of its arms."""
+    import torch
+    from repro_torch.core.optimizers import state_bytes
+    from repro_torch.core.partition import leaf_paths
+    from repro_torch.models import transformer
+    from repro_torch.plan import measure_aux_bytes
+    cfg = moe_config(MOE_LAYERS)
+    run = MoERun(dev, seed, cfg)
+    n_params = sum(t.numel() for _p, t in leaf_paths(
+        transformer.init(None, cfg, device="meta")))
+    log(f"phase 15e: {cfg.name} cut to {cfg.n_layers} of "
+        f"{moe_config().n_layers} layers: d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads, {cfg.n_experts} experts top "
+        f"{cfg.top_k} of d_ff {cfg.d_ff}, shared {cfg.shared_d_ff}, "
+        f"capacity factor {cfg.capacity_factor}, {cfg.moe_groups} groups, "
+        f"tables {cfg.vocab} x {cfg.d_model}; {n_params} params, "
+        f"{cfg.compute_dtype} compute; ZipfLM {LM_BATCH} x {LM_SEQ} tokens "
+        f"a step; cs_adam lr {LM_LR}, kernel_backend auto")
+    totals: dict = {}
+    ts = run.step()
+    t_arm = time.perf_counter()
+    with DropCount() as drops:
+        state, losses, ms, counts, peak, _ = run.fit(ts, MOE_STEPS)
+    add_counts(totals, counts)
+    step_ms = statistics.median(ms[1:])
+    cs_bytes = (measure_aux_bytes(state.opt_state),
+                state_bytes(state.opt_state))
+    # every layer routes its tokens twice a step: the forward and its
+    # recompute under remat, the same inputs both times
+    calls = drops.counts()
+    span = 2 * cfg.n_layers
+    per_step = [sum(calls[i:i + span]) / 2
+                for i in range(0, len(calls), span)]
+    log(f"phase 15e: {MOE_STEPS} steps: ms/step (CUDA events) median of "
+        f"steps 2..{MOE_STEPS} {step_ms} (first {ms[0]}); all {ms}; losses "
+        f"{losses}; launches {counts} ({counts['cs_ema_tiled'] / MOE_STEPS} "
+        f"B3 a step); optimizer state {cs_bytes[0]} B ({cs_bytes[1]} with "
+        f"the step counter); peak memory of the arm {peak} B; dropped "
+        f"assignments a step (of {MOE_LAYERS * LM_BATCH * LM_SEQ * cfg.top_k}"
+        f") {per_step}, by layer at the first step {calls[:cfg.n_layers]}; "
+        f"{time.perf_counter() - t_arm:.1f} s")
+    if counts["cs_ema_tiled"] != 4 * MOE_STEPS:
+        raise AssertionError(f"B3 launched {counts['cs_ema_tiled']} times "
+                             f"in {MOE_STEPS} steps, not 4 a step")
+    if not (all(np.isfinite(losses)) and all(
+            bool(torch.isfinite(t).all())
+            for _p, t in leaf_paths(state.params))):
+        raise AssertionError("15e: non-finite loss or params")
+    t0 = time.perf_counter()
+    host = to_host({"params": state.params, "opt_state": state.opt_state})
+    log(f"phase 15e: the final state copied to the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    p, s = state.params, state.opt_state
+    del state
+    more = [{k: torch.as_tensor(v).to(dev) for k, v in
+             run.data.batch(MOE_STEPS + i).items()} for i in range(3)]
+
+    def three():
+        nonlocal p, s
+        for b in more:
+            p, s, _ = ts.step_fn(p, s, b)
+        torch.cuda.synchronize()
+    profile_steps("phase 15e (profile)", three, step_ms, n=3)
+    del p, s, more
+    torch.cuda.empty_cache()
+    t_arm = time.perf_counter()
+
+    # the plain xla witness from the same start on the same batches
+    w_state, w_losses, w_ms, w_counts, _, _ = run.fit(
+        run.step(backend="xla"), MOE_STEPS)
+    add_counts(totals, w_counts)
+    torch.testing.assert_close(torch.tensor(losses), torch.tensor(w_losses),
+                               rtol=WITNESS_TOL["rtol"], atol=0.0)
+    err_p, bits_p = host_compare(w_state.params, host["params"])
+    err_s, bits_s = host_compare(w_state.opt_state, host["opt_state"])
+    log(f"phase 15e: plain xla: ms/step median "
+        f"{statistics.median(w_ms[1:])}; launches {w_counts}; losses max "
+        f"rel diff "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(losses, w_losses))}, "
+        f"params max_abs_err {err_p}, state {err_s} (rtol "
+        f"{WITNESS_TOL['rtol']}, atol {WITNESS_TOL['atol']}); equal to the "
+        f"bit: {w_losses == losses and bits_p and bits_s}; "
+        f"{time.perf_counter() - t_arm:.1f} s with the comparison")
+    del w_state
+    torch.cuda.empty_cache()
+
+    # the auto arm again
+    r_state, r_losses, _, r_counts, _, _ = run.fit(ts, MOE_STEPS)
+    add_counts(totals, r_counts)
+    _, bits_p = host_compare(r_state.params, host["params"])
+    _, bits_s = host_compare(r_state.opt_state, host["opt_state"])
+    if not (r_losses == losses and bits_p and bits_s):
+        raise AssertionError("15e: the auto arm run twice gave other bits")
+    log("phase 15e: the auto arm run again: losses, params and state equal "
+        "to the bit")
+    del r_state, host
+    torch.cuda.empty_cache()
+
+    for mode, backend in (("dense_adam", None), ("cs_adam_v", "auto")):
+        a_state, a_losses, a_ms, a_counts, a_peak, _ = run.fit(
+            run.step(optimizer=mode, backend=backend), MOE_STEPS)
+        add_counts(totals, a_counts)
+        a_bytes = (measure_aux_bytes(a_state.opt_state),
+                   state_bytes(a_state.opt_state))
+        log(f"phase 15e: {mode} {MOE_STEPS} steps: losses {a_losses} "
+            f"against cs_adam's {losses}; ms/step median "
+            f"{statistics.median(a_ms[1:])}; optimizer state {a_bytes[0]} B "
+            f"({a_bytes[1]} with the step counter) against cs_adam's "
+            f"{cs_bytes[0]} B: cs_adam / {mode} {cs_bytes[0] / a_bytes[0]}; "
+            f"peak memory of the arm {a_peak} B against cs_adam's {peak} B; "
+            f"launches {a_counts}")
+        del a_state
+        torch.cuda.empty_cache()
+        learns(f"15e: {mode}", a_losses)
+    return totals
+
+
+def causal_logits(cfg, params, tokens):
+    """(b, s, vocab) f32 logits of every position of ``tokens`` from one
+    causal forward of the model (no cache): position p's row is what a
+    prefill of the prefix ending at p returns."""
+    import torch
+    from repro_torch.models import transformer as tm
+    b, s = tokens.shape
+    with torch.no_grad():
+        x = tm.embed(cfg, params, tokens)
+        x, _ = tm.backbone_train(cfg, params, x, tm._positions(b, s, x.device),
+                                 remat=False)
+        return tm.logits_fn(cfg, params, x).float()
+
+
+def within_decode_tol(got, want) -> tuple:
+    """11g's agreement of logits rows: (max |diff| / tolerance, rows whose
+    top-two margin is within the tolerance, argmax equal on every other
+    row); the tolerance is DECODE_TOL x the row's largest |logit|."""
+    tol = DECODE_TOL * want.abs().amax(-1)
+    ratio = float(((got - want).abs().amax(-1) / tol).max())
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol
+    same = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+    return ratio, int((~clear).sum()), same
+
+
+def decode_agreement(cfg, params, prompts, dtype: str) -> dict:
+    """64 greedy decode steps of ``cfg`` at capacity factor n_experts (no
+    assignment can drop) in ``dtype`` compute, each step's logits held to
+    the causal forward of its row's whole decoded sequence at that
+    position (``causal_logits``); that forward also against prefills of
+    the first and the last prefix; and the routing of every decoded token
+    in every layer against the forward's."""
+    import torch
+    from repro_torch.serve import make_serve_step
+    nd = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts),
+                             compute_dtype=dtype)
+    ss = make_serve_step(nd, batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
+    with torch.no_grad(), DropCount() as drops, RouteLog() as routes:
+        logits, cache = ss.prefill_fn(params, {"tokens": prompts})
+        routes.take()
+        seq, outs, dec = prompts, [], []
+        for _ in range(DECODE):
+            tok = logits.argmax(-1).to(torch.int32)
+            seq = torch.cat([seq, tok[:, None]], dim=1)
+            logits, cache = ss.decode_fn(params, cache, tok)
+            outs.append(logits.float())
+            dec.append(routes.take())
+        del cache
+        got = torch.stack(outs, dim=1)                 # (b, DECODE, vocab)
+        want, fwd = [], []
+        for r in range(SERVE_BATCH):
+            want.append(causal_logits(nd, params, seq[r:r + 1])[
+                0, PROMPT:PROMPT + DECODE])
+            fwd.append(routes.take())
+        want = torch.stack(want)
+        prefix = 0.0
+        for t in (0, DECODE - 1):
+            for r in range(SERVE_BATCH):
+                pre, _ = ss.prefill_fn(params, {
+                    "tokens": seq[r:r + 1, :PROMPT + t + 1]})
+                prefix = max(prefix, within_decode_tol(
+                    pre.float()[0], want[r, t])[0])
+    layers = len(dec[0])
+    flips = [0] * layers
+    for t in range(DECODE):
+        for l in range(layers):
+            a = torch.sort(dec[t][l].long(), -1).values
+            b = torch.sort(torch.stack([fwd[r][l][PROMPT + t] for r in
+                                        range(SERVE_BATCH)]).long(),
+                           -1).values
+            flips[l] += int((a != b).any(-1).sum())
+    ratio, ties, same = within_decode_tol(got, want)
+    return {"ratio": ratio, "ties": ties, "argmax_same": same,
+            "prefix_ratio": prefix, "dropped": drops.dropped(),
+            "calls": drops.calls, "flips_by_layer": flips}
+
+
+def phase_moe_serve(dev, seed: int) -> dict:
+    """15f: qwen2-moe-a2.7b served at all 24 layers on fresh params (see
+    the module docstring).  Returns the launches (none: serving runs no
+    optimizer)."""
+    import torch
+    from repro_torch.core.partition import leaf_paths
+    from repro_torch.data import ZipfLM, ZipfLMConfig
+    from repro_torch.models import transformer
+    from repro_torch.serve import make_serve_step
+    cfg = moe_config()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    params = transformer.init(torch.Generator(device=dev).manual_seed(seed),
+                              cfg)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for _p, t in leaf_paths(params))
+    prompts = torch.as_tensor(ZipfLM(ZipfLMConfig(
+        vocab_size=cfg.vocab, seq_len=PROMPT, global_batch=SERVE_BATCH,
+        seed=seed + 1)).batch(0)["tokens"]).to(dev)
+    # at the published capacity factor
+    ss = make_serve_step(cfg, batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
+    prefill_ms = cuda_ms(lambda: ss.prefill_fn(params, {"tokens": prompts}),
+                         reps=3)
+    with DropCount() as drops:
+        logits, cache = ss.prefill_fn(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(DECODE):
+        tok = logits.argmax(-1).to(torch.int32)
+        logits, cache = ss.decode_fn(params, cache, tok)
+    e1.record()
+    torch.cuda.synchronize()
+    decode_ms = e0.elapsed_time(e1) / DECODE
+    more = cache
+
+    def three():
+        nonlocal more
+        tok = logits.argmax(-1).to(torch.int32)
+        for _ in range(3):
+            _, more = ss.decode_fn(params, more, tok)
+        torch.cuda.synchronize()
+    profile_steps("phase 15f (decode profile)", three, decode_ms, n=3)
+    del cache, more
+    per_layer = drops.counts()
+    log(f"phase 15f: {cfg.name}, all {cfg.n_layers} layers, {n_bytes} B of "
+        f"f32 params; make_serve_step(batch={SERVE_BATCH}, max_seq="
+        f"{SERVE_MAX_SEQ}) at capacity factor {cfg.capacity_factor}: "
+        f"prefill of {SERVE_BATCH} x {PROMPT} tokens {prefill_ms} ms, "
+        f"{sum(per_layer)} of {SERVE_BATCH * PROMPT * cfg.top_k} assignments "
+        f"a layer dropped over its {len(per_layer)} layers (by layer "
+        f"{per_layer}); {DECODE} greedy decode steps {decode_ms} ms a token, "
+        f"{SERVE_BATCH * 1e3 / decode_ms} tokens/s; "
+        f"{time.perf_counter() - t0:.1f} s with the params' draw")
+
+    # the agreement check where no assignment drops: in f32 compute, as
+    # in bf16 a routing choice whose top-K gap is below bf16's rounding
+    # of the router's input flips between decode and prefill (printed)
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        a = decode_agreement(cfg, params, prompts, dtype)
+        log(f"phase 15f: {dtype} compute at capacity factor "
+            f"{cfg.n_experts} ({a['dropped']} dropped in {a['calls']} "
+            f"routing calls): {DECODE} decode steps against the causal "
+            f"forward of each row's decoded sequence: max |diff| / "
+            f"tolerance {a['ratio']} (tolerance {DECODE_TOL} x the row's "
+            f"max |logit|), {a['ties']} of {DECODE * SERVE_BATCH} rows "
+            f"within it, argmax equal elsewhere: {a['argmax_same']}; that "
+            f"forward against the prefill of the first and last prefixes: "
+            f"{a['prefix_ratio']}; decoded tokens routed otherwise than in "
+            f"the forward, by layer: {a['flips_by_layer']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"phase 15f: peak memory {peak} B above the {base} B before")
+    if a["dropped"] or a["ratio"] > 1.0 or not a["argmax_same"] \
+            or a["prefix_ratio"] > 1.0:
+        raise AssertionError("15f: decode disagrees with the prefill of its "
+                             "prefix in f32 compute")
+    del params
+    return read_counts()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5089,6 +5796,10 @@ def main(argv=None) -> int:
                         help="comma-separated phase names to run (default: "
                              "all; the kernels' line needs all)")
     argv = sys.argv[1:] if argv is None else list(argv)
+    # phase 15's model fills the card: grow the allocator's segments in
+    # place, so blocks freed by the phases before it can be reused
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     if argv[:1] == ["--launcher-child"]:
         return launcher_child(argv[1:])
     args = parser.parse_args(argv)
@@ -5144,6 +5855,8 @@ def main(argv=None) -> int:
                             dev, out["6"][1] if "6" in out
                             else SoftmaxTask(dev, args.seed)))),
         ("14", lambda: phase_placement(dev, args.seed)),
+        # 15 needs most of the card: earlier phases' tensors go first
+        ("15", lambda: phase_a14b(dev, args.seed, release(out))),
     ]
     if args.phases:
         keep = args.phases.split(",")
@@ -5175,6 +5888,9 @@ def main(argv=None) -> int:
     # 14a-e: the launcher's sparse_embedding and --dp runs, the folded
     # restore's steps, the recovered run and the re-placed sharded runs
     placed = out["14"]
+    # 15a-f: the launcher's extreme and serve-replay runs,
+    # adam_rows_fused, the MoE model's training arms
+    a14b, fused = out["15"]
     launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
                                   + placed["cs_adam_tiled"]
                                   + extreme["cs_adam_tiled"]
@@ -5215,6 +5931,8 @@ def main(argv=None) -> int:
                                + out["6"][0]["bucket_csr"]
                                + planned_dense["bucket_csr"]
                                + lm_b3["bucket_csr"])}
+    for name in launches:
+        launches[name] += a14b.get(name, 0)
     for row in kernels:
         row.setdefault("launches", launches.get(row["name"]))
         if row["name"] == "cs_adam_tiled":
@@ -5238,6 +5956,11 @@ def main(argv=None) -> int:
             row["slab_mode"] = slab_row
         # the placement path (14a-e), in the total above as well
         row["launches_placement_path"] = placed.get(row["name"], 0)
+        # the A14b path (15a-f), in the total above as well
+        row["launches_a14b_path"] = a14b.get(row["name"], 0)
+        if row["name"] == "cs_adam_fused":
+            row["adam_rows_fused_ms"] = fused["ms"]
+            row["adam_rows_stream_ms"] = fused["stream_ms"]
     log(f"peak device memory of the whole run {max(peak, out['8'][4])} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -7,8 +7,9 @@ interleave with dense-FFN layers (``moe_every=2``, dense d_ff=16384) —
 that is what makes the total ≈400 B with 17 B active, matching the
 "-400b-a17b" name; every-layer MoE would be ≈775 B.  ``fsdp=True`` is
 the reference's sharding of the master weights over its data axes
-(``distributed.sharding.spec_for``'s 'fsdp:' entries); the MoE family
-waits for ROADMAP A14b.
+(``distributed.sharding.spec_for``'s 'fsdp:' entries).  One MoE layer
+holds 16.1 B parameters (64 GB in f32), so the model is run at
+``reduced()`` on the CPU only.
 """
 from repro_torch.models.config import ArchConfig
 

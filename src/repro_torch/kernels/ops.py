@@ -195,6 +195,27 @@ def adam_rows_tiled(spec_m, spec_v, M, V, ids, g, step, *, lr,
                          positions=(batch.inv, batch.first_pos))
 
 
+def adam_rows_fused(spec_m, spec_v, M, V, ids, g, step, *, lr,
+                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                    force: Optional[str] = None) -> Result:
+    """Streaming fused CS-Adam over ``k`` rows (paper Alg. 4 semantics),
+    whatever backend the registry would pick: B2 (``adam_rows_stream``)
+    for CUDA tensors, the per-item loop ``adam_rows_ref`` for others.
+    ``force='cuda'`` demands B2 (an error without a card or on CPU
+    tensors); ``force='ref'`` runs the loop on any device."""
+    if force not in (None, "cuda", "ref"):
+        raise ValueError(f"adam_rows_fused: force is 'cuda', 'ref' or "
+                         f"None, not {force!r}")
+    if force == "cuda" and not (torch.cuda.is_available() and g.is_cuda):
+        raise RuntimeError("adam_rows_fused(force='cuda') needs CUDA "
+                           "tensors on a card")
+    run = adam_rows_ref if force == "ref" or (force is None
+                                              and not g.is_cuda) \
+        else adam_rows_stream
+    return run(spec_m, spec_v, M, V, ids, g, step, lr=lr, b1=b1, b2=b2,
+               eps=eps)
+
+
 # ---------------------------------------------------------------------------
 # The dense path's fused update_read
 # ---------------------------------------------------------------------------

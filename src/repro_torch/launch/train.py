@@ -8,13 +8,32 @@
         --nproc-per-node 2 -m repro_torch.launch.train \
         --workload sparse_embedding --dp --error-feedback --steps 20
 
-Counterpart of ``repro.launch.train`` for ``--workload lm`` (the
-``make_train_step`` step on the ``ZipfLM`` stream through ``Trainer``,
-the ``--aux-budget`` plan recovered from a manifest on resume,
-``--store-backend`` 'auto': B3 on the sketched tables) and ``--workload
-sparse_embedding`` (a zipf-touched table pulled toward a fixed target
-in the paper's (ids, grad-rows) regime: on a card B1 after the dedup
-sum, B5).  ``--reduced`` swaps in the smoke-size config.  It runs on
+    PYTHONPATH=src python -m repro_torch.launch.train --workload extreme \
+        --steps 20 --batch 1024 --classes 8000000 --meta-rows 2097152
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --workload serve-replay --sparse-rows 151936 --sparse-dim 896
+
+Counterpart of ``repro.launch.train``, every workload:
+
+  * ``lm``: the ``make_train_step`` step of a ``gqa`` or ``moe`` config
+    on the ``ZipfLM`` stream through ``Trainer``, the ``--aux-budget``
+    plan recovered from a manifest on resume, ``--store-backend``
+    'auto': B3 on the sketched tables;
+  * ``sparse_embedding``: a zipf-touched table pulled toward a fixed
+    target in the paper's (ids, grad-rows) regime (on a card B1 after
+    the dedup sum, B5);
+  * ``extreme``: ``--replicas`` MACH meta-classifiers with sampled
+    softmax (``train.extreme.make_extreme_step``), one after the other,
+    each with its own checkpoint directory ``replica{r}`` and metrics
+    subdirectory; the optimizer defaults to ``cs_rmsprop`` (B1 without M
+    on a card);
+  * ``serve-replay``: a fixed-seed zipf trace replayed through
+    ``serve.AdaptServer`` (the count-min arm, B1 once a batch on a
+    card, or ``--optimizer dense_adam``), printing one ``[serve]`` line
+    and, with ``--metrics-dir``, one ``serve`` record.
+
+``--reduced`` swaps in the smoke-size config.  It runs on
 ``cuda`` unless ``--device cpu`` is given; a recorded backend is kept as
 it is (on a card ``tiled`` is B3).
 
@@ -71,12 +90,14 @@ def say(*args, **kw) -> None:
         print(*args, flush=True, **kw)
 
 
-def make_observer(args, run_meta, monitors=()):
-    """A ``RunObserver`` over ``--metrics-dir`` on process 0, or None when
-    it is off."""
+def make_observer(args, run_meta, monitors=(), subdir: str = ""):
+    """A ``RunObserver`` over ``--metrics-dir`` (its ``subdir``) on
+    process 0, or None when it is off."""
     if not args.metrics_dir or args.rank != 0:
         return None
-    writer = MetricsWriter(args.metrics_dir, run_meta=run_meta)
+    out = os.path.join(args.metrics_dir, subdir) if subdir \
+        else args.metrics_dir
+    writer = MetricsWriter(out, run_meta=run_meta)
     return RunObserver(writer, monitors=monitors, log_every=args.log_every,
                        phase_timer=PhaseTimer())
 
@@ -106,8 +127,11 @@ def parser() -> argparse.ArgumentParser:
                              "serve-replay"],
                     help="lm: the full model train step; sparse_embedding: "
                          "the (ids, grad-rows) table regime (sketched "
-                         "all-reduce under --dp); extreme and serve-replay "
-                         "wait for ROADMAP A14b")
+                         "all-reduce under --dp); extreme: MACH + sampled "
+                         "softmax over a --meta-rows output table "
+                         "(paper §7.3, the big-batch regime); "
+                         "serve-replay: replay a zipf traffic trace through "
+                         "the online-adaptation server")
     ap.add_argument("--sparse-rows", type=int, default=65536)
     ap.add_argument("--sparse-dim", type=int, default=64)
     ap.add_argument("--sparse-compression", type=float, default=5.0)
@@ -138,6 +162,39 @@ def parser() -> argparse.ArgumentParser:
                          "two-level owner hash keeps every id's rows on "
                          "one shard, and bakes the shard count into the "
                          "state")
+    ap.add_argument("--serve-requests", type=int, default=256,
+                    help="serve-replay: trace length (fixed --seed zipf)")
+    ap.add_argument("--serve-ids-per-request", type=int, default=8)
+    ap.add_argument("--serve-batch-ids", type=int, default=64,
+                    help="serve-replay: id capacity of a coalesced batch")
+    ap.add_argument("--serve-deadline-ms", type=float, default=2.0,
+                    help="serve-replay: max time the batcher holds its "
+                         "oldest request before dispatching a partial batch")
+    ap.add_argument("--offered-load", type=float, default=500.0,
+                    help="serve-replay: trace arrival rate, requests/s")
+    ap.add_argument("--queue-cap", type=int, default=32,
+                    help="serve-replay: admission-queue bound; arrivals "
+                         "past it are shed, not delayed")
+    ap.add_argument("--serve-slo-ms", type=float, default=250.0,
+                    help="serve-replay: adapt-latency p99 SLO stamped into "
+                         "the emitted serve record (obs.report warns on "
+                         "violation)")
+    ap.add_argument("--classes", type=int, default=1_000_000,
+                    help="extreme: true-label space (MACH hashes it down "
+                         "to --meta-rows per replica)")
+    ap.add_argument("--meta-rows", type=int, default=131_072,
+                    help="extreme: rows of each replica's meta output "
+                         "table, the table the optimizer state covers")
+    ap.add_argument("--replicas", type=int, default=2,
+                    help="extreme: MACH meta-classifier count R")
+    ap.add_argument("--features", type=int, default=65_536,
+                    help="extreme: sparse feature vocabulary")
+    ap.add_argument("--extreme-dim", type=int, default=64,
+                    help="extreme: embedding width of both tables")
+    ap.add_argument("--nnz", type=int, default=16,
+                    help="extreme: active features per example")
+    ap.add_argument("--negatives", type=int, default=1024,
+                    help="extreme: shared sampled-softmax negatives")
     ap.add_argument("--error-feedback", action="store_true",
                     help="accumulate the 2nd moment's cross-replica term "
                          "in a residual sketch (MicroAdam-style)")
@@ -543,6 +600,202 @@ def run_sparse_embedding(args, device, mesh, grid) -> int:
     return 0 if last < first else 1
 
 
+# ---------------------------------------------------------------------------
+# serve-replay
+# ---------------------------------------------------------------------------
+
+def serve_table(n_rows: int, dim: int, seed: int, device) -> torch.Tensor:
+    """The served table: (n_rows, dim) normals x 0.1 from ``seed`` (the
+    reference's ``normal(PRNGKey(seed)) * 0.1``; the two packages'
+    generators differ)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((n_rows, dim), generator=gen, dtype=torch.float32,
+                       device=device) * 0.1
+
+
+def run_serve_replay(args, device) -> int:
+    """The online-adaptation serving workload: replay a fixed-seed zipf
+    traffic trace through the serving subsystem (bounded admission,
+    size-or-deadline batching with cross-request dedup, double-buffered
+    (table, sketch) state) and emit a schema-valid ``serve`` record.
+    ``--optimizer dense_adam`` runs the dense-baseline arm; anything else
+    runs the count-min arm sized by ``--sparse-compression`` (backend via
+    ``--store-backend``; 'auto' is B1 on a card).  One process; under a
+    group every process replays the same trace."""
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.serve import (AdaptServer, ServerConfig,
+                                   make_dense_adapt_step,
+                                   make_online_adapt_step, replay)
+    from repro_torch.serve.traffic import (TraceConfig, make_trace,
+                                           trace_stats)
+
+    n_rows, dim = args.sparse_rows, args.sparse_dim
+    trace = make_trace(TraceConfig(
+        n_requests=args.serve_requests, n_rows=n_rows, dim=dim,
+        ids_per_request=args.serve_ids_per_request,
+        offered_load=args.offered_load, seed=args.seed))
+    arm = "dense" if args.optimizer == "dense_adam" else "countmin"
+    if arm == "dense":
+        init_fn, adapt_fn = make_dense_adapt_step(n_rows, dim, lr=args.lr,
+                                                  device=device)
+    else:
+        init_fn, adapt_fn = make_online_adapt_step(
+            n_rows, dim, lr=args.lr,
+            hparams=SketchHParams(compression=args.sparse_compression),
+            store_backend=args.store_backend or None, device=device)
+    server = AdaptServer(serve_table(n_rows, dim, args.seed, device),
+                         init_fn(), adapt_fn, ServerConfig(
+                             batch_ids=args.serve_batch_ids,
+                             max_delay_s=args.serve_deadline_ms / 1e3,
+                             queue_cap=args.queue_cap,
+                             slo_p99_ms=args.serve_slo_ms))
+    replay(server, trace)
+
+    rec = server.metrics_record(offered_load=args.offered_load)
+    if args.metrics_dir and args.rank == 0:
+        with MetricsWriter(args.metrics_dir, run_meta={
+                "workload": "serve-replay", "arm": arm, "rows": n_rows,
+                "dim": dim, "compression": args.sparse_compression,
+                "requests": args.serve_requests,
+                "offered_load": args.offered_load}) as w:
+            w.write("serve", **rec, **{f"trace_{k}": v
+                                       for k, v in trace_stats(trace).items()})
+    h = rec["adapt_ms"]
+    say(f"[serve] arm={arm} rows={n_rows} dim={dim} "
+        f"load={args.offered_load:.0f}/s requests={server.n_submitted} "
+        f"batches={server.n_batches} shed={server.shed_rate:.3f} "
+        f"adapt p50 {h['p50_ms']:.2f} ms p99 {h['p99_ms']:.2f} ms "
+        f"adapts/s {rec['reads_per_s']:.1f}")
+    return 0 if server.n_done > 0 else 1
+
+
+# ---------------------------------------------------------------------------
+# extreme
+# ---------------------------------------------------------------------------
+
+class ReplicaBatches:
+    """A MACH replica's batches (``train.extreme.MetaStream`` on the host)
+    with ``features`` and ``labels`` cut to this data-parallel replica's
+    block of dim 0 and the shared ``negatives`` whole, as the reference's
+    ``shard_map`` splits them."""
+
+    def __init__(self, stream, rank: int, size: int):
+        self.stream, self.rank, self.size = stream, rank, size
+
+    def batch(self, step):
+        b = self.stream.batch(step)
+        n = b["labels"].shape[0] // self.size
+        cut = slice(self.rank * n, (self.rank + 1) * n)
+        return {"features": b["features"][cut], "labels": b["labels"][cut],
+                "negatives": b["negatives"]}
+
+
+def extreme_monitors(args, cfg, hp, plan):
+    """Per-table health monitors over the step's own stores (store stats
+    and the planner's predicted error: ``LeafPlan.predicted_error`` under
+    a plan, the raw error model otherwise); none for ``dense_adam``,
+    whose state is not sketched."""
+    if not args.metrics_dir or args.optimizer == "dense_adam":
+        return []
+    from repro_torch.obs import TableMonitor, predicted_table_errors
+    mons = []
+    for path, shape in cfg.table_shapes().items():
+        m_store, v_store = sparse_embedding_stores(
+            shape[0], shape[1], hparams=hp,
+            track_first_moment=(args.optimizer == "cs_adam"), path=path,
+            stores=plan.store_tree() if plan else None)
+        if plan is not None and plan.leaf(path) is not None:
+            pred = {"v_pred_error": float(plan.leaf(path).predicted_error)}
+        else:
+            pred = predicted_table_errors(m_store, v_store, shape[0],
+                                          alpha=cfg.alpha)
+        mons.append(TableMonitor(path=path, m_store=m_store,
+                                 v_store=v_store, predicted=pred,
+                                 getter=lambda s, p=path: s[p]))
+    return mons
+
+
+def run_extreme(args, device, mesh, grid) -> int:
+    """The MACH + sampled-softmax workload (paper §7.3 at table scale):
+    ``--replicas`` independent meta-classifiers over an ``--meta-rows``
+    output table, one after the other, gradients as (ids, rows) through
+    the dedup pre-pass, sketch sizing solved by the planner from
+    ``--aux-budget`` and, under ``--dp``, the sketched all-reduce over
+    the process group's 'data' axis (each process its block of the
+    batch).  Replica r's params are drawn from ``seed + r``.  Exits 1
+    unless every replica's tail-window loss beats its head window."""
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.data import ExtremeStream
+    from repro_torch.train.extreme import (MachConfig, MetaStream,
+                                           make_extreme_step, plan_extreme)
+
+    cfg = MachConfig(n_classes=args.classes, n_meta=args.meta_rows,
+                     n_features=args.features, dim=args.extreme_dim,
+                     n_replicas=args.replicas, nnz=args.nnz,
+                     n_negatives=args.negatives, seed=args.seed)
+    plan = None
+    if args.aux_budget:
+        plan = plan_extreme(cfg, args.aux_budget, optimizer=args.optimizer,
+                            backend=args.store_backend or None,
+                            sketch_dtype=args.sketch_cell_dtype)
+        say(plan.table())
+    hp = SketchHParams(compression=args.sparse_compression,
+                       backend=args.store_backend or None,
+                       dtype=args.sketch_cell_dtype)
+    init_fn, step_fn, opts = make_extreme_step(
+        cfg, optimizer=args.optimizer, lr=args.lr, hparams=hp, plan=plan,
+        backend=args.store_backend or None,
+        dp_axis="data" if args.dp else None,
+        mesh=mesh if args.dp else None,
+        error_feedback=args.error_feedback, device=device)
+    rank, size = (batch_coords(args, mesh)[0], grid.shape[0])
+    cmaps = cfg.class_maps()
+    finals = []
+    for r in range(cfg.n_replicas):
+        data = ReplicaBatches(MetaStream(ExtremeStream(
+            cfg.data_config(args.batch)), cmaps[r], device="cpu"),
+            rank, size)
+        params = init_fn(torch.Generator(device=device).manual_seed(
+            args.seed + r))
+        opt_state = {p: o.init() for p, o in opts.items()}
+        ckpt = (os.path.join(args.ckpt_dir, f"replica{r}")
+                if args.ckpt_dir else None)
+        tcfg = TrainerConfig(total_steps=args.steps, ckpt_dir=ckpt,
+                             ckpt_every=args.ckpt_every,
+                             log_every=args.log_every, host_id=args.rank)
+        observer = make_observer(args, {
+            "workload": "extreme", "replica": r,
+            "classes": cfg.n_classes, "meta_rows": cfg.n_meta,
+            "optimizer": args.optimizer, "batch": args.batch,
+            "dp": bool(args.dp)}, extreme_monitors(args, cfg, hp, plan),
+            subdir=f"replica{r}")
+        trainer = Trainer(step_fn, data, tcfg, plan=plan, observer=observer,
+                          device=device, shardings=None if mesh is None
+                          else shd.Placement(None, mesh))
+        state = trainer.restore_or_init(
+            TrainState(step=0, params=params, opt_state=opt_state))
+        with maybe_trace(args.profile_dir if r == 0 else None):
+            state = trainer.fit(state)
+        hist = trainer.history
+        # disjoint head/tail windows even on short smoke runs
+        w = max(1, min(10, len(hist) // 3))
+        first = np.mean([h["loss"] for h in hist[:w]])
+        last = np.mean([h["loss"] for h in hist[-w:]])
+        finals.append((first, last))
+        step_ms = (1e3 * np.mean([h["time_s"] for h in hist[1:]])
+                   if len(hist) > 1 else float("nan"))
+        say(f"[train] {step_ms:.3f} ms a step after the first, replica {r}, "
+            f"{len(hist)} steps in this process")
+        say(f"[train] workload=extreme replica={r} "
+            f"steps={state.step} loss {first:.4f} -> {last:.4f}")
+    say(f"[train] workload=extreme classes={cfg.n_classes:,} "
+        f"meta_rows={cfg.n_meta:,} replicas={cfg.n_replicas} "
+        f"optimizer={args.optimizer} dp={bool(args.dp)} "
+        f"batch={args.batch} per-replica losses "
+        f"{[round(float(l), 4) for _, l in finals]}")
+    return 0 if all(l < f for f, l in finals) else 1
+
+
 def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
@@ -555,11 +808,11 @@ def main(argv=None) -> int:
                  "--sketch-shards: the per-(depth, block) absmax scales "
                  "need a whole-sketch view the sharded/collective paths "
                  "don't have — use bfloat16 there")
-    if args.workload in ("extreme", "serve-replay"):
-        raise NotImplementedError(
-            f"--workload {args.workload} is not ported to this launcher "
-            f"yet (ROADMAP A14b); the port runs --workload lm and "
-            f"sparse_embedding")
+    if args.workload in ("extreme", "serve-replay") \
+            and args.optimizer == ap.get_default("optimizer"):
+        # both workloads default to the paper's Theorem 5.1 choice, not
+        # the LM default; only when the user did not pick one
+        args.optimizer = "cs_rmsprop"
     if args.sketch_shards > 1 and args.workload != "sparse_embedding":
         ap.error("--sketch-shards applies to the sparse_embedding "
                  "workload only (the sharded sparse-rows step)")
@@ -580,8 +833,12 @@ def main(argv=None) -> int:
                 "--metrics-dir with --sketch-shards > 1 under a process "
                 "group is not supported: the table monitors read the "
                 "whole sketch, and each process holds one slab")
+        if args.workload == "serve-replay":
+            return run_serve_replay(args, device)
         if args.workload == "sparse_embedding":
             return run_sparse_embedding(args, device, mesh, grid)
+        if args.workload == "extreme":
+            return run_extreme(args, device, mesh, grid)
         return run_lm(args, device, mesh, grid)
     finally:
         if started:

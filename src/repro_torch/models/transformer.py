@@ -1,21 +1,23 @@
-"""Decoder-only LM, the dense GQA family (internlm2 / yi / granite /
-qwen2).
+"""Decoder-only LM: dense GQA (internlm2 / yi / granite / qwen2) and the
+MoE variants (qwen2-moe / llama4-maverick).
 
-Counterpart of the ``gqa`` half of ``repro.models.transformer``.  The
-params are the reference's tree, key for key: ``tok_embed/table``,
-``layers/...`` with layer-stacked leaves of shape (n_layers, …),
-``final_norm`` and ``lm_head/table`` (two vocabulary tables, whatever
-``tie_embeddings`` says), so sketch policies, plans and checkpoint leaf
-paths match the reference's strings.  The reference's ``lax.scan`` over
-layers is a loop over the stacked leaves' slices (``unbind``: one
-gradient ``stack`` a leaf, not one full-size buffer a layer); training
-runs each layer under ``torch.utils.checkpoint`` (the reference's
-remat).  The KV cache is written in place.
-
-The MoE family (``uses_blocks``, ``moe``) waits for ROADMAP A14b.
+Counterpart of ``repro.models.transformer``.  The params are the
+reference's tree, key for key: ``tok_embed/table``, ``layers/...`` with
+layer-stacked leaves of shape (n_layers, …), ``final_norm`` and
+``lm_head/table`` (two vocabulary tables, whatever ``tie_embeddings``
+says), so sketch policies, plans and checkpoint leaf paths match the
+reference's strings.  ``moe_every == 2`` (llama4-maverick) interleaves
+dense-FFN and MoE layers as the reference does: the stacked unit is a
+``{"dense", "moe"}`` block of n_layers / 2 units, and the KV cache
+gains a block axis, (units, 2, b, s, kv, hd).  The reference's
+``lax.scan`` over units is a loop over the stacked leaves' slices
+(``unbind``: one gradient ``stack`` a leaf, not one full-size buffer a
+unit); training runs each unit under ``torch.utils.checkpoint`` (the
+reference's remat).  The KV cache is written in place.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -25,27 +27,35 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.partition import leaf_paths
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.family != "gqa":
+def _ported(cfg: ArchConfig) -> None:
+    if cfg.family not in ("gqa", "moe"):
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP A14b); "
-            f"the port's transformer runs the dense 'gqa' family")
+            f"the port's transformer runs the 'gqa' and 'moe' families")
 
 
 def uses_blocks(cfg: ArchConfig) -> bool:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "interleaved MoE blocks are not ported yet (ROADMAP A14b)")
-    return False
+    return cfg.family == "moe" and cfg.moe_every > 1
+
+
+def _dense_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The interleaved dense layer's view of the config."""
+    return dataclasses.replace(cfg, family="gqa",
+                               d_ff=cfg.dense_d_ff or cfg.d_ff)
 
 
 def n_scan_units(cfg: ArchConfig) -> int:
-    _dense_only(cfg)
+    _ported(cfg)
+    if uses_blocks(cfg):
+        assert cfg.moe_every == 2, "only moe_every in (1, 2) is implemented"
+        assert cfg.n_layers % 2 == 0
+        return cfg.n_layers // 2
     return cfg.n_layers
 
 
@@ -53,9 +63,24 @@ def n_scan_units(cfg: ArchConfig) -> int:
 # Layers
 # ---------------------------------------------------------------------------
 
+def _ffn_init(generator, cfg: ArchConfig, *, lead=(), device="cuda"):
+    if cfg.family == "moe":
+        return moe_lib.moe_init(generator, cfg, lead=lead, device=device)
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": cm.dense_init(generator, d, f, lead=lead,
+                                    device=device),
+            "w_up": cm.dense_init(generator, d, f, lead=lead, device=device),
+            "w_down": cm.dense_init(generator, f, d, lead=lead,
+                                    device=device)}
+
+
 def _ffn_apply(cfg: ArchConfig, p, x: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, d) -> (y, aux_loss)."""
+    if cfg.family == "moe":
+        b, s, d = x.shape
+        y, aux = moe_lib.moe_apply(cfg, p, x.reshape(b * s, d))
+        return y.reshape(b, s, d), aux
     dt = x.dtype
     gate = x @ p["w_gate"].to(dt)
     act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate,
@@ -67,21 +92,16 @@ def _ffn_apply(cfg: ArchConfig, p, x: torch.Tensor
 
 def layer_init(generator, cfg: ArchConfig, *, lead=(), device="cuda"):
     """One layer's params; ``lead`` = (n_layers,) stacks them."""
-    _dense_only(cfg)
+    _ported(cfg)
     lead = tuple(lead)
-    d, f = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
     return {
         "ln1": torch.ones(lead + (d,), dtype=torch.float32, device=device),
         "attn": attn.attn_init(generator, d, cfg.n_heads, cfg.n_kv,
                                cfg.head_dim, cfg.qkv_bias, lead=lead,
                                device=device),
         "ln2": torch.ones(lead + (d,), dtype=torch.float32, device=device),
-        "ffn": {"w_gate": cm.dense_init(generator, d, f, lead=lead,
-                                        device=device),
-                "w_up": cm.dense_init(generator, d, f, lead=lead,
-                                      device=device),
-                "w_down": cm.dense_init(generator, f, d, lead=lead,
-                                        device=device)},
+        "ffn": _ffn_init(generator, cfg, lead=lead, device=device),
     }
 
 
@@ -159,20 +179,42 @@ def layer_slices(layers) -> List[Dict[str, Any]]:
 # Full model
 # ---------------------------------------------------------------------------
 
+def _unit_parts(cfg: ArchConfig):
+    """``[(cfg, key)]`` of one stacked unit: ``[(dense view, "dense"),
+    (cfg, "moe")]`` for a block, ``[(cfg, None)]`` for a plain layer."""
+    if uses_blocks(cfg):
+        return [(_dense_cfg(cfg), "dense"), (cfg, "moe")]
+    return [(cfg, None)]
+
+
+def _parts(cfg: ArchConfig, unit):
+    """``(sub-config, layer params, block index)`` of each layer of one
+    unit's params."""
+    return [(c, unit if key is None else unit[key], None if key is None
+             else j) for j, (c, key) in enumerate(_unit_parts(cfg))]
+
+
 def init(generator: Optional[torch.Generator], cfg: ArchConfig,
          device=None) -> Params:
     """The reference's params tree, drawn from ``generator`` (f32 master
     weights at the reference's scales) on ``device`` (default: the
     generator's, or the card without one).  On the ``meta`` device it
     allocates nothing (shapes for the planner)."""
-    _dense_only(cfg)
+    _ported(cfg)
     if device is None:
         device = generator.device if generator is not None else "cuda"
+    lead = (n_scan_units(cfg),)
+    # drawn in this order: the embedding, the layers, the head
+    tok_embed = cm.embed_init(generator, cfg.vocab, cfg.d_model,
+                              device=device)
+    if uses_blocks(cfg):
+        layers = {key: layer_init(generator, c, lead=lead, device=device)
+                  for c, key in _unit_parts(cfg)}
+    else:
+        layers = layer_init(generator, cfg, lead=lead, device=device)
     return {
-        "tok_embed": {"table": cm.embed_init(generator, cfg.vocab,
-                                             cfg.d_model, device=device)},
-        "layers": layer_init(generator, cfg, lead=(cfg.n_layers,),
-                             device=device),
+        "tok_embed": {"table": tok_embed},
+        "layers": layers,
         "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
                                  device=device),
         "lm_head": {"table": cm.embed_init(generator, cfg.vocab,
@@ -185,14 +227,18 @@ def backbone_train(cfg: ArchConfig, params: Params, x: torch.Tensor,
     """Run the layer stack; x (b,s,d).  Returns (x, total_aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def body(lp, h):
-        return layer_apply_train(cfg, lp, h, positions)
+    def body(unit, h):
+        a = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c, lp, _ in _parts(cfg, unit):
+            h, a_l = layer_apply_train(c, lp, h, positions)
+            a = a + a_l
+        return h, a
 
-    for lp in layer_slices(params["layers"]):
+    for unit in layer_slices(params["layers"]):
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(body, lp, x, use_reentrant=False)
+            x, a = checkpoint(body, unit, x, use_reentrant=False)
         else:
-            x, a = body(lp, x)
+            x, a = body(unit, x)
         aux = aux + a
     return x, aux
 
@@ -233,13 +279,21 @@ def train_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Any], *,
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
                device="cuda"):
-    """Zeroed KV cache: ``k``/``v`` (n_layers, batch, max_seq, n_kv,
-    head_dim) and ``len``, the filled length, a host int32 scalar."""
+    """Zeroed KV cache: ``k``/``v`` (units, [2,] batch, max_seq, n_kv,
+    head_dim), the block axis under ``uses_blocks``, and ``len``, the
+    filled length, a host int32 scalar."""
     dtype = dtype or cfg.dtype
-    shape = (n_scan_units(cfg), batch, max_seq, cfg.n_kv, cfg.head_dim)
+    sub = (2,) if uses_blocks(cfg) else ()
+    shape = (n_scan_units(cfg),) + sub + (batch, max_seq, cfg.n_kv,
+                                          cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "len": torch.zeros((), dtype=torch.int32)}
+
+
+def _at(c: torch.Tensor, i: int, j: Optional[int]) -> torch.Tensor:
+    """Unit ``i``'s (block ``j``'s) slice of a cache tensor, a view."""
+    return c[i] if j is None else c[i, j]
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -250,10 +304,11 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     x = embed(cfg, params, tokens)
     positions = _positions(b, s, x.device)
     cache = init_cache(cfg, b, max_seq, device=x.device)
-    for i, lp in enumerate(layer_slices(params["layers"])):
-        x, (k, v) = layer_prefill(cfg, lp, x, positions)
-        cache["k"][i, :, :s] = k.to(cfg.dtype)
-        cache["v"][i, :, :s] = v.to(cfg.dtype)
+    for i, unit in enumerate(layer_slices(params["layers"])):
+        for c, lp, j in _parts(cfg, unit):
+            x, (k, v) = layer_prefill(c, lp, x, positions)
+            _at(cache["k"], i, j)[:, :s] = k.to(cfg.dtype)
+            _at(cache["v"], i, j)[:, :s] = v.to(cfg.dtype)
     logits = logits_fn(cfg, params, x[:, -1:])[:, 0]
     cache["len"] = torch.tensor(s, dtype=torch.int32)
     return logits, cache
@@ -265,8 +320,10 @@ def decode_step(cfg: ArchConfig, params: Params, cache, token: torch.Tensor):
     ``len`` advances by one."""
     x = embed(cfg, params, token[:, None])
     pos = int(cache["len"])
-    for i, lp in enumerate(layer_slices(params["layers"])):
-        x, _, _ = layer_decode(cfg, lp, x, cache["k"][i], cache["v"][i], pos)
+    for i, unit in enumerate(layer_slices(params["layers"])):
+        for c, lp, j in _parts(cfg, unit):
+            x, _, _ = layer_decode(c, lp, x, _at(cache["k"], i, j),
+                                   _at(cache["v"], i, j), pos)
     logits = logits_fn(cfg, params, x)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"],
                     "len": torch.tensor(pos + 1, dtype=torch.int32)}

@@ -3,7 +3,8 @@ subsystem (batching, double-buffered state, serving loop, traffic
 replay) with its adapt steps.
 
 Counterpart of ``repro.serve``; model serving covers the dense ``gqa``
-family (the others wait for ROADMAP A14b)."""
+and ``moe`` families (rwkv6, hybrid, encdec and vlm wait for ROADMAP
+A14b)."""
 from repro_torch.serve.batcher import (AdaptRequest, Batcher,  # noqa: F401
                                        BatcherConfig, CoalescedBatch,
                                        coalesce, dedup_coalesce)

@@ -4,7 +4,8 @@ adaptation.
 Counterpart of ``repro.serve.steps``:
 
   * ``make_serve_step`` - prefill and decode of a model family (the
-    dense ``gqa`` transformer; the others wait for ROADMAP A14b), with
+    ``gqa`` and ``moe`` transformers; rwkv6, hybrid, encdec and vlm wait
+    for ROADMAP A14b), with
     ``cache_factory`` and ``ServeStep``; decode writes the KV cache in
     place;
   * ``make_online_adapt_step`` - the b1=0 CS-Adam of the training path
@@ -44,7 +45,8 @@ def _family(cfg: ArchConfig):
 
 def cache_factory(cfg: ArchConfig, device="cuda") -> Callable[..., Any]:
     """(batch, max_seq) -> zeroed cache for this family on ``device``
-    (the ``gqa`` transformer's KV cache)."""
+    (the transformer's KV cache, with a block axis under llama4's
+    interleaved blocks)."""
     mod = _family(cfg)
     return lambda batch, max_seq: mod.init_cache(cfg, batch, max_seq,
                                                  device=device)

@@ -23,8 +23,9 @@ the port's sparse-rows path:
 
 Tables and states are updated IN PLACE.  With ``dp_axis`` the step is
 one replica of a data-parallel axis (``sparse_rows_adam_dp``), named
-on a collectives ``mesh`` when one is given; the ``--workload extreme``
-launcher waits for ROADMAP A14b.
+on a collectives ``mesh`` when one is given.  ``python -m
+repro_torch.launch.train --workload extreme`` drives it, one replica
+after the other.
 """
 from __future__ import annotations
 

@@ -47,12 +47,13 @@ from repro_torch.obs.profiling import scope
 
 
 def family_module(cfg: ArchConfig):
-    """The model module of ``cfg.family``: the dense ``gqa`` transformer;
-    the other families wait for ROADMAP A14b."""
-    if cfg.family != "gqa":
+    """The model module of ``cfg.family``: the transformer for the dense
+    ``gqa`` and the ``moe`` families; the others (rwkv6, hybrid, encdec,
+    vlm) wait for ROADMAP A14b."""
+    if cfg.family not in ("gqa", "moe"):
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP A14b); "
-            f"the port runs the dense 'gqa' family")
+            f"the port runs the 'gqa' and 'moe' families")
     from repro_torch.models import transformer
     return transformer
 

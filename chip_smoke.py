@@ -361,11 +361,52 @@ own line; any failure raises and the exit code is not 0:
      such flip moves the logits past the tolerance; the bf16 run is
      printed (its ratio and the flips by layer), not gated.
      ``--phases 15`` runs phase 15 alone.
+ 16. the enc-dec and VLM families (the tensors of earlier phases'
+     results are dropped first).  First B3 at whisper's and internvl2's
+     vocabulary tables, (51,968, 1,024) and (92,672, 2,048), every row,
+     as the LM step calls it: within the collision envelope of its plain
+     version on the card, both timed, the byte bound.  16a:
+     whisper-medium (``src/repro/configs/whisper_medium.py``: 24 encoder
+     and 24 decoder layers, d_model 1,024, 16 heads of 64, d_ff 4,096,
+     two 51,968 x 1,024 tables, bf16 compute) trained whole, nothing cut:
+     8 utterances a step of 1,536 seeded normal stub frames (in bf16) and
+     448 ``ZipfLM`` decoder tokens (the public models' text context),
+     ``make_train_step(cfg, optimizer="cs_adam", kernel_backend="auto")``
+     at lr 1e-3 for 10 steps through ``Trainer``: B3 exactly 4 launches a
+     step, finite losses and params; ms a step, peak memory, state bytes;
+     3 steps under the profiler; the same batches from the same start
+     (drawn again from the seed; the first run's state waits on the host)
+     through plain ``xla`` and through ``auto`` again: losses, params and
+     state equal to the bit; ``dense_adam`` and ``cs_adam_v`` 10 steps
+     each, state bytes and peak memory against ``cs_adam``'s, each
+     passing the window check (w = 3); ``cs_adam``'s windows printed
+     (its sketched first moment rises, ROADMAP C).  16b: whisper-medium
+     served whole on fresh params, ``make_serve_step(cfg, batch=8,
+     max_seq=448)``: a prefill of 1,536 stub frames and 32 prompt tokens
+     (ms), 64 greedy decode steps (ms a token, tokens/s, 3 under the
+     profiler), then in bf16 (printed) and in f32 (gated) compute each
+     decoded step's logits held as in 15f to the forward of its row's
+     whole decoded sequence at that position, that forward to the
+     prefills of the first and last prefixes.  16c: internvl2-2b
+     (``src/repro/configs/internvl2_2b.py``: 24 layers, d_model 2,048,
+     GQA 16/8 heads of 128, d_ff 8,192, two 92,672 x 2,048 tables)
+     trained whole as 16a, 4 x (256 stub patches + 1,792 text tokens) a
+     step: 2,048 positions, the patches counted in the cell's length as
+     the reference counts them.  16d: internvl2-2b served as 16b: 256
+     patches and 128 prompt tokens, 64 decoded, ``max_seq`` 512.  16e:
+     ``launch.train.main`` (``python -m repro_torch.launch.train``) with
+     ``--workload lm --arch whisper_medium`` and ``--arch internvl2_2b``
+     at full width, 3 steps each on ``--store-backend auto`` (the zero
+     stub inputs the reference's launcher adds): exit 0, the ``[train]``
+     line, B3 4 a step (internvl2's loss is NaN from the second step in
+     both packages: its zero patches overflow the gradient, ROADMAP C;
+     printed).  ``--phases 16`` runs phase 16 alone.
 
 The CUDA caching allocator runs with ``expandable_segments:True`` (set
 in ``PYTORCH_CUDA_ALLOC_CONF`` unless the caller set it): phase 15's
 dense_adam arm peaks within 3 GB of the card's memory, and blocks that
-earlier phases left cut into pieces would not hold it.
+earlier phases left cut into pieces would not hold it; phase 16's
+internvl2-2b arms hold about 45 GB.
 
 Phase 2 also holds B3's bf16 branch to its plain version (bit-equal on a
 CPU copy; within one bf16 ulp plus the f32 collision envelope of the
@@ -374,7 +415,9 @@ phase 5 times it at the dense path's shapes.  Each phase prints its wall
 time.  It prints the kernels' JSON line (each path's launches beside the
 total: ``launches_dp_path`` is phase 12's, ``launches_sharded_path``
 phase 13's, ``launches_placement_path`` phase 14's,
-``launches_a14b_path`` phase 15's), the
+``launches_a14b_path`` phase 15's, ``launches_a14b_part3_path``
+phase 16's; B3's row also its times at whisper's and internvl2's
+tables), the
 card's name and power limit and, last, ``{"ok": true, "device":
 {...}}``.  With no card it prints no result and exits 2.
 """
@@ -5789,6 +5832,417 @@ def phase_moe_serve(dev, seed: int) -> dict:
     return read_counts()
 
 
+# ---------------------------------------------------------------- phase 16
+ENCDEC_ARCH = "whisper_medium"     # src/repro/configs/whisper_medium.py:11-16
+VLM_ARCH = "internvl2_2b"          # src/repro/configs/internvl2_2b.py:10-14
+P16_STEPS = 10
+# (batch, text tokens) of a training step: 8 utterances of 1,536 stub
+# frames and 448 decoder tokens (the public Whisper models' text
+# context); 4 x (256 stub patches + 1,792 text tokens), the 2,048
+# positions of a cell (patches count in seq_len as in the reference's
+# src/repro/configs/__init__.py:102), a multiple of attn_chunk 1,024
+P16_TRAIN = {ENCDEC_ARCH: (8, 448), VLM_ARCH: (4, 1_792)}
+# (prompt tokens, max_seq) of the 8 served requests; 64 tokens decoded,
+# then 3 more under the profiler: the VLM's cache also holds the 256
+# patches (256 + 128 + 64 + 3 of 512)
+P16_SERVE = {ENCDEC_ARCH: (32, 448), VLM_ARCH: (128, 512)}
+
+
+def stub_normals(cfg, batch: int, dev, seed: int):
+    """Seeded normal stub embeddings (batch, length, d_model) in
+    ``cfg.dtype``, drawn on the card."""
+    import torch
+    from repro_torch.train.steps import stub_input
+    _key, length = stub_input(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((batch, length, cfg.d_model), generator=gen,
+                       device=dev).to(cfg.dtype)
+
+
+class StubStream:
+    """``ZipfLM`` batches at the model's padded vocabulary and, a step
+    each, the stub frontend's seeded normals, drawn once on the card.
+    ``stub()`` is the entry of the step whose batch the trainer read
+    last (it reads a step's batch just before it calls the step)."""
+
+    def __init__(self, cfg, batch: int, seq: int, seed: int, dev):
+        from repro_torch.data import ZipfLM, ZipfLMConfig
+        from repro_torch.train.steps import stub_input
+        self.key = stub_input(cfg)[0]
+        self.data = ZipfLM(ZipfLMConfig(vocab_size=cfg.vocab, seq_len=seq,
+                                        global_batch=batch, seed=seed))
+        self.stubs = [stub_normals(cfg, batch, dev, seed + 1_600 + i)
+                      for i in range(P16_STEPS)]
+        self.last = 0
+
+    def batch(self, step: int) -> dict:
+        self.last = step
+        return self.data.batch(step)
+
+    def stub(self) -> dict:
+        return {self.key: self.stubs[self.last % len(self.stubs)]}
+
+
+class FamilyRun(MoERun):
+    """``MoERun`` for the enc-dec or the VLM: the step adds the stream's
+    stub input of the step to each batch."""
+
+    def __init__(self, dev, seed: int, cfg, batch: int, seq: int):
+        self.dev, self.seed, self.cfg = dev, seed, cfg
+        self.data = StubStream(cfg, batch, seq, seed, dev)
+
+    def step(self, optimizer="cs_adam", backend="auto", plan=None):
+        ts = super().step(optimizer, backend, plan)
+        inner, data = ts.step_fn, self.data
+
+        def step_fn(params, opt_state, batch):
+            return inner(params, opt_state, dict(batch, **data.stub()))
+        return dataclasses.replace(ts, step_fn=step_fn)
+
+
+def phase_family_train(dev, seed: int, arch: str, tag: str) -> dict:
+    """16a / 16c: ``arch`` trained whole at full width, ``cs_adam`` on
+    ``auto`` (see the module docstring).  Returns the launches of its
+    arms."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.optimizers import state_bytes
+    from repro_torch.core.partition import leaf_paths
+    from repro_torch.plan import measure_aux_bytes
+    from repro_torch.train.steps import family_module, stub_input
+    cfg = configs.get(arch)
+    batch, seq = P16_TRAIN[arch]
+    run = FamilyRun(dev, seed, cfg, batch, seq)
+    key, length = stub_input(cfg)
+    n_params = sum(t.numel() for _p, t in leaf_paths(
+        family_module(cfg).init(None, cfg, device="meta")))
+    layers = (f"{cfg.enc_layers} encoder and {cfg.n_layers} decoder"
+              if cfg.family == "encdec" else str(cfg.n_layers))
+    log(f"phase {tag}: {cfg.name} whole: {layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, tables {cfg.vocab} x {cfg.d_model}; {n_params} "
+        f"params, {cfg.compute_dtype} compute; {batch} x ({length} stub "
+        f"{key} + {seq} ZipfLM tokens) a step; cs_adam lr {LM_LR}, "
+        f"kernel_backend auto")
+    totals: dict = {}
+    ts = run.step()
+    t_arm = time.perf_counter()
+    state, losses, ms, counts, peak, _ = run.fit(ts, P16_STEPS)
+    add_counts(totals, counts)
+    step_ms = statistics.median(ms[1:])
+    cs_bytes = (measure_aux_bytes(state.opt_state),
+                state_bytes(state.opt_state))
+    log(f"phase {tag}: {P16_STEPS} steps: ms/step (CUDA events) median of "
+        f"steps 2..{P16_STEPS} {step_ms} (first {ms[0]}); all {ms}; losses "
+        f"{losses}; launches {counts} ({counts['cs_ema_tiled'] / P16_STEPS} "
+        f"B3 a step); optimizer state {cs_bytes[0]} B ({cs_bytes[1]} with "
+        f"the step counter); peak memory of the arm {peak} B; "
+        f"{time.perf_counter() - t_arm:.1f} s")
+    if counts["cs_ema_tiled"] != 4 * P16_STEPS:
+        raise AssertionError(f"{tag}: B3 launched {counts['cs_ema_tiled']} "
+                             f"times in {P16_STEPS} steps, not 4 a step")
+    if not (all(np.isfinite(losses)) and all(
+            bool(torch.isfinite(t).all())
+            for _p, t in leaf_paths(state.params))):
+        raise AssertionError(f"{tag}: non-finite loss or params")
+    t0 = time.perf_counter()
+    host = to_host({"params": state.params, "opt_state": state.opt_state})
+    log(f"phase {tag}: the final state copied to the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    p, s = state.params, state.opt_state
+    del state
+    more = [{k: torch.as_tensor(v).to(dev) for k, v in
+             run.data.batch(P16_STEPS + i).items()} for i in range(3)]
+
+    def three():
+        nonlocal p, s
+        for b in more:
+            p, s, _ = ts.step_fn(p, s, b)
+        torch.cuda.synchronize()
+    profile_steps(f"phase {tag} (profile)", three, step_ms, n=3)
+    del p, s, more
+    torch.cuda.empty_cache()
+
+    # the plain xla witness and the auto arm again, from the same start
+    # (drawn again from the seed) on the same batches: the same bits
+    for arm, backend in (("plain xla", "xla"), ("auto again", "auto")):
+        t_arm = time.perf_counter()
+        w_state, w_losses, w_ms, w_counts, _, _ = run.fit(
+            run.step(backend=backend), P16_STEPS)
+        add_counts(totals, w_counts)
+        err_p, bits_p = host_compare(w_state.params, host["params"])
+        err_s, bits_s = host_compare(w_state.opt_state, host["opt_state"])
+        bits = w_losses == losses and bits_p and bits_s
+        log(f"phase {tag}: {arm}: ms/step median "
+            f"{statistics.median(w_ms[1:])}; launches {w_counts}; params "
+            f"max_abs_err {err_p}, state {err_s}; losses, params and state "
+            f"equal to the bit: {bits}; "
+            f"{time.perf_counter() - t_arm:.1f} s with the comparison")
+        del w_state
+        torch.cuda.empty_cache()
+        if not bits:
+            raise AssertionError(f"{tag}: {arm} gave other bits than the "
+                                 f"auto arm")
+    del host
+
+    for mode, backend in (("dense_adam", None), ("cs_adam_v", "auto")):
+        a_state, a_losses, a_ms, a_counts, a_peak, _ = run.fit(
+            run.step(optimizer=mode, backend=backend), P16_STEPS)
+        add_counts(totals, a_counts)
+        a_bytes = (measure_aux_bytes(a_state.opt_state),
+                   state_bytes(a_state.opt_state))
+        log(f"phase {tag}: {mode} {P16_STEPS} steps: losses {a_losses} "
+            f"against cs_adam's {losses}; ms/step median "
+            f"{statistics.median(a_ms[1:])}; optimizer state {a_bytes[0]} B "
+            f"({a_bytes[1]} with the step counter) against cs_adam's "
+            f"{cs_bytes[0]} B: cs_adam / {mode} {cs_bytes[0] / a_bytes[0]}; "
+            f"peak memory of the arm {a_peak} B against cs_adam's {peak} B; "
+            f"launches {a_counts}")
+        del a_state
+        torch.cuda.empty_cache()
+        learns(f"{tag}: {mode}", a_losses)
+    # cs_adam's own trend is printed, not gated: its sketched first
+    # moment rises on a full softmax (ROADMAP C)
+    first, last = loss_windows(losses)
+    log(f"phase {tag}: cs_adam window means {first} -> {last} (printed, "
+        f"not gated)")
+    return totals
+
+
+def family_logits(cfg, params, stub, tokens):
+    """(b, s, vocab) f32 logits of every text position of ``tokens`` from
+    one forward of the model without a cache: position p's row is what a
+    prefill of the text prefix ending at p returns."""
+    import torch
+    from repro_torch.models import encdec, transformer as tm, vlm
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            enc_out = encdec.encode(cfg, params, stub)
+            x = encdec._embed(cfg, params, tokens)
+            for lp in tm.layer_slices(params["dec_layers"]):
+                x = encdec._dec_layer_full(cfg, lp, x, enc_out)
+            x = encdec._ln(x, params["final_norm"])
+            return (x @ params["lm_head"]["table"].to(cfg.dtype).T).float()
+        x = vlm._prefix(cfg, params, stub, tokens)
+        b, s, _ = x.shape
+        x, _ = tm.backbone_train(cfg, params, x, tm._positions(b, s, x.device),
+                                 remat=False)
+        return tm.logits_fn(cfg, params, x[:, cfg.n_patches:]).float()
+
+
+def family_agreement(cfg, params, stub, prompts, max_seq: int,
+                     dtype: str) -> dict:
+    """64 greedy decode steps of ``cfg`` in ``dtype`` compute, each step's
+    logits held to the forward of its row's whole decoded sequence at
+    that position (``family_logits``); that forward also against the
+    prefills of the first and the last prefix."""
+    import torch
+    from repro_torch.serve import make_serve_step
+    from repro_torch.train.steps import stub_input
+    nd = dataclasses.replace(cfg, compute_dtype=dtype)
+    key = stub_input(cfg)[0]
+    prompt = prompts.shape[1]
+    ss = make_serve_step(nd, batch=SERVE_BATCH, max_seq=max_seq)
+    with torch.no_grad():
+        logits, cache = ss.prefill_fn(params, {key: stub, "tokens": prompts})
+        seq, outs = prompts, []
+        for _ in range(DECODE):
+            tok = logits.argmax(-1).to(torch.int32)
+            seq = torch.cat([seq, tok[:, None]], dim=1)
+            logits, cache = ss.decode_fn(params, cache, tok)
+            outs.append(logits.float())
+        del cache
+        got = torch.stack(outs, dim=1)                 # (b, DECODE, vocab)
+        want = torch.stack([family_logits(nd, params, stub[r:r + 1],
+                                          seq[r:r + 1])[
+            0, prompt:prompt + DECODE] for r in range(SERVE_BATCH)])
+        prefix = 0.0
+        for t in (0, DECODE - 1):
+            for r in range(SERVE_BATCH):
+                pre, _ = ss.prefill_fn(params, {
+                    key: stub[r:r + 1],
+                    "tokens": seq[r:r + 1, :prompt + t + 1]})
+                prefix = max(prefix, within_decode_tol(
+                    pre.float()[0], want[r, t])[0])
+    ratio, ties, same = within_decode_tol(got, want)
+    return {"ratio": ratio, "ties": ties, "argmax_same": same,
+            "prefix_ratio": prefix}
+
+
+def phase_family_serve(dev, seed: int, arch: str, tag: str) -> dict:
+    """16b / 16d: ``arch`` served whole on fresh params (see the module
+    docstring).  Returns the launches (none: serving runs no
+    optimizer)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.partition import leaf_paths
+    from repro_torch.data import ZipfLM, ZipfLMConfig
+    from repro_torch.serve import make_serve_step
+    from repro_torch.train.steps import family_module, stub_input
+    cfg = configs.get(arch)
+    prompt, max_seq = P16_SERVE[arch]
+    key, length = stub_input(cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    params = family_module(cfg).init(
+        torch.Generator(device=dev).manual_seed(seed), cfg)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for _p, t in leaf_paths(params))
+    stub = stub_normals(cfg, SERVE_BATCH, dev, seed + 1_700)
+    prompts = torch.as_tensor(ZipfLM(ZipfLMConfig(
+        vocab_size=cfg.vocab, seq_len=prompt, global_batch=SERVE_BATCH,
+        seed=seed + 1)).batch(0)["tokens"]).to(dev)
+    inputs = {key: stub, "tokens": prompts}
+    ss = make_serve_step(cfg, batch=SERVE_BATCH, max_seq=max_seq)
+    prefill_ms = cuda_ms(lambda: ss.prefill_fn(params, inputs), reps=3)
+    logits, cache = ss.prefill_fn(params, inputs)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(DECODE):
+        tok = logits.argmax(-1).to(torch.int32)
+        logits, cache = ss.decode_fn(params, cache, tok)
+    e1.record()
+    torch.cuda.synchronize()
+    decode_ms = e0.elapsed_time(e1) / DECODE
+    more = cache
+
+    def three():
+        nonlocal more
+        tok = logits.argmax(-1).to(torch.int32)
+        for _ in range(3):
+            _, more = ss.decode_fn(params, more, tok)
+        torch.cuda.synchronize()
+    profile_steps(f"phase {tag} (decode profile)", three, decode_ms, n=3)
+    del cache, more
+    log(f"phase {tag}: {cfg.name} whole, {n_bytes} B of f32 params; "
+        f"make_serve_step(batch={SERVE_BATCH}, max_seq={max_seq}): prefill "
+        f"of {SERVE_BATCH} x ({length} stub {key} + {prompt} tokens) "
+        f"{prefill_ms} ms; {DECODE} greedy decode steps {decode_ms} ms a "
+        f"token, {SERVE_BATCH * 1e3 / decode_ms} tokens/s; "
+        f"{time.perf_counter() - t0:.1f} s with the params' draw")
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        a = family_agreement(cfg, params, stub, prompts, max_seq, dtype)
+        log(f"phase {tag}: {dtype} compute: {DECODE} decode steps against "
+            f"the forward of each row's decoded sequence: max |diff| / "
+            f"tolerance {a['ratio']} (tolerance {DECODE_TOL} x the row's max "
+            f"|logit|), {a['ties']} of {DECODE * SERVE_BATCH} rows within "
+            f"it, argmax equal elsewhere: {a['argmax_same']}; that forward "
+            f"against the prefill of the first and last prefixes: "
+            f"{a['prefix_ratio']}; {time.perf_counter() - t0:.1f} s")
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"phase {tag}: peak memory {peak} B above the {base} B before")
+    # gated in f32 compute, as 15f's check
+    if a["ratio"] > 1.0 or not a["argmax_same"] or a["prefix_ratio"] > 1.0:
+        raise AssertionError(f"{tag}: decode disagrees with the prefill of "
+                             f"its prefix in f32 compute")
+    del params
+    return read_counts()
+
+
+def phase_family_launcher(dev, seed: int) -> dict:
+    """16e: ``python -m repro_torch.launch.train --workload lm`` (its
+    ``main`` in this process) for whisper-medium and internvl2-2b at full
+    width, 3 steps on ``--store-backend auto``: exit 0, the ``[train]``
+    line printed, B3 4 a step."""
+    totals: dict = {}
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, lines, losses = p14_main(
+            ["--workload", "lm", "--arch", arch, "--steps", "3",
+             "--store-backend", "auto", "--seed", str(seed)]
+            + (["--device", "cpu"] if dev.type == "cpu" else []))
+        counts = read_counts()
+        add_counts(totals, counts)
+        line = [l for l in lines if l.startswith("[train] arch=")]
+        # internvl2's zero patches stay zero through every layer, where
+        # rmsnorm's backward multiplies by 1,000 a norm: the gradient
+        # overflows to NaN after the first step, as in the reference's
+        # launcher (tests/test_torch_vlm.py; printed, not gated)
+        log(f"phase 16e: launch.train --workload lm --arch {arch} rc {rc} "
+            f"in {time.perf_counter() - t0:.1f} s: {line}; per-step losses "
+            f"{losses}; launches {counts}")
+        if rc != 0 or not line or counts["cs_ema_tiled"] != 12:
+            raise AssertionError(f"16e: the launcher's {arch} run failed")
+    return totals
+
+
+def time_ema_tables(dev, seed: int) -> dict:
+    """B3 as the LM step calls it on whisper's and internvl2's vocabulary
+    tables (every row, signed, mask on, cached addressing): held to its
+    plain version on the card within the collision envelope, timed
+    against it and its byte bound."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.optimizers import SketchHParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cs_ema_tiled import (cs_ema_tiled,
+                                                  cs_ema_tiled_plain)
+    out = {}
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        cfg = configs.get(arch)
+        n, d = cfg.vocab, cfg.d_model
+        spec = SketchHParams(compression=cfg.sketch_compression,
+                             depth=cfg.sketch_depth).spec(
+            "tok_embed/table", (n, d), signed=True)
+        gen = torch.Generator(device=dev).manual_seed(seed + 61)
+        S = torch.randn(spec.shape, generator=gen, device=dev)
+        x = torch.randn((n, d), generator=gen, device=dev)
+        mask = torch.ones((n, 1), device=dev)
+        b, s = ops._cached_addressing(spec, n, dev)
+        csr = ops._cached_csr(spec, n, dev)
+        kw = dict(beta=0.9, scale=1.0 - 0.9)
+        want = cs_ema_tiled_plain(S.clone(), b, s, x, mask, **kw)
+        got = cs_ema_tiled(S.clone(), b, s, x, mask, csr=csr, **kw)
+        err = max_err(want, got)
+        del want, got
+        if err > COLLISION_ATOL:
+            raise AssertionError(f"B3 at {arch}'s tables: {err} against "
+                                 f"its plain version")
+        work = S.clone()
+        ms = cuda_ms(lambda: cs_ema_tiled(work, b, s, x, mask, csr=csr,
+                                          **kw), reps=10, warmup=2)
+        plain_ms = cuda_ms(lambda: cs_ema_tiled_plain(work, b, s, x, mask,
+                                                      **kw), reps=5)
+        depth, width, _ = spec.shape
+        nbytes = 4 * (2 * n * d + 2 * depth * width * d + 2 * depth * n + n)
+        out[arch] = dict(n=n, d=d, sketch=list(spec.shape), ms=ms,
+                         plain_ms=plain_ms, max_abs_err=err, bytes=nbytes,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        log(f"phase 16: B3 at {arch}'s table ({n}, {d}), sketch "
+            f"{tuple(spec.shape)}: {ms} ms, plain {plain_ms} ms, bound "
+            f"{out[arch]['bound_ms']} ms ({nbytes} B at 3.35 TB/s); "
+            f"max_abs_err {err} against the plain version on the card")
+        del S, x, mask, work
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_a14b_part3(dev, seed: int, held: int = 0):
+    """Phase 16: whisper-medium and internvl2-2b trained and served whole,
+    and through the launcher (16a-e), and B3 at their tables.  Returns
+    the launches of the path and B3's times at the tables."""
+    import torch
+    log(f"phase 16: {held} B allocated on the card as it starts")
+    totals: dict = {}
+    b3 = time_ema_tables(dev, seed)
+    for arch, train_tag, serve_tag in ((ENCDEC_ARCH, "16a", "16b"),
+                                       (VLM_ARCH, "16c", "16d")):
+        add_counts(totals, phase_family_train(dev, seed, arch, train_tag))
+        torch.cuda.empty_cache()
+        add_counts(totals, phase_family_serve(dev, seed, arch, serve_tag))
+        torch.cuda.empty_cache()
+    add_counts(totals, phase_family_launcher(dev, seed))
+    log(f"phase 16: launches of the path {totals}")
+    return totals, b3
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5796,8 +6250,9 @@ def main(argv=None) -> int:
                         help="comma-separated phase names to run (default: "
                              "all; the kernels' line needs all)")
     argv = sys.argv[1:] if argv is None else list(argv)
-    # phase 15's model fills the card: grow the allocator's segments in
-    # place, so blocks freed by the phases before it can be reused
+    # phases 15's and 16's models fill the card: grow the allocator's
+    # segments in place, so blocks freed by the phases before can be
+    # reused
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     if argv[:1] == ["--launcher-child"]:
@@ -5855,8 +6310,10 @@ def main(argv=None) -> int:
                             dev, out["6"][1] if "6" in out
                             else SoftmaxTask(dev, args.seed)))),
         ("14", lambda: phase_placement(dev, args.seed)),
-        # 15 needs most of the card: earlier phases' tensors go first
+        # 15 and 16 need most of the card: earlier phases' tensors go
+        # first
         ("15", lambda: phase_a14b(dev, args.seed, release(out))),
+        ("16", lambda: phase_a14b_part3(dev, args.seed, release(out))),
     ]
     if args.phases:
         keep = args.phases.split(",")
@@ -5891,6 +6348,9 @@ def main(argv=None) -> int:
     # 15a-f: the launcher's extreme and serve-replay runs,
     # adam_rows_fused, the MoE model's training arms
     a14b, fused = out["15"]
+    # 16a-e: the enc-dec and VLM training arms and launcher runs, and B3
+    # at their tables
+    part3, b3_tables = out["16"]
     launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
                                   + placed["cs_adam_tiled"]
                                   + extreme["cs_adam_tiled"]
@@ -5932,7 +6392,7 @@ def main(argv=None) -> int:
                                + planned_dense["bucket_csr"]
                                + lm_b3["bucket_csr"])}
     for name in launches:
-        launches[name] += a14b.get(name, 0)
+        launches[name] += a14b.get(name, 0) + part3.get(name, 0)
     for row in kernels:
         row.setdefault("launches", launches.get(row["name"]))
         if row["name"] == "cs_adam_tiled":
@@ -5958,6 +6418,11 @@ def main(argv=None) -> int:
         row["launches_placement_path"] = placed.get(row["name"], 0)
         # the A14b path (15a-f), in the total above as well
         row["launches_a14b_path"] = a14b.get(row["name"], 0)
+        # the A14b part 3 path (16a-e), in the total above as well
+        row["launches_a14b_part3_path"] = part3.get(row["name"], 0)
+        if row["name"] == "cs_ema_tiled":
+            row["at_whisper_tables"] = b3_tables[ENCDEC_ARCH]
+            row["at_internvl2_tables"] = b3_tables[VLM_ARCH]
         if row["name"] == "cs_adam_fused":
             row["adam_rows_fused_ms"] = fused["ms"]
             row["adam_rows_stream_ms"] = fused["stream_ms"]

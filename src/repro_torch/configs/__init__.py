@@ -1,14 +1,23 @@
-"""Architecture registry: the shapes of the ten assigned models.
+"""Architecture registry and per-cell input specs.
 
-Counterpart of ``repro.configs`` without the XLA dry run's
-``input_specs`` and ``cell_skip`` (ROADMAP A14b).  Every ``<arch>.py``
-module defines ``CONFIG`` (exact public dims, see its ``[source]``
-note); ``get`` takes an id or an alias.
+    from repro_torch.configs import get, registry, input_specs, cell_skip
+
+Counterpart of ``repro.configs``.  Every ``<arch>.py`` module defines
+``CONFIG`` (exact public dims, see its ``[source]`` note); ``get`` takes
+an id or an alias.  ``input_specs(cfg, shape)`` and the other spec
+functions return a cell's inputs as ``meta`` tensors (shapes and dtypes,
+no allocation) where the reference returns ``ShapeDtypeStruct``s;
+``cell_skip`` encodes the shape-skip rule (long_500k only for the
+sub-quadratic archs).  ``decode_cache_specs`` reads the family's serve
+cache, so rwkv6 and hybrid raise until their caches are ported (ROADMAP
+A14b).
 """
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 from repro_torch.models.config import ArchConfig, ShapeConfig, SHAPES  # noqa: F401
 
@@ -47,3 +56,89 @@ def get(arch: str) -> ArchConfig:
 
 def registry() -> Dict[str, ArchConfig]:
     return {a: get(a) for a in ARCH_IDS}
+
+
+# ---------------------------------------------------------------------------
+# Cell matrix (arch × shape) skip rules
+# ---------------------------------------------------------------------------
+
+SUBQUADRATIC = {"rwkv6_7b", "zamba2_2_7b"}
+
+
+def cell_skip(arch: str, shape: str) -> Optional[str]:
+    """None if the cell runs; otherwise the reason it is skipped."""
+    arch = _ALIASES.get(arch, arch)
+    if shape == "long_500k" and arch not in SUBQUADRATIC:
+        return ("long_500k needs sub-quadratic attention; "
+                f"{arch} is full-attention (DESIGN.md §6)")
+    return None
+
+
+def cells():
+    """All effective (arch, shape) pairs."""
+    for a in ARCH_IDS:
+        for s in SHAPES:
+            if cell_skip(a, s) is None:
+                yield a, s
+
+
+# ---------------------------------------------------------------------------
+# Input specs (``meta`` tensors, no allocation)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _stub_specs(cfg: ArchConfig, B: int, S: int):
+    """The stub frontend's batch entries and the text length: the VLM's
+    patches count in the cell's ``seq_len``."""
+    batch = {}
+    if cfg.family == "encdec":
+        batch["frames"] = _spec((B, cfg.enc_seq, cfg.d_model),
+                                cfg.compute_dtype)
+    if cfg.family == "vlm":
+        batch["patches"] = _spec((B, cfg.n_patches, cfg.d_model),
+                                 cfg.compute_dtype)
+        S = S - cfg.n_patches        # total positions == the cell's seq_len
+    return batch, S
+
+
+def train_batch_specs(cfg: ArchConfig, shape: ShapeConfig,
+                      sampled_softmax: bool = False) -> Dict:
+    """The train step's ``batch`` argument."""
+    batch = {}
+    if sampled_softmax:
+        batch["neg_ids"] = _spec((cfg.softmax_samples,), torch.int32)
+    stub, S = _stub_specs(cfg, shape.global_batch, shape.seq_len)
+    batch.update(stub)
+    batch["tokens"] = _spec((shape.global_batch, S), torch.int32)
+    batch["labels"] = _spec((shape.global_batch, S), torch.int32)
+    return batch
+
+
+def prefill_batch_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict:
+    batch, S = _stub_specs(cfg, shape.global_batch, shape.seq_len)
+    batch["tokens"] = _spec((shape.global_batch, S), torch.int32)
+    return batch
+
+
+def decode_cache_specs(cfg: ArchConfig, shape: ShapeConfig):
+    """The family's zeroed serve cache on ``meta`` (no allocation)."""
+    from repro_torch.serve.steps import cache_factory
+    return cache_factory(cfg, "meta")(batch=shape.global_batch,
+                                      max_seq=shape.seq_len)
+
+
+def decode_batch_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict:
+    return {"token": _spec((shape.global_batch,), torch.int32)}
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict:
+    if shape.kind == "train":
+        return train_batch_specs(cfg, shape)
+    if shape.kind == "prefill":
+        return prefill_batch_specs(cfg, shape)
+    return decode_batch_specs(cfg, shape)

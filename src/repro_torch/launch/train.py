@@ -16,8 +16,9 @@
 
 Counterpart of ``repro.launch.train``, every workload:
 
-  * ``lm``: the ``make_train_step`` step of a ``gqa`` or ``moe`` config
-    on the ``ZipfLM`` stream through ``Trainer``, the ``--aux-budget``
+  * ``lm``: the ``make_train_step`` step of a ``gqa``, ``moe``,
+    ``encdec`` or ``vlm`` config on the ``ZipfLM`` stream (with zero
+    stub ``frames`` or ``patches``) through ``Trainer``, the ``--aux-budget``
     plan recovered from a manifest on resume, ``--store-backend``
     'auto': B3 on the sketched tables;
   * ``sparse_embedding``: a zipf-touched table pulled toward a fixed
@@ -77,7 +78,8 @@ from repro_torch.data import ZipfLM, ZipfLMConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.obs import MetricsWriter, PhaseTimer, RunObserver, maybe_trace
 from repro_torch.train.steps import (make_sparse_embedding_step,
-                                     make_train_step, sparse_embedding_stores)
+                                     make_train_step, sparse_embedding_stores,
+                                     stub_input)
 from repro_torch.train.trainer import Trainer, TrainerConfig, TrainState
 
 
@@ -378,6 +380,25 @@ def _plan(args, cfg):
     return plan
 
 
+def with_stub_inputs(step_fn, cfg):
+    """``step_fn`` with the stub frontend's zero inputs added to every
+    batch, as the reference's launcher adds them: ``frames`` (b,
+    enc_seq, d_model) for the enc-dec, ``patches`` (b, n_patches,
+    d_model) for the VLM, in ``cfg.dtype``, b the batch's own (a
+    replica's block under ``--dp``); other families' step unchanged."""
+    stub = stub_input(cfg)
+    if stub is None:
+        return step_fn
+    key, length = stub
+
+    def wrapped(params, opt_state, batch):
+        tokens = batch["tokens"]
+        zeros = torch.zeros((tokens.shape[0], length, cfg.d_model),
+                            dtype=cfg.dtype, device=tokens.device)
+        return step_fn(params, opt_state, dict(batch, **{key: zeros}))
+    return wrapped
+
+
 def run_lm(args, device, mesh, grid) -> int:
     cfg = configs.get(args.arch)
     if args.reduced:
@@ -401,7 +422,8 @@ def run_lm(args, device, mesh, grid) -> int:
         "steps": args.steps, "batch": args.batch, "dp": bool(args.dp),
         "aux_budget": args.aux_budget or None})
     # every leaf whole; under a group process 0 alone writes checkpoints
-    trainer = Trainer(ts.step_fn, data, tcfg, plan=plan, observer=observer,
+    trainer = Trainer(with_stub_inputs(ts.step_fn, cfg),
+                      data, tcfg, plan=plan, observer=observer,
                       device=device, shardings=None if mesh is None
                       else shd.Placement(None, mesh))
     state = trainer.restore_or_init(

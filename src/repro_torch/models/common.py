@@ -205,3 +205,17 @@ def sampled_softmax_xent(x: torch.Tensor, table: torch.Tensor,
     logz = torch.logsumexp(
         torch.cat([pos_logit[:, None], neg_logits], dim=-1), dim=-1)
     return _masked_mean(logz - pos_logit, mask)
+
+
+def head_loss(cfg, x: torch.Tensor, table: torch.Tensor,
+              batch: Dict[str, Any], sampled_softmax: bool = False
+              ) -> torch.Tensor:
+    """The LM loss of the final-normed hidden states x (b, s, d) against
+    ``batch["labels"]`` (b, s) through the vocabulary table: the chunked
+    full softmax, or the sampled one over ``batch["neg_ids"]``."""
+    labels = batch["labels"]
+    if sampled_softmax:
+        b, s = labels.shape
+        return sampled_softmax_xent(x.reshape(b * s, -1), table,
+                                    labels.reshape(-1), batch["neg_ids"])
+    return chunked_softmax_xent(x, table, labels, cfg.loss_chunk)

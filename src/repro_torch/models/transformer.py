@@ -34,10 +34,11 @@ Params = Dict[str, Any]
 
 
 def _ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("gqa", "moe"):
+    if cfg.family not in ("gqa", "moe", "vlm"):
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP A14b); "
-            f"the port's transformer runs the 'gqa' and 'moe' families")
+            f"the port's transformer runs the 'gqa' and 'moe' families "
+            f"and the VLM's text backbone")
 
 
 def uses_blocks(cfg: ArchConfig) -> bool:
@@ -261,19 +262,13 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 def train_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Any], *,
                remat: bool = True, sampled_softmax: bool = False
                ) -> torch.Tensor:
-    tokens, labels = batch["tokens"], batch["labels"]
+    tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed(cfg, params, tokens)
     x, aux = backbone_train(cfg, params, x, _positions(b, s, x.device),
                             remat=remat)
-    x = cm.rmsnorm(x, params["final_norm"])
-    if sampled_softmax:
-        loss = cm.sampled_softmax_xent(
-            x.reshape(b * s, -1), params["lm_head"]["table"],
-            labels.reshape(-1), batch["neg_ids"])
-    else:
-        loss = cm.chunked_softmax_xent(
-            x, params["lm_head"]["table"], labels, cfg.loss_chunk)
+    loss = cm.head_loss(cfg, cm.rmsnorm(x, params["final_norm"]),
+                        params["lm_head"]["table"], batch, sampled_softmax)
     return loss + 0.01 * aux
 
 
@@ -299,9 +294,15 @@ def _at(c: torch.Tensor, i: int, j: Optional[int]) -> torch.Tensor:
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             max_seq: Optional[int] = None):
     """Returns (last-position logits (b, vocab), cache)."""
-    b, s = tokens.shape
+    return prefill_embedded(cfg, params, embed(cfg, params, tokens), max_seq)
+
+
+def prefill_embedded(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                     max_seq: Optional[int] = None):
+    """``prefill`` of the embedded sequence x (b, s, d) at positions
+    0..s-1 (the VLM's patches and text)."""
+    b, s, _ = x.shape
     max_seq = max_seq or s
-    x = embed(cfg, params, tokens)
     positions = _positions(b, s, x.device)
     cache = init_cache(cfg, b, max_seq, device=x.device)
     for i, unit in enumerate(layer_slices(params["layers"])):

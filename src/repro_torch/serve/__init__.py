@@ -2,9 +2,9 @@
 subsystem (batching, double-buffered state, serving loop, traffic
 replay) with its adapt steps.
 
-Counterpart of ``repro.serve``; model serving covers the dense ``gqa``
-and ``moe`` families (rwkv6, hybrid, encdec and vlm wait for ROADMAP
-A14b)."""
+Counterpart of ``repro.serve``; model serving covers the ``gqa``,
+``moe``, ``encdec`` and ``vlm`` families (rwkv6 and hybrid wait for
+ROADMAP A14b)."""
 from repro_torch.serve.batcher import (AdaptRequest, Batcher,  # noqa: F401
                                        BatcherConfig, CoalescedBatch,
                                        coalesce, dedup_coalesce)

@@ -4,8 +4,8 @@ adaptation.
 Counterpart of ``repro.serve.steps``:
 
   * ``make_serve_step`` - prefill and decode of a model family (the
-    ``gqa`` and ``moe`` transformers; rwkv6, hybrid, encdec and vlm wait
-    for ROADMAP A14b), with
+    ``gqa`` and ``moe`` transformers, the ``encdec`` and ``vlm``
+    families; rwkv6 and hybrid wait for ROADMAP A14b), with
     ``cache_factory`` and ``ServeStep``; decode writes the KV cache in
     place;
   * ``make_online_adapt_step`` - the b1=0 CS-Adam of the training path
@@ -46,7 +46,8 @@ def _family(cfg: ArchConfig):
 def cache_factory(cfg: ArchConfig, device="cuda") -> Callable[..., Any]:
     """(batch, max_seq) -> zeroed cache for this family on ``device``
     (the transformer's KV cache, with a block axis under llama4's
-    interleaved blocks)."""
+    interleaved blocks, also the VLM's; the enc-dec's self and cross
+    caches)."""
     mod = _family(cfg)
     return lambda batch, max_seq: mod.init_cache(cfg, batch, max_seq,
                                                  device=device)
@@ -112,14 +113,19 @@ class ServeStep:
 
 def make_serve_step(cfg: ArchConfig, *, batch: int, max_seq: int
                     ) -> ServeStep:
-    """Prefill ``{"tokens": (batch, s)}`` into a ``max_seq`` cache and
-    decode one token a call, both without autograd.  The cache lives on
-    the tokens' device; ``decode_fn`` writes it in place."""
+    """Prefill ``{"tokens": (batch, s)}`` (with ``"frames"`` (batch,
+    enc_seq, d) for the enc-dec, ``"patches"`` (batch, n_patches, d) for
+    the VLM) into a ``max_seq`` cache and decode one token a call, both
+    without autograd.  The cache lives on the tokens' device;
+    ``decode_fn`` writes it in place."""
+    from repro_torch.train.steps import stub_input
     mod = _family(cfg)
+    stub = stub_input(cfg)
 
     @torch.no_grad()
     def prefill_fn(params, batch_in):
-        return mod.prefill(cfg, params, batch_in["tokens"], max_seq)
+        front = (batch_in[stub[0]],) if stub else ()
+        return mod.prefill(cfg, params, *front, batch_in["tokens"], max_seq)
 
     @torch.no_grad()
     def decode_fn(params, cache, token):

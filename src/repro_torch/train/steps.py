@@ -48,14 +48,24 @@ from repro_torch.obs.profiling import scope
 
 def family_module(cfg: ArchConfig):
     """The model module of ``cfg.family``: the transformer for the dense
-    ``gqa`` and the ``moe`` families; the others (rwkv6, hybrid, encdec,
-    vlm) wait for ROADMAP A14b."""
-    if cfg.family not in ("gqa", "moe"):
+    ``gqa`` and the ``moe`` families, ``encdec`` and ``vlm``; rwkv6 and
+    hybrid wait for ROADMAP A14b."""
+    from repro_torch.models import encdec, transformer, vlm
+    mods = {"gqa": transformer, "moe": transformer, "encdec": encdec,
+            "vlm": vlm}
+    if cfg.family not in mods:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP A14b); "
-            f"the port runs the 'gqa' and 'moe' families")
-    from repro_torch.models import transformer
-    return transformer
+            f"the port runs the 'gqa', 'moe', 'encdec' and 'vlm' families")
+    return mods[cfg.family]
+
+
+def stub_input(cfg: ArchConfig) -> Optional[Tuple[str, int]]:
+    """``(batch key, length)`` of the stub frontend's embeddings that the
+    family's model takes before its tokens: the enc-dec's ``frames``
+    (enc_seq), the VLM's ``patches`` (n_patches); None for the others."""
+    return {"encdec": ("frames", cfg.enc_seq),
+            "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
 
 
 def build_optimizer(cfg: ArchConfig, mode: str, lr=1e-3,

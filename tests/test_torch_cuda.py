@@ -25,7 +25,8 @@ event with held generations unchanged, and ``TableMonitor.collect``
 dispatches under sync-debug mode "error".  The LM stack at qwen2-0.5b's
 ``reduced()`` shapes: the embedding gather's backward gives the same
 bits twice on zipf-repeated tokens, the train step on ``auto`` (B3)
-equals ``xla`` and itself to the bit and follows a CPU copy (losses
+equals ``xla`` and itself to the bit (also whisper-medium's and
+internvl2-2b's, with their stub frames and patches) and follows a CPU copy (losses
 rtol 1e-4, state rtol 1e-4/atol 1e-5), flash attention matches the
 CPU's within the reference's envelopes (atol 1e-4 forward, 1e-3
 gradients), and decode matches the prefill of its prefix.
@@ -987,20 +988,28 @@ def test_table_monitor_collect_dispatches_without_sync(cuda_device):
 
 
 # ------------------------------------------------------------- LM stack
-def _lm(dev, optimizer="cs_adam", backend="auto", **over):
+def _lm(dev, optimizer="cs_adam", backend="auto", arch="qwen2_0_5b",
+        **over):
     from repro_torch import configs
     from repro_torch.train.steps import make_train_step
-    cfg = configs.get("qwen2_0_5b").reduced(vocab_size=2048, **over)
+    cfg = configs.get(arch).reduced(vocab_size=2048, **over)
     return cfg, make_train_step(cfg, optimizer=optimizer,
                                 kernel_backend=backend, device=dev)
 
 
 def _lm_batches(cfg, n=3, b=4, s=32):
+    """Zipf tokens; for the enc-dec and the VLM also their stub frontend's
+    normal ``frames`` or ``patches``."""
+    from repro_torch.train.steps import stub_input
     rng = np.random.RandomState(0)
+    stub = stub_input(cfg)
     out = []
     for _ in range(n):
         tok = ((rng.zipf(1.1, (b, s)) - 1) % cfg.vocab).astype(np.int32)
         out.append({"tokens": tok, "labels": np.roll(tok, -1, axis=1)})
+        if stub is not None:
+            out[-1][stub[0]] = rng.standard_normal(
+                (b, stub[1], cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -1037,17 +1046,22 @@ def test_lm_gather_backward_is_deterministic(cuda_device):
     assert torch.equal(grads[0], grads[1])
 
 
-def test_lm_step_auto_equals_xla_and_itself(cuda_device):
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "whisper_medium",
+                                  "internvl2_2b"])
+def test_lm_step_auto_equals_xla_and_itself(cuda_device, arch):
+    """The LM step of the dense transformer, the enc-dec and the VLM at
+    ``reduced()`` (vocab 2,048: both tables sketched): B3 4 a step, equal
+    to ``xla`` and to itself to the bit."""
     from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled as b3
-    cfg, ts = _lm(cuda_device)
+    cfg, ts = _lm(cuda_device, arch=arch)
     params = ts.init_fn(torch.Generator(device=cuda_device).manual_seed(0))
     batches = _lm_batches(cfg)
     n0 = b3.launches
     a = _lm_run(ts, params, batches, cuda_device)
     assert b3.launches - n0 == 4 * len(batches)
     b = _lm_run(ts, params, batches, cuda_device)
-    x = _lm_run(_lm(cuda_device, backend="xla")[1], params, batches,
-                cuda_device)
+    x = _lm_run(_lm(cuda_device, backend="xla", arch=arch)[1], params,
+                batches, cuda_device)
     for other in (b, x):
         assert other[0] == a[0]
         for i in (1, 2):

@@ -107,10 +107,8 @@ def test_launcher_runs_fresh_and_records_the_plan(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,label", [
-    (["--arch", "whisper_medium", "--reduced"], "A14b"),
     (["--arch", "zamba2_2_7b", "--reduced"], "A14b"),
     (["--arch", "rwkv6_7b", "--reduced"], "A14b"),
-    (["--arch", "internvl2_2b", "--reduced"], "A14b"),
 ])
 def test_launcher_errors_name_their_roadmap_items(args, label):
     with pytest.raises(NotImplementedError, match=label):

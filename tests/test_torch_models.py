@@ -321,12 +321,17 @@ def test_decode_agrees_with_prefill_of_the_prefix():
 
 
 def test_families_outside_the_slice_raise():
+    from repro_torch.models import encdec, vlm
+    from repro_torch.serve import make_serve_step
     from repro_torch.train.steps import family_module
-    for arch in ("rwkv6_7b", "zamba2_2_7b", "whisper_medium",
-                 "internvl2_2b"):
+    for arch in ("rwkv6_7b", "zamba2_2_7b"):
         cfg = tconfigs.get(arch).reduced()
         with pytest.raises(NotImplementedError, match="A14b"):
             family_module(cfg)
         with pytest.raises(NotImplementedError, match="A14b"):
             TT.init(None, cfg, device="meta")
+        with pytest.raises(NotImplementedError, match="A14b"):
+            make_serve_step(cfg, batch=1, max_seq=8)
     assert family_module(tconfigs.get("yi_9b")) is TT
+    assert family_module(tconfigs.get("whisper_medium")) is encdec
+    assert family_module(tconfigs.get("internvl2_2b")) is vlm

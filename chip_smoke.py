@@ -368,8 +368,8 @@ own line; any failure raises and the exit code is not 0:
      version on the card, both timed, the byte bound.  16a:
      whisper-medium (``src/repro/configs/whisper_medium.py``: 24 encoder
      and 24 decoder layers, d_model 1,024, 16 heads of 64, d_ff 4,096,
-     two 51,968 x 1,024 tables, bf16 compute) trained whole, nothing cut:
-     8 utterances a step of 1,536 seeded normal stub frames (in bf16) and
+     two 51,968 x 1,024 tables, bf16 compute) trained whole at full
+     width: 8 utterances a step of 1,536 seeded normal stub frames (in bf16) and
      448 ``ZipfLM`` decoder tokens (the public models' text context),
      ``make_train_step(cfg, optimizer="cs_adam", kernel_backend="auto")``
      at lr 1e-3 for 10 steps through ``Trainer``: B3 exactly 4 launches a
@@ -390,17 +390,53 @@ own line; any failure raises and the exit code is not 0:
      prefills of the first and last prefixes.  16c: internvl2-2b
      (``src/repro/configs/internvl2_2b.py``: 24 layers, d_model 2,048,
      GQA 16/8 heads of 128, d_ff 8,192, two 92,672 x 2,048 tables)
-     trained whole as 16a, 4 x (256 stub patches + 1,792 text tokens) a
-     step: 2,048 positions, the patches counted in the cell's length as
-     the reference counts them.  16d: internvl2-2b served as 16b: 256
-     patches and 128 prompt tokens, 64 decoded, ``max_seq`` 512.  16e:
+     trained whole as 16a, 4 x (256 stub patches +
+     1,792 text tokens) a step: 2,048 positions, the patches counted in
+     the cell's length as the reference counts them.  16d: internvl2-2b
+     served as 16b: 256 patches and 128 prompt tokens, 64 decoded,
+     ``max_seq`` 512.  16e:
      ``launch.train.main`` (``python -m repro_torch.launch.train``) with
      ``--workload lm --arch whisper_medium`` and ``--arch internvl2_2b``
      at full width, 3 steps each on ``--store-backend auto`` (the zero
      stub inputs the reference's launcher adds): exit 0, the ``[train]``
-     line, B3 4 a step (internvl2's loss is NaN from the second step in
-     both packages: its zero patches overflow the gradient, ROADMAP C;
-     printed).  ``--phases 16`` runs phase 16 alone.
+     line, B3 4 a step, whisper's losses finite (internvl2's loss is NaN
+     from the second step in both packages: its zero patches overflow
+     the gradient, ROADMAP C; printed).  ``--phases 16`` runs phase 16 alone.
+ 17. the RWKV6 and hybrid (Mamba2) families (the tensors of earlier
+     phases' results are dropped first).  First B3 at rwkv6-7b's and
+     zamba2-2.7b's vocabulary tables, (65,536, 4,096) and (32,000,
+     2,560), as in phase 16.  17a: rwkv6-7b
+     (``src/repro/configs/rwkv6_7b.py``: d_model 4,096, 64 heads of 64,
+     d_ff 14,336, two 65,536 x 4,096 tables, bf16 compute, WKV chunks of
+     64) cut to 8 of its 32 layers (dense Adam holds about 24 B a layer
+     parameter at its peak: 5.25 GB a layer), ``ZipfLM`` 4 x 2,048
+     tokens a step (32 chunks), with 16a's arms and checks (10 steps
+     each: ``cs_adam`` on ``auto`` with B3 exactly 4 launches a step,
+     finite losses and params, 3 steps under the profiler (one for
+     zamba2, whose events take long to gather); plain ``xla``
+     and ``auto`` again from the same start, equal to the bit;
+     ``dense_adam`` and ``cs_adam_v`` against its state bytes and peak
+     memory, each passing the window check; ``cs_adam``'s windows
+     printed).  17b: rwkv6-7b served whole (32 layers) on fresh params,
+     ``make_serve_step(cfg, batch=8, max_seq=192)``: a prefill of 128
+     tokens (the chunked form), 64 greedy decode steps (ms a token,
+     tokens/s, 3 under the profiler), then each step's logits held as
+     in 16b to the forward of its row's decoded sequence (the chunked
+     form at 192 positions), that forward to the prefills of the first
+     and last prefixes (129 tokens: the scan; 192: the chunked form);
+     gated in f32, printed in bf16.  17c: zamba2-2.7b
+     (``src/repro/configs/zamba2_2_7b.py``: 54 Mamba2 layers, d_model
+     2,560, 80 SSM heads of 64, state 64, one shared attention block of
+     32 heads of 80 before every 6 layers, two 32,000 x 2,560 tables)
+     trained whole as 17a.  17d: zamba2-2.7b served whole as 17b (the 9 sites' KV caches
+     written in place).  17e: ``launch.train.main``
+     with ``--workload lm --arch zamba2_2_7b`` at full width at the
+     launcher's defaults, 3 steps on ``--store-backend auto`` (exit 0,
+     the ``[train]`` line, B3 4 a step, finite losses), and ``--arch
+     rwkv6_7b --reduced`` (whole it needs about 120 GB for dense Adam and
+     the launcher, as the reference's, has no flag that cuts layers; its
+     512-row tables are not sketched, so no B3): exit 0, finite losses.  ``--phases
+     17`` runs phase 17 alone.
 
 The CUDA caching allocator runs with ``expandable_segments:True`` (set
 in ``PYTORCH_CUDA_ALLOC_CONF`` unless the caller set it): phase 15's
@@ -416,8 +452,8 @@ time.  It prints the kernels' JSON line (each path's launches beside the
 total: ``launches_dp_path`` is phase 12's, ``launches_sharded_path``
 phase 13's, ``launches_placement_path`` phase 14's,
 ``launches_a14b_path`` phase 15's, ``launches_a14b_part3_path``
-phase 16's; B3's row also its times at whisper's and internvl2's
-tables), the
+phase 16's, ``launches_a14b_part4_path`` phase 17's; B3's row also its
+times at whisper's, internvl2's, rwkv6's and zamba2's tables), the
 card's name and power limit and, last, ``{"ok": true, "device":
 {...}}``.  With no card it prints no result and exits 2.
 """
@@ -1128,8 +1164,9 @@ def kernel_profile(run):
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's operator events would multiply the
+    # events to gather (a zamba2 step launches about 61,000 kernels)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = run()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1156,7 +1193,10 @@ def profile_steps(tag: str, run, step_ms: float, n: int = 5,
     ``by_name``, every kernel's launches a step).  The idle share is taken
     against ``step_ms``, the unprofiled step time, since the profiler slows
     the host.  Returns ``run()``'s result."""
+    t0 = time.perf_counter()
     out, wall_ms, kernels = kernel_profile(run)
+    log(f"{tag}: the profiled run and its events took "
+        f"{time.perf_counter() - t0:.1f} s")
     busy_ms = sum(k[0] for k in kernels)
     if busy_ms <= 0.0:
         log(f"{tag}: device busy time not measured (the profiler saw no "
@@ -5846,6 +5886,20 @@ P16_TRAIN = {ENCDEC_ARCH: (8, 448), VLM_ARCH: (4, 1_792)}
 # then 3 more under the profiler: the VLM's cache also holds the 256
 # patches (256 + 128 + 64 + 3 of 512)
 P16_SERVE = {ENCDEC_ARCH: (32, 448), VLM_ARCH: (128, 512)}
+RWKV_ARCH = "rwkv6_7b"             # src/repro/configs/rwkv6_7b.py:8-16
+HYBRID_ARCH = "zamba2_2_7b"        # src/repro/configs/zamba2_2_7b.py:12-18
+# rwkv6-7b trains at 8 of its 32 layers: dense Adam holds about 24 B a
+# layer parameter at its peak (params, grads, m, v, clipped grads and
+# updates), 5.25 GB a layer, so 8 layers (42.0 GB) and the two 65,536 x
+# 4,096 tables (8.6 GB) fit one card where 32 (about 120 GB) do not
+RWKV_TRAIN_LAYERS = 8
+# (prompt tokens, max_seq): 128 prompt tokens (two chunks of 64: the
+# chunked prefill), 64 decoded and 3 more under the profiler
+P17_SERVE = {RWKV_ARCH: (128, 192), HYBRID_ARCH: (128, 192)}
+# steps under the profiler after a training arm (3 unless named): a
+# zamba2 step launches about 61,000 kernels, whose events took 41 s to
+# gather for 3 steps
+PROFILED_STEPS = {HYBRID_ARCH: 1}
 
 
 def stub_normals(cfg, batch: int, dev, seed: int):
@@ -5900,30 +5954,43 @@ class FamilyRun(MoERun):
         return dataclasses.replace(ts, step_fn=step_fn)
 
 
-def phase_family_train(dev, seed: int, arch: str, tag: str) -> dict:
-    """16a / 16c: ``arch`` trained whole at full width, ``cs_adam`` on
-    ``auto`` (see the module docstring).  Returns the launches of its
-    arms."""
+def phase_family_train(dev, seed: int, arch: str, tag: str,
+                       layers=None) -> dict:
+    """16a / 16c / 17a / 17c: ``arch`` trained at full width, whole or cut
+    to ``layers`` layers, ``cs_adam`` on ``auto`` (see the module
+    docstring).  Returns the launches of its arms."""
     import torch
     from repro_torch import configs
     from repro_torch.core.optimizers import state_bytes
     from repro_torch.core.partition import leaf_paths
     from repro_torch.plan import measure_aux_bytes
     from repro_torch.train.steps import family_module, stub_input
+    t_all = time.perf_counter()
     cfg = configs.get(arch)
-    batch, seq = P16_TRAIN[arch]
-    run = FamilyRun(dev, seed, cfg, batch, seq)
-    key, length = stub_input(cfg)
+    whole = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    stub = stub_input(cfg)
+    if stub is None:
+        batch, seq = LM_BATCH, LM_SEQ
+        run = MoERun(dev, seed, cfg)
+        front = ""
+    else:
+        batch, seq = P16_TRAIN[arch]
+        run = FamilyRun(dev, seed, cfg, batch, seq)
+        front = f"{stub[1]} stub {stub[0]} + "
     n_params = sum(t.numel() for _p, t in leaf_paths(
         family_module(cfg).init(None, cfg, device="meta")))
-    layers = (f"{cfg.enc_layers} encoder and {cfg.n_layers} decoder"
-              if cfg.family == "encdec" else str(cfg.n_layers))
-    log(f"phase {tag}: {cfg.name} whole: {layers} layers, d_model "
+    depth = (f"{cfg.enc_layers} encoder and {cfg.n_layers} decoder"
+             if cfg.family == "encdec" else str(cfg.n_layers))
+    cut = "whole" if cfg.n_layers == whole else \
+        f"cut to {layers} of {whole} layers"
+    log(f"phase {tag}: {cfg.name} {cut}: {depth} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads of {cfg.head_dim}, "
-        f"d_ff {cfg.d_ff}, tables {cfg.vocab} x {cfg.d_model}; {n_params} "
-        f"params, {cfg.compute_dtype} compute; {batch} x ({length} stub "
-        f"{key} + {seq} ZipfLM tokens) a step; cs_adam lr {LM_LR}, "
-        f"kernel_backend auto")
+        f"d_ff {cfg.d_ff}, tables {cfg.vocab} x "
+        f"{cfg.d_model}; {n_params} params, {cfg.compute_dtype} compute; "
+        f"{batch} x ({front}{seq} ZipfLM tokens) a step; cs_adam lr "
+        f"{LM_LR}, kernel_backend auto")
     totals: dict = {}
     ts = run.step()
     t_arm = time.perf_counter()
@@ -5951,15 +6018,16 @@ def phase_family_train(dev, seed: int, arch: str, tag: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     p, s = state.params, state.opt_state
     del state
+    n_prof = PROFILED_STEPS.get(arch, 3)
     more = [{k: torch.as_tensor(v).to(dev) for k, v in
-             run.data.batch(P16_STEPS + i).items()} for i in range(3)]
+             run.data.batch(P16_STEPS + i).items()} for i in range(n_prof)]
 
     def three():
         nonlocal p, s
         for b in more:
             p, s, _ = ts.step_fn(p, s, b)
         torch.cuda.synchronize()
-    profile_steps(f"phase {tag} (profile)", three, step_ms, n=3)
+    profile_steps(f"phase {tag} (profile)", three, step_ms, n=n_prof)
     del p, s, more
     torch.cuda.empty_cache()
 
@@ -5986,6 +6054,7 @@ def phase_family_train(dev, seed: int, arch: str, tag: str) -> dict:
     del host
 
     for mode, backend in (("dense_adam", None), ("cs_adam_v", "auto")):
+        t_arm = time.perf_counter()
         a_state, a_losses, a_ms, a_counts, a_peak, _ = run.fit(
             run.step(optimizer=mode, backend=backend), P16_STEPS)
         add_counts(totals, a_counts)
@@ -5997,7 +6066,7 @@ def phase_family_train(dev, seed: int, arch: str, tag: str) -> dict:
             f"({a_bytes[1]} with the step counter) against cs_adam's "
             f"{cs_bytes[0]} B: cs_adam / {mode} {cs_bytes[0] / a_bytes[0]}; "
             f"peak memory of the arm {a_peak} B against cs_adam's {peak} B; "
-            f"launches {a_counts}")
+            f"launches {a_counts}; {time.perf_counter() - t_arm:.1f} s")
         del a_state
         torch.cuda.empty_cache()
         learns(f"{tag}: {mode}", a_losses)
@@ -6005,7 +6074,7 @@ def phase_family_train(dev, seed: int, arch: str, tag: str) -> dict:
     # moment rises on a full softmax (ROADMAP C)
     first, last = loss_windows(losses)
     log(f"phase {tag}: cs_adam window means {first} -> {last} (printed, "
-        f"not gated)")
+        f"not gated); {time.perf_counter() - t_all:.1f} s in all")
     return totals
 
 
@@ -6014,8 +6083,16 @@ def family_logits(cfg, params, stub, tokens):
     one forward of the model without a cache: position p's row is what a
     prefill of the text prefix ending at p returns."""
     import torch
-    from repro_torch.models import encdec, transformer as tm, vlm
+    from repro_torch.models import encdec, mamba, rwkv, transformer as tm, vlm
     with torch.no_grad():
+        if cfg.family in ("rwkv6", "hybrid"):
+            x = tm.embed(cfg, params, tokens)
+            if cfg.family == "rwkv6":
+                x, _ = rwkv._run_stack(cfg, params, x, rwkv.zero_state(
+                    cfg, x.shape[0], device=x.device), "chunked")
+            else:
+                x = mamba._run_train(cfg, params, x, remat=False)
+            return tm.logits_fn(cfg, params, x).float()
         if cfg.family == "encdec":
             enc_out = encdec.encode(cfg, params, stub)
             x = encdec._embed(cfg, params, tokens)
@@ -6030,6 +6107,15 @@ def family_logits(cfg, params, stub, tokens):
         return tm.logits_fn(cfg, params, x[:, cfg.n_patches:]).float()
 
 
+def serve_inputs(cfg, stub, tokens) -> dict:
+    """``make_serve_step``'s batch: the tokens, and the stub frontend's
+    embeddings under the family's key where it has one."""
+    from repro_torch.train.steps import stub_input
+    key = stub_input(cfg)
+    return {"tokens": tokens} if key is None else {key[0]: stub,
+                                                   "tokens": tokens}
+
+
 def family_agreement(cfg, params, stub, prompts, max_seq: int,
                      dtype: str) -> dict:
     """64 greedy decode steps of ``cfg`` in ``dtype`` compute, each step's
@@ -6038,13 +6124,12 @@ def family_agreement(cfg, params, stub, prompts, max_seq: int,
     prefills of the first and the last prefix."""
     import torch
     from repro_torch.serve import make_serve_step
-    from repro_torch.train.steps import stub_input
     nd = dataclasses.replace(cfg, compute_dtype=dtype)
-    key = stub_input(cfg)[0]
     prompt = prompts.shape[1]
     ss = make_serve_step(nd, batch=SERVE_BATCH, max_seq=max_seq)
     with torch.no_grad():
-        logits, cache = ss.prefill_fn(params, {key: stub, "tokens": prompts})
+        logits, cache = ss.prefill_fn(params, serve_inputs(cfg, stub,
+                                                           prompts))
         seq, outs = prompts, []
         for _ in range(DECODE):
             tok = logits.argmax(-1).to(torch.int32)
@@ -6053,25 +6138,22 @@ def family_agreement(cfg, params, stub, prompts, max_seq: int,
             outs.append(logits.float())
         del cache
         got = torch.stack(outs, dim=1)                 # (b, DECODE, vocab)
-        want = torch.stack([family_logits(nd, params, stub[r:r + 1],
-                                          seq[r:r + 1])[
-            0, prompt:prompt + DECODE] for r in range(SERVE_BATCH)])
+        want = family_logits(nd, params, stub, seq)[:, prompt:prompt
+                                                     + DECODE]
         prefix = 0.0
         for t in (0, DECODE - 1):
-            for r in range(SERVE_BATCH):
-                pre, _ = ss.prefill_fn(params, {
-                    key: stub[r:r + 1],
-                    "tokens": seq[r:r + 1, :prompt + t + 1]})
-                prefix = max(prefix, within_decode_tol(
-                    pre.float()[0], want[r, t])[0])
+            pre, _ = ss.prefill_fn(params, serve_inputs(
+                cfg, stub, seq[:, :prompt + t + 1]))
+            prefix = max(prefix, within_decode_tol(pre.float(),
+                                                   want[:, t])[0])
     ratio, ties, same = within_decode_tol(got, want)
     return {"ratio": ratio, "ties": ties, "argmax_same": same,
             "prefix_ratio": prefix}
 
 
 def phase_family_serve(dev, seed: int, arch: str, tag: str) -> dict:
-    """16b / 16d: ``arch`` served whole on fresh params (see the module
-    docstring).  Returns the launches (none: serving runs no
+    """16b / 16d / 17b / 17d: ``arch`` served whole on fresh params (see
+    the module docstring).  Returns the launches (none: serving runs no
     optimizer)."""
     import torch
     from repro_torch import configs
@@ -6079,9 +6161,10 @@ def phase_family_serve(dev, seed: int, arch: str, tag: str) -> dict:
     from repro_torch.data import ZipfLM, ZipfLMConfig
     from repro_torch.serve import make_serve_step
     from repro_torch.train.steps import family_module, stub_input
+    t_all = time.perf_counter()
     cfg = configs.get(arch)
-    prompt, max_seq = P16_SERVE[arch]
-    key, length = stub_input(cfg)
+    prompt, max_seq = {**P16_SERVE, **P17_SERVE}[arch]
+    key, length = stub_input(cfg) or (None, 0)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -6091,11 +6174,12 @@ def phase_family_serve(dev, seed: int, arch: str, tag: str) -> dict:
         torch.Generator(device=dev).manual_seed(seed), cfg)
     n_bytes = sum(t.numel() * t.element_size()
                   for _p, t in leaf_paths(params))
-    stub = stub_normals(cfg, SERVE_BATCH, dev, seed + 1_700)
+    stub = None if key is None else stub_normals(cfg, SERVE_BATCH, dev,
+                                                 seed + 1_700)
     prompts = torch.as_tensor(ZipfLM(ZipfLMConfig(
         vocab_size=cfg.vocab, seq_len=prompt, global_batch=SERVE_BATCH,
         seed=seed + 1)).batch(0)["tokens"]).to(dev)
-    inputs = {key: stub, "tokens": prompts}
+    inputs = serve_inputs(cfg, stub, prompts)
     ss = make_serve_step(cfg, batch=SERVE_BATCH, max_seq=max_seq)
     prefill_ms = cuda_ms(lambda: ss.prefill_fn(params, inputs), reps=3)
     logits, cache = ss.prefill_fn(params, inputs)
@@ -6108,7 +6192,10 @@ def phase_family_serve(dev, seed: int, arch: str, tag: str) -> dict:
     e1.record()
     torch.cuda.synchronize()
     decode_ms = e0.elapsed_time(e1) / DECODE
-    more = cache
+    # the 3 profiled steps go on from the 64 decoded where the cache has
+    # room (17d's 192 positions hold 128 + 64: they go on from a prefill)
+    more = cache if prompt + DECODE + 3 <= max_seq else \
+        ss.prefill_fn(params, inputs)[1]
 
     def three():
         nonlocal more
@@ -6120,7 +6207,8 @@ def phase_family_serve(dev, seed: int, arch: str, tag: str) -> dict:
     del cache, more
     log(f"phase {tag}: {cfg.name} whole, {n_bytes} B of f32 params; "
         f"make_serve_step(batch={SERVE_BATCH}, max_seq={max_seq}): prefill "
-        f"of {SERVE_BATCH} x ({length} stub {key} + {prompt} tokens) "
+        f"of {SERVE_BATCH} x ({f'{length} stub {key} + ' if key else ''}"
+        f"{prompt} tokens) "
         f"{prefill_ms} ms; {DECODE} greedy decode steps {decode_ms} ms a "
         f"token, {SERVE_BATCH * 1e3 / decode_ms} tokens/s; "
         f"{time.perf_counter() - t0:.1f} s with the params' draw")
@@ -6135,7 +6223,8 @@ def phase_family_serve(dev, seed: int, arch: str, tag: str) -> dict:
             f"against the prefill of the first and last prefixes: "
             f"{a['prefix_ratio']}; {time.perf_counter() - t0:.1f} s")
     peak = torch.cuda.max_memory_allocated() - base
-    log(f"phase {tag}: peak memory {peak} B above the {base} B before")
+    log(f"phase {tag}: peak memory {peak} B above the {base} B before; "
+        f"{time.perf_counter() - t_all:.1f} s in all")
     # gated in f32 compute, as 15f's check
     if a["ratio"] > 1.0 or not a["argmax_same"] or a["prefix_ratio"] > 1.0:
         raise AssertionError(f"{tag}: decode disagrees with the prefill of "
@@ -6144,39 +6233,54 @@ def phase_family_serve(dev, seed: int, arch: str, tag: str) -> dict:
     return read_counts()
 
 
-def phase_family_launcher(dev, seed: int) -> dict:
-    """16e: ``python -m repro_torch.launch.train --workload lm`` (its
-    ``main`` in this process) for whisper-medium and internvl2-2b at full
-    width, 3 steps on ``--store-backend auto``: exit 0, the ``[train]``
-    line printed, B3 4 a step."""
+# the launcher's runs of phases 16e and 17e: (arch, further argv, B3
+# launches in 3 steps, whether the losses must be finite)
+P16_LAUNCHES = ((ENCDEC_ARCH, [], 12, True),
+                # internvl2's zero patches stay zero through every layer,
+                # where rmsnorm's backward multiplies by 1,000 a norm: the
+                # gradient overflows to NaN after the first step, as in
+                # the reference's launcher (tests/test_torch_vlm.py;
+                # printed, not gated)
+                (VLM_ARCH, [], 12, False))
+# rwkv6-7b whole needs about 120 GB for dense Adam on one card and the
+# launcher, as the reference's, has no flag that cuts layers: it runs
+# reduced, where its 512-row tables are below min_rows 1,024 (no B3)
+P17_LAUNCHES = ((HYBRID_ARCH, [], 12, True),
+                (RWKV_ARCH, ["--reduced"], 0, True))
+
+
+def phase_family_launcher(dev, seed: int, tag: str, runs) -> dict:
+    """16e / 17e: ``python -m repro_torch.launch.train --workload lm``
+    (its ``main`` in this process), 3 steps on ``--store-backend auto``
+    for each ``(arch, extra argv, B3 launches, finite)`` of ``runs``:
+    exit 0, the ``[train]`` line printed, B3 as given, and finite losses
+    where asked."""
     totals: dict = {}
-    for arch in (ENCDEC_ARCH, VLM_ARCH):
+    for arch, extra, b3, finite in runs:
         reset_counts()
         t0 = time.perf_counter()
         rc, lines, losses = p14_main(
             ["--workload", "lm", "--arch", arch, "--steps", "3",
-             "--store-backend", "auto", "--seed", str(seed)]
+             "--store-backend", "auto", "--seed", str(seed)] + extra
             + (["--device", "cpu"] if dev.type == "cpu" else []))
         counts = read_counts()
         add_counts(totals, counts)
         line = [l for l in lines if l.startswith("[train] arch=")]
-        # internvl2's zero patches stay zero through every layer, where
-        # rmsnorm's backward multiplies by 1,000 a norm: the gradient
-        # overflows to NaN after the first step, as in the reference's
-        # launcher (tests/test_torch_vlm.py; printed, not gated)
-        log(f"phase 16e: launch.train --workload lm --arch {arch} rc {rc} "
-            f"in {time.perf_counter() - t0:.1f} s: {line}; per-step losses "
+        log(f"phase {tag}: launch.train --workload lm --arch "
+            f"{' '.join([arch] + extra)} rc {rc} in "
+            f"{time.perf_counter() - t0:.1f} s: {line}; per-step losses "
             f"{losses}; launches {counts}")
-        if rc != 0 or not line or counts["cs_ema_tiled"] != 12:
-            raise AssertionError(f"16e: the launcher's {arch} run failed")
+        if rc != 0 or not line or counts["cs_ema_tiled"] != b3 or (
+                finite and not all(np.isfinite(losses))):
+            raise AssertionError(f"{tag}: the launcher's {arch} run failed")
     return totals
 
 
-def time_ema_tables(dev, seed: int) -> dict:
-    """B3 as the LM step calls it on whisper's and internvl2's vocabulary
-    tables (every row, signed, mask on, cached addressing): held to its
-    plain version on the card within the collision envelope, timed
-    against it and its byte bound."""
+def time_ema_tables(dev, seed: int, archs=None, tag: str = "16") -> dict:
+    """B3 as the LM step calls it on the vocabulary tables of ``archs``
+    (whisper's and internvl2's by default; every row, signed, mask on,
+    cached addressing): held to its plain version on the card within the
+    collision envelope, timed against it and its byte bound."""
     import torch
     from repro_torch import configs
     from repro_torch.core.optimizers import SketchHParams
@@ -6184,7 +6288,7 @@ def time_ema_tables(dev, seed: int) -> dict:
     from repro_torch.kernels.cs_ema_tiled import (cs_ema_tiled,
                                                   cs_ema_tiled_plain)
     out = {}
-    for arch in (ENCDEC_ARCH, VLM_ARCH):
+    for arch in archs or (ENCDEC_ARCH, VLM_ARCH):
         cfg = configs.get(arch)
         n, d = cfg.vocab, cfg.d_model
         spec = SketchHParams(compression=cfg.sketch_compression,
@@ -6214,7 +6318,7 @@ def time_ema_tables(dev, seed: int) -> dict:
         out[arch] = dict(n=n, d=d, sketch=list(spec.shape), ms=ms,
                          plain_ms=plain_ms, max_abs_err=err, bytes=nbytes,
                          bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
-        log(f"phase 16: B3 at {arch}'s table ({n}, {d}), sketch "
+        log(f"phase {tag}: B3 at {arch}'s table ({n}, {d}), sketch "
             f"{tuple(spec.shape)}: {ms} ms, plain {plain_ms} ms, bound "
             f"{out[arch]['bound_ms']} ms ({nbytes} B at 3.35 TB/s); "
             f"max_abs_err {err} against the plain version on the card")
@@ -6237,10 +6341,33 @@ def phase_a14b_part3(dev, seed: int, held: int = 0):
         torch.cuda.empty_cache()
         add_counts(totals, phase_family_serve(dev, seed, arch, serve_tag))
         torch.cuda.empty_cache()
-    add_counts(totals, phase_family_launcher(dev, seed))
+    add_counts(totals, phase_family_launcher(dev, seed, "16e",
+                                             P16_LAUNCHES))
     log(f"phase 16: launches of the path {totals}")
     return totals, b3
 
+
+def phase_a14b_part4(dev, seed: int, held: int = 0):
+    """Phase 17: rwkv6-7b (cut to 8 layers) and zamba2-2.7b (whole)
+    trained, both served whole, the launcher (17a-e), and B3 at their
+    tables.  Returns the launches of the path and B3's times at the
+    tables."""
+    import torch
+    log(f"phase 17: {held} B allocated on the card as it starts")
+    totals: dict = {}
+    b3 = time_ema_tables(dev, seed, (RWKV_ARCH, HYBRID_ARCH), tag="17")
+    for arch, layers, train_tag, serve_tag in (
+            (RWKV_ARCH, RWKV_TRAIN_LAYERS, "17a", "17b"),
+            (HYBRID_ARCH, None, "17c", "17d")):
+        add_counts(totals, phase_family_train(dev, seed, arch, train_tag,
+                                              layers))
+        torch.cuda.empty_cache()
+        add_counts(totals, phase_family_serve(dev, seed, arch, serve_tag))
+        torch.cuda.empty_cache()
+    add_counts(totals, phase_family_launcher(dev, seed, "17e",
+                                             P17_LAUNCHES))
+    log(f"phase 17: launches of the path {totals}")
+    return totals, b3
 
 
 def main(argv=None) -> int:
@@ -6250,7 +6377,7 @@ def main(argv=None) -> int:
                         help="comma-separated phase names to run (default: "
                              "all; the kernels' line needs all)")
     argv = sys.argv[1:] if argv is None else list(argv)
-    # phases 15's and 16's models fill the card: grow the allocator's
+    # phases 15's to 17's models fill the card: grow the allocator's
     # segments in place, so blocks freed by the phases before can be
     # reused
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
@@ -6314,6 +6441,7 @@ def main(argv=None) -> int:
         # first
         ("15", lambda: phase_a14b(dev, args.seed, release(out))),
         ("16", lambda: phase_a14b_part3(dev, args.seed, release(out))),
+        ("17", lambda: phase_a14b_part4(dev, args.seed, release(out))),
     ]
     if args.phases:
         keep = args.phases.split(",")
@@ -6351,6 +6479,9 @@ def main(argv=None) -> int:
     # 16a-e: the enc-dec and VLM training arms and launcher runs, and B3
     # at their tables
     part3, b3_tables = out["16"]
+    # 17a-e: the rwkv6 and hybrid training arms and launcher runs, and B3
+    # at their tables
+    part4, b3_tables4 = out["17"]
     launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
                                   + placed["cs_adam_tiled"]
                                   + extreme["cs_adam_tiled"]
@@ -6392,7 +6523,8 @@ def main(argv=None) -> int:
                                + planned_dense["bucket_csr"]
                                + lm_b3["bucket_csr"])}
     for name in launches:
-        launches[name] += a14b.get(name, 0) + part3.get(name, 0)
+        launches[name] += (a14b.get(name, 0) + part3.get(name, 0)
+                           + part4.get(name, 0))
     for row in kernels:
         row.setdefault("launches", launches.get(row["name"]))
         if row["name"] == "cs_adam_tiled":
@@ -6420,9 +6552,13 @@ def main(argv=None) -> int:
         row["launches_a14b_path"] = a14b.get(row["name"], 0)
         # the A14b part 3 path (16a-e), in the total above as well
         row["launches_a14b_part3_path"] = part3.get(row["name"], 0)
+        # the A14b part 4 path (17a-e), in the total above as well
+        row["launches_a14b_part4_path"] = part4.get(row["name"], 0)
         if row["name"] == "cs_ema_tiled":
             row["at_whisper_tables"] = b3_tables[ENCDEC_ARCH]
             row["at_internvl2_tables"] = b3_tables[VLM_ARCH]
+            row["at_rwkv6_tables"] = b3_tables4[RWKV_ARCH]
+            row["at_zamba2_tables"] = b3_tables4[HYBRID_ARCH]
         if row["name"] == "cs_adam_fused":
             row["adam_rows_fused_ms"] = fused["ms"]
             row["adam_rows_stream_ms"] = fused["stream_ms"]

@@ -9,8 +9,8 @@ functions return a cell's inputs as ``meta`` tensors (shapes and dtypes,
 no allocation) where the reference returns ``ShapeDtypeStruct``s;
 ``cell_skip`` encodes the shape-skip rule (long_500k only for the
 sub-quadratic archs).  ``decode_cache_specs`` reads the family's serve
-cache, so rwkv6 and hybrid raise until their caches are ported (ROADMAP
-A14b).
+cache (``serve.steps.cache_factory``): the recurrent state and ``len``
+of rwkv6, the mamba state and the shared block's KV caches of hybrid.
 """
 from __future__ import annotations
 

@@ -36,9 +36,10 @@ Params = Dict[str, Any]
 def _ported(cfg: ArchConfig) -> None:
     if cfg.family not in ("gqa", "moe", "vlm"):
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP A14b); "
-            f"the port's transformer runs the 'gqa' and 'moe' families "
-            f"and the VLM's text backbone")
+            f"the transformer does not run the {cfg.family!r} family; "
+            f"it runs the 'gqa' and 'moe' families and the VLM's text "
+            f"backbone (train.steps.family_module gives each family's "
+            f"module)")
 
 
 def uses_blocks(cfg: ArchConfig) -> bool:

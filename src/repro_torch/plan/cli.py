@@ -9,8 +9,8 @@ Counterpart of ``repro.plan.cli``.  Budgets parse as raw bytes
 aux cost ("0.85x"), "floor" (the cheapest feasible plan) or "config"
 (the arch's ``aux_budget_bytes``).  The model's parameter shapes come
 from its ``init`` on the ``meta`` device (no allocation); ``--arch``
-takes the families the port has (the ``gqa`` and ``moe`` transformers,
-``encdec`` and ``vlm``; rwkv6 and hybrid wait for ROADMAP A14b).
+takes every family (the ``gqa`` and ``moe`` transformers, ``rwkv6``,
+``hybrid``, ``encdec`` and ``vlm``).
 
 ``--check`` asserts, per budget: predicted bytes <= budget, predicted
 bytes == the bytes of the real optimizer ``init`` (on ``meta``), and,

@@ -2,9 +2,8 @@
 subsystem (batching, double-buffered state, serving loop, traffic
 replay) with its adapt steps.
 
-Counterpart of ``repro.serve``; model serving covers the ``gqa``,
-``moe``, ``encdec`` and ``vlm`` families (rwkv6 and hybrid wait for
-ROADMAP A14b)."""
+Counterpart of ``repro.serve``; model serving covers every family:
+``gqa``, ``moe``, ``rwkv6``, ``hybrid``, ``encdec`` and ``vlm``."""
 from repro_torch.serve.batcher import (AdaptRequest, Batcher,  # noqa: F401
                                        BatcherConfig, CoalescedBatch,
                                        coalesce, dedup_coalesce)

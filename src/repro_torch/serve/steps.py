@@ -4,10 +4,9 @@ adaptation.
 Counterpart of ``repro.serve.steps``:
 
   * ``make_serve_step`` - prefill and decode of a model family (the
-    ``gqa`` and ``moe`` transformers, the ``encdec`` and ``vlm``
-    families; rwkv6 and hybrid wait for ROADMAP A14b), with
-    ``cache_factory`` and ``ServeStep``; decode writes the KV cache in
-    place;
+    ``gqa`` and ``moe`` transformers, ``rwkv6``, ``hybrid``, ``encdec``
+    and ``vlm``), with ``cache_factory`` and ``ServeStep``; decode
+    writes the cache (KV cache or recurrent state) in place;
   * ``make_online_adapt_step`` - the b1=0 CS-Adam of the training path
     (no first moment), its 2nd moment in a Count-Min sketch, through the
     same kernel backends (``tiled`` = B1 on the card); with ``dp_axis``
@@ -46,9 +45,16 @@ def _family(cfg: ArchConfig):
 def cache_factory(cfg: ArchConfig, device="cuda") -> Callable[..., Any]:
     """(batch, max_seq) -> zeroed cache for this family on ``device``
     (the transformer's KV cache, with a block axis under llama4's
-    interleaved blocks, also the VLM's; the enc-dec's self and cross
-    caches)."""
+    interleaved blocks, also the VLM's; rwkv6's recurrent state and
+    ``len``; the hybrid's mamba state and shared-block KV caches; the
+    enc-dec's self and cross caches)."""
     mod = _family(cfg)
+    if cfg.family == "rwkv6":
+        def make(batch, max_seq):
+            state = mod.zero_state(cfg, batch, device=device)
+            state["len"] = torch.zeros((), dtype=torch.int32)
+            return state
+        return make
     return lambda batch, max_seq: mod.init_cache(cfg, batch, max_seq,
                                                  device=device)
 
@@ -117,7 +123,9 @@ def make_serve_step(cfg: ArchConfig, *, batch: int, max_seq: int
     enc_seq, d) for the enc-dec, ``"patches"`` (batch, n_patches, d) for
     the VLM) into a ``max_seq`` cache and decode one token a call, both
     without autograd.  The cache lives on the tokens' device;
-    ``decode_fn`` writes it in place."""
+    ``decode_fn`` writes it in place.  rwkv6's cache is its recurrent
+    state and ``len``: prefill sets ``len`` to the prompt's length, and
+    decode steps the state without it, then adds one."""
     from repro_torch.train.steps import stub_input
     mod = _family(cfg)
     stub = stub_input(cfg)
@@ -125,11 +133,21 @@ def make_serve_step(cfg: ArchConfig, *, batch: int, max_seq: int
     @torch.no_grad()
     def prefill_fn(params, batch_in):
         front = (batch_in[stub[0]],) if stub else ()
-        return mod.prefill(cfg, params, *front, batch_in["tokens"], max_seq)
+        logits, cache = mod.prefill(cfg, params, *front, batch_in["tokens"],
+                                    max_seq)
+        if cfg.family == "rwkv6":
+            cache["len"] = torch.tensor(batch_in["tokens"].shape[1],
+                                        dtype=torch.int32)
+        return logits, cache
 
     @torch.no_grad()
     def decode_fn(params, cache, token):
-        return mod.decode_step(cfg, params, cache, token)
+        if cfg.family != "rwkv6":
+            return mod.decode_step(cfg, params, cache, token)
+        state = {k: v for k, v in cache.items() if k != "len"}
+        logits, state = mod.decode_step(cfg, params, state, token)
+        state["len"] = torch.tensor(int(cache["len"]) + 1, dtype=torch.int32)
+        return logits, state
 
     return ServeStep(cfg=cfg, prefill_fn=prefill_fn, decode_fn=decode_fn,
                      max_seq=max_seq, batch=batch)

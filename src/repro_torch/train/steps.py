@@ -48,16 +48,11 @@ from repro_torch.obs.profiling import scope
 
 def family_module(cfg: ArchConfig):
     """The model module of ``cfg.family``: the transformer for the dense
-    ``gqa`` and the ``moe`` families, ``encdec`` and ``vlm``; rwkv6 and
-    hybrid wait for ROADMAP A14b."""
-    from repro_torch.models import encdec, transformer, vlm
-    mods = {"gqa": transformer, "moe": transformer, "encdec": encdec,
-            "vlm": vlm}
-    if cfg.family not in mods:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP A14b); "
-            f"the port runs the 'gqa', 'moe', 'encdec' and 'vlm' families")
-    return mods[cfg.family]
+    ``gqa`` and the ``moe`` families, ``rwkv`` for ``rwkv6``, ``mamba``
+    for ``hybrid``, ``encdec`` and ``vlm``."""
+    from repro_torch.models import encdec, mamba, rwkv, transformer, vlm
+    return {"gqa": transformer, "moe": transformer, "rwkv6": rwkv,
+            "hybrid": mamba, "encdec": encdec, "vlm": vlm}[cfg.family]
 
 
 def stub_input(cfg: ArchConfig) -> Optional[Tuple[str, int]]:

@@ -2,9 +2,9 @@
 reference's (``repro.configs``): the cell matrix and its skip rule, and,
 for every effective (arch, shape) cell, each spec function's tree of
 shapes and dtypes: the port's ``meta`` tensors against the reference's
-``ShapeDtypeStruct``s (``eval_shape`` of the serve cache), exactly.
-``decode_cache_specs`` of the rwkv6 and hybrid families raises, naming
-ROADMAP A14b, until their caches are ported.
+``ShapeDtypeStruct``s (``eval_shape`` of the serve cache), exactly;
+``decode_cache_specs`` of every family, the rwkv6 and hybrid caches of
+their ``long_500k`` cells included.
 """
 import jax
 import numpy as np
@@ -14,9 +14,6 @@ import torch
 from repro import configs as J
 from repro_torch import configs as T
 from repro_torch.core.partition import leaf_paths
-
-UNPORTED_CACHES = {"rwkv6_7b", "zamba2_2_7b"}
-
 
 def _flat(tree) -> dict:
     """{path: (shape, dtype name)} of a spec tree of either package."""
@@ -49,12 +46,14 @@ def test_specs_match_reference(arch, shape):
         assert _flat(got) == _flat(getattr(J, name)(cj, sj)), name
     assert _flat(T.train_batch_specs(ct, st, sampled_softmax=True)) == \
         _flat(J.train_batch_specs(cj, sj, sampled_softmax=True))
-    if arch in UNPORTED_CACHES:
-        with pytest.raises(NotImplementedError, match="A14b"):
-            T.decode_cache_specs(ct, st)
-        return
     got = T.decode_cache_specs(ct, st)
     assert _flat(got) == _flat(J.decode_cache_specs(cj, sj))
+    if ct.family in ("rwkv6", "hybrid") and shape == "long_500k":
+        # O(1) recurrent state; the hybrid's shared block keeps a KV
+        # cache of the cell's 524,288 positions at each site
+        assert "len" in got and got["len"].dim() == 0
+        if ct.family == "hybrid":
+            assert got["attn_k"].shape[2] == st.seq_len
     if ct.family == "vlm" and st.kind != "decode":
         # the patches count in the cell's positions
         specs = T.input_specs(ct, st)

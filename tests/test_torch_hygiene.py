@@ -40,3 +40,10 @@ def test_the_check_sees_forbidden_imports(tmp_path):
                      "from repro_torch.core import sketch as ok\n")
     assert [m.split(".")[0] for m in _imports(probe)
             if m.split(".")[0] in FORBIDDEN] == ["jax", "repro"]
+
+
+def test_the_check_covers_every_model_family():
+    """Each family's module of the port is among the files checked."""
+    models = {p.name for p in FILES if p.parent.name == "models"}
+    assert {"transformer.py", "moe.py", "rwkv.py", "mamba.py", "encdec.py",
+            "vlm.py"} <= models

@@ -107,12 +107,27 @@ def test_launcher_runs_fresh_and_records_the_plan(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,label", [
-    (["--arch", "zamba2_2_7b", "--reduced"], "A14b"),
-    (["--arch", "rwkv6_7b", "--reduced"], "A14b"),
+    (["--arch", "zamba2_2_7b", "--reduced"], "zamba2-2.7b-smoke"),
+    (["--arch", "rwkv6_7b", "--reduced"], "rwkv6-7b-smoke"),
 ])
-def test_launcher_errors_name_their_roadmap_items(args, label):
-    with pytest.raises(NotImplementedError, match=label):
-        TL.main(args + ["--steps", "1", "--device", "cpu"])
+def test_launcher_errors_name_their_roadmap_items(args, label, tmp_path,
+                                                  monkeypatch, capsys):
+    """The families once refused (ROADMAP A14b part 4) run: 2 steps from
+    the JAX launcher's step-0 checkpoint, the ``[train]`` line held to
+    the JAX launcher's."""
+    _jax_main(monkeypatch, capsys, args + ["--steps", "0", "--ckpt-dir",
+                                           str(tmp_path / "j")])
+    shutil.copytree(tmp_path / "j", tmp_path / "t")
+    more = ["--steps", "2", "--ckpt-dir"]
+    jline, jloss = _loss_line(_jax_main(
+        monkeypatch, capsys, args + more + [str(tmp_path / "j")]))
+    tline, tloss = _loss_line(_port_main(
+        capsys, args + more + [str(tmp_path / "t")]))
+    assert tline.startswith(f"[train] arch={label} optimizer=cs_adam "
+                            f"dp=False steps=2 loss ")
+    assert tline.split(" loss ")[0] == jline.split(" loss ")[0]
+    np.testing.assert_allclose(tloss, jloss, rtol=0, atol=1e-3)
+    assert store.latest_step(tmp_path / "t") == 2
 
 
 @pytest.mark.parametrize("flag", [["--classes", "100"],
@@ -172,8 +187,9 @@ def test_plan_cli_matches_the_reference(tmp_path, capsys):
     assert keep == [l for l in tout.splitlines()
                     if not l.startswith("[plan] wrote")]
     assert tout.count("[check] OK") == 3
-    with pytest.raises(NotImplementedError, match="A14b"):
-        TCLI.main(["--arch", "rwkv6_7b", "--budget", "floor"])
+    # the families once refused plan too (rwkv6-7b: tests/test_torch_rwkv.py)
+    assert TCLI.main(["--arch", "rwkv6_7b", "--budget", "floor"]) == 0
+    assert "[plan]" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------- sparse_embedding

@@ -337,15 +337,23 @@ def test_plan_errors_match_reference():
             assert (got is None) == (want is None)
             assert got is None or tuple(got.shape) == tuple(want.shape)
     assert TP.measure_aux_bytes(state) == plan.predicted_aux_bytes
-    # registry models plan now; the families the port lacks name A14b
+    # every registry model plans: rwkv6-7b's plan JSON equals the
+    # reference's, at its floor and at its 57 GB config budget
+    from repro import configs as jconfigs
+    from repro.plan import cli as jcli
     from repro_torch import configs
     from repro_torch.plan import cli
     rwkv = configs.get("rwkv6_7b")
-    for call in (lambda: cli.params_shapes_for_config(rwkv),
-                 lambda: cli.plan_for_config(rwkv, "floor"),
-                 lambda: cli.main(["--arch", "rwkv6_7b"])):
-        with pytest.raises(NotImplementedError, match="A14"):
-            call()
+    assert rwkv.aux_budget_bytes == 57_000_000_000
+    ps = cli.params_shapes_for_config(rwkv)
+    assert sum(x.numel() for x in jax.tree_util.tree_leaves(ps)) == \
+        7_534_546_944
+    assert all(x.device.type == "meta"
+               for x in jax.tree_util.tree_leaves(ps))
+    for budget in ("floor", "config"):
+        got = cli.plan_for_config(rwkv, budget)
+        want = jcli.plan_for_config(jconfigs.get("rwkv6_7b"), budget)
+        assert got.to_json() == want.to_json()
     for text, want in (("0.25x", 250), ("floor", 7), ("512MiB", 512 << 20),
                        ("8.6GB", 8_600_000_000), ("123", 123)):
         assert TP.parse_budget(text, dense_bytes=1000, floor_bytes=7) == \

@@ -334,11 +334,12 @@ own line; any failure raises and the exit code is not 0:
      kernel_backend="auto")`` at lr 1e-3 for 10 steps through
      ``Trainer``: B3 exactly 4 launches a step, finite losses and
      params; ms a step, peak memory, state bytes and the dropped
-     assignments a step; 3 steps under the profiler; the same batches
-     from the same start (drawn again from the seed) through plain
-     ``xla``: losses within rtol 1e-4, params and state within rtol
-     1e-4/atol 1e-5 of a host copy of the first run's (printed: equal to
-     the bit); the ``auto`` arm again: the same bits; ``dense_adam`` and
+     assignments a step; 3 steps under the profiler; the first 5 of the
+     same batches from the same start (drawn again from the seed) through
+     plain ``xla``: losses within rtol 1e-4, params and state within rtol
+     1e-4/atol 1e-5 of a host copy of the first run's state after 5
+     steps (printed: equal to the bit); the ``auto`` arm again for 5
+     steps: the same bits; ``dense_adam`` and
      ``cs_adam_v`` 10 steps each: state bytes and peak memory against
      ``cs_adam``'s, each passing the window check (w = 3: over the first
      steps, Adam at lr 1e-3 overshoots at this width, the loss rising
@@ -374,10 +375,12 @@ own line; any failure raises and the exit code is not 0:
      ``make_train_step(cfg, optimizer="cs_adam", kernel_backend="auto")``
      at lr 1e-3 for 10 steps through ``Trainer``: B3 exactly 4 launches a
      step, finite losses and params; ms a step, peak memory, state bytes;
-     3 steps under the profiler; the same batches from the same start
-     (drawn again from the seed; the first run's state waits on the host)
-     through plain ``xla`` and through ``auto`` again: losses, params and
-     state equal to the bit; ``dense_adam`` and ``cs_adam_v`` 10 steps
+     3 steps under the profiler; the first 5 of the same batches from
+     the same start (drawn again from the seed; the first run's state
+     after 5 steps waits on the host) through plain ``xla`` and through
+     ``auto`` again: losses, params and state equal to the bit (the
+     witness arms of 15e-17c run 5 steps, which makes room for phase
+     18); ``dense_adam`` and ``cs_adam_v`` 10 steps
      each, state bytes and peak memory against ``cs_adam``'s, each
      passing the window check (w = 3); ``cs_adam``'s windows printed
      (its sketched first moment rises, ROADMAP C).  16b: whisper-medium
@@ -428,7 +431,9 @@ own line; any failure raises and the exit code is not 0:
      (``src/repro/configs/zamba2_2_7b.py``: 54 Mamba2 layers, d_model
      2,560, 80 SSM heads of 64, state 64, one shared attention block of
      32 heads of 80 before every 6 layers, two 32,000 x 2,560 tables)
-     trained whole as 17a.  17d: zamba2-2.7b served whole as 17b (the 9 sites' KV caches
+     cut to 24 of its 54 layers (4 of its 9 groups; whole, it took the
+     smoke past its time limit once phase 18 joined it) and trained as
+     17a.  17d: zamba2-2.7b served whole as 17b (the 9 sites' KV caches
      written in place).  17e: ``launch.train.main``
      with ``--workload lm --arch zamba2_2_7b`` at full width at the
      launcher's defaults, 3 steps on ``--store-backend auto`` (exit 0,
@@ -437,6 +442,34 @@ own line; any failure raises and the exit code is not 0:
      the launcher, as the reference's, has no flag that cuts layers; its
      512-row tables are not sketched, so no B3): exit 0, finite losses.  ``--phases
      17`` runs phase 17 alone.
+ 18. the last modules (the tensors of earlier phases' results are
+     dropped first).  18a: the dry run (``launch.dryrun.trace_cell``) of
+     qwen2-0.5b's ``train_4k`` and ``decode_32k`` cells on the ``meta``
+     device in this process: the FLOPs and argument bytes the CPU's
+     trace gives (``P18_META``; the bytes printed beside the CPU's),
+     ``train_4k``'s FLOPs 256 x the ``flops_per_device`` of the
+     reference's record (``experiments/dryrun/single``); the real params,
+     CS-Adam state and ``train_4k`` batch on the card, whose ``nbytes``
+     must sum to the record's argument bytes
+     (``torch.cuda.memory_allocated`` printed beside); one step of 4 x
+     2,048 tokens on ``auto`` counted by ``op_cost.OpCost`` on the card:
+     B3 4 launches, FLOPs equal to its meta trace's; its time (CUDA
+     events, 3 steps) beside the roofline bound.  18b:
+     ``launch.breakdown --device cuda`` on that cell at that batch: the
+     heaviest rows with their device ms.  18c: A13d, the launcher's
+     ``sparse_embedding`` at its default sizes on ``ReplicaMesh``
+     threads, 1 x 4 in the width layout and 1 x 2 in the hash layout,
+     with ``--metrics-dir``, ``--probe-rows 16``, 10 steps and
+     ``--log-every 5``: exit 0, the records validate, each ``table``
+     record equals to the bit what one ``TableMonitor`` in this thread
+     computes on the state gathered at that boundary
+     (``sharding.global_tree``), B5 in slab mode and its CSR launched,
+     no B1; the gather's ms on replica 0.  18d: the four
+     ``examples_torch/`` scripts as subprocesses at their smoke sizes,
+     all started together (``--example-child``: the script, then its
+     launch counts): each exits 0 and prints ``device: cuda``;
+     quickstart, train_lm_100m and elastic_recovery launch B3 (printed).
+     ``--phases 18`` runs phase 18 alone.
 
 The CUDA caching allocator runs with ``expandable_segments:True`` (set
 in ``PYTORCH_CUDA_ALLOC_CONF`` unless the caller set it): phase 15's
@@ -452,7 +485,8 @@ time.  It prints the kernels' JSON line (each path's launches beside the
 total: ``launches_dp_path`` is phase 12's, ``launches_sharded_path``
 phase 13's, ``launches_placement_path`` phase 14's,
 ``launches_a14b_path`` phase 15's, ``launches_a14b_part3_path``
-phase 16's, ``launches_a14b_part4_path`` phase 17's; B3's row also its
+phase 16's, ``launches_a14b_part4_path`` phase 17's,
+``launches_slice17_path`` phase 18's; B3's row also its
 times at whisper's, internvl2's, rwkv6's and zamba2's tables), the
 card's name and power limit and, last, ``{"ok": true, "device":
 {...}}``.  With no card it prints no result and exits 2.
@@ -3519,15 +3553,21 @@ class LMRun:
         return TrainState(step=0, params=params,
                           opt_state=ts.optimizer.init(params))
 
-    def fit(self, ts, steps: int, state=None, ckpt_dir=None, restore=False):
+    def fit(self, ts, steps: int, state=None, ckpt_dir=None, restore=False,
+            snapshot=None):
         """Run ``ts`` through a ``Trainer`` to ``steps``; returns (final
         state, per-step losses, per-step device ms, launches, the arm's
-        peak memory above what was allocated before it)."""
+        peak memory above what was allocated before it).  ``snapshot``:
+        after that many steps the params and state are copied to the
+        host, into ``self.snapshot``."""
         import torch
         from repro_torch.train.trainer import Trainer, TrainerConfig
         events = []
 
         def timed(params, opt_state, batch):
+            if snapshot is not None and len(events) == snapshot:
+                self.snapshot = to_host({"params": params,
+                                         "opt_state": opt_state})
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -5240,6 +5280,10 @@ MOE_LAYERS = 4
 # every arm runs 10 steps, so the window check's w is 3: the first Adam
 # steps at lr 1e-3 overshoot (the loss rises, then falls below its start)
 MOE_STEPS = 10
+# the witness arms of phases 15-17 (plain xla, and the auto arm again)
+# run the first 5 of those steps and are held to the auto arm's state
+# after them: at 10 steps each the smoke would pass its time limit
+WITNESS_STEPS = 5
 
 
 def p15_extreme_argv(dev, seed: int, steps: int, *extra) -> list:
@@ -5614,7 +5658,8 @@ def phase_moe_train(dev, seed: int) -> dict:
     ts = run.step()
     t_arm = time.perf_counter()
     with DropCount() as drops:
-        state, losses, ms, counts, peak, _ = run.fit(ts, MOE_STEPS)
+        state, losses, ms, counts, peak, _ = run.fit(
+            ts, MOE_STEPS, snapshot=WITNESS_STEPS)
     add_counts(totals, counts)
     step_ms = statistics.median(ms[1:])
     cs_bytes = (measure_aux_bytes(state.opt_state),
@@ -5640,10 +5685,7 @@ def phase_moe_train(dev, seed: int) -> dict:
             bool(torch.isfinite(t).all())
             for _p, t in leaf_paths(state.params))):
         raise AssertionError("15e: non-finite loss or params")
-    t0 = time.perf_counter()
-    host = to_host({"params": state.params, "opt_state": state.opt_state})
-    log(f"phase 15e: the final state copied to the host in "
-        f"{time.perf_counter() - t0:.1f} s")
+    host, run.snapshot = run.snapshot, None
     p, s = state.params, state.opt_state
     del state
     more = [{k: torch.as_tensor(v).to(dev) for k, v in
@@ -5659,31 +5701,34 @@ def phase_moe_train(dev, seed: int) -> dict:
     torch.cuda.empty_cache()
     t_arm = time.perf_counter()
 
-    # the plain xla witness from the same start on the same batches
+    # the plain xla witness from the same start on the same batches, held
+    # to the auto arm's state after as many steps
     w_state, w_losses, w_ms, w_counts, _, _ = run.fit(
-        run.step(backend="xla"), MOE_STEPS)
+        run.step(backend="xla"), WITNESS_STEPS)
     add_counts(totals, w_counts)
-    torch.testing.assert_close(torch.tensor(losses), torch.tensor(w_losses),
+    head = losses[:WITNESS_STEPS]
+    torch.testing.assert_close(torch.tensor(head), torch.tensor(w_losses),
                                rtol=WITNESS_TOL["rtol"], atol=0.0)
     err_p, bits_p = host_compare(w_state.params, host["params"])
     err_s, bits_s = host_compare(w_state.opt_state, host["opt_state"])
     log(f"phase 15e: plain xla: ms/step median "
         f"{statistics.median(w_ms[1:])}; launches {w_counts}; losses max "
         f"rel diff "
-        f"{max(abs(a - b) / abs(b) for a, b in zip(losses, w_losses))}, "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(head, w_losses))}, "
         f"params max_abs_err {err_p}, state {err_s} (rtol "
-        f"{WITNESS_TOL['rtol']}, atol {WITNESS_TOL['atol']}); equal to the "
-        f"bit: {w_losses == losses and bits_p and bits_s}; "
+        f"{WITNESS_TOL['rtol']}, atol {WITNESS_TOL['atol']}) after "
+        f"{WITNESS_STEPS} steps; equal to the bit: "
+        f"{w_losses == head and bits_p and bits_s}; "
         f"{time.perf_counter() - t_arm:.1f} s with the comparison")
     del w_state
     torch.cuda.empty_cache()
 
-    # the auto arm again
-    r_state, r_losses, _, r_counts, _, _ = run.fit(ts, MOE_STEPS)
+    # the auto arm again, as many steps
+    r_state, r_losses, _, r_counts, _, _ = run.fit(ts, WITNESS_STEPS)
     add_counts(totals, r_counts)
     _, bits_p = host_compare(r_state.params, host["params"])
     _, bits_s = host_compare(r_state.opt_state, host["opt_state"])
-    if not (r_losses == losses and bits_p and bits_s):
+    if not (r_losses == head and bits_p and bits_s):
         raise AssertionError("15e: the auto arm run twice gave other bits")
     log("phase 15e: the auto arm run again: losses, params and state equal "
         "to the bit")
@@ -5893,6 +5938,11 @@ HYBRID_ARCH = "zamba2_2_7b"        # src/repro/configs/zamba2_2_7b.py:12-18
 # updates), 5.25 GB a layer, so 8 layers (42.0 GB) and the two 65,536 x
 # 4,096 tables (8.6 GB) fit one card where 32 (about 120 GB) do not
 RWKV_TRAIN_LAYERS = 8
+# zamba2-2.7b trains at 24 of its 54 layers (4 of its 9 groups, each the
+# shared attention block and 6 Mamba2 layers): whole, its arms took 199 s
+# of a smoke that reached 1,201 s of its 1,200 once phase 18 joined it
+# (NVIDIA H100 80GB HBM3, 700 W)
+HYBRID_TRAIN_LAYERS = 24
 # (prompt tokens, max_seq): 128 prompt tokens (two chunks of 64: the
 # chunked prefill), 64 decoded and 3 more under the profiler
 P17_SERVE = {RWKV_ARCH: (128, 192), HYBRID_ARCH: (128, 192)}
@@ -5994,7 +6044,8 @@ def phase_family_train(dev, seed: int, arch: str, tag: str,
     totals: dict = {}
     ts = run.step()
     t_arm = time.perf_counter()
-    state, losses, ms, counts, peak, _ = run.fit(ts, P16_STEPS)
+    state, losses, ms, counts, peak, _ = run.fit(ts, P16_STEPS,
+                                                 snapshot=WITNESS_STEPS)
     add_counts(totals, counts)
     step_ms = statistics.median(ms[1:])
     cs_bytes = (measure_aux_bytes(state.opt_state),
@@ -6012,10 +6063,7 @@ def phase_family_train(dev, seed: int, arch: str, tag: str,
             bool(torch.isfinite(t).all())
             for _p, t in leaf_paths(state.params))):
         raise AssertionError(f"{tag}: non-finite loss or params")
-    t0 = time.perf_counter()
-    host = to_host({"params": state.params, "opt_state": state.opt_state})
-    log(f"phase {tag}: the final state copied to the host in "
-        f"{time.perf_counter() - t0:.1f} s")
+    host, run.snapshot = run.snapshot, None
     p, s = state.params, state.opt_state
     del state
     n_prof = PROFILED_STEPS.get(arch, 3)
@@ -6032,19 +6080,20 @@ def phase_family_train(dev, seed: int, arch: str, tag: str,
     torch.cuda.empty_cache()
 
     # the plain xla witness and the auto arm again, from the same start
-    # (drawn again from the seed) on the same batches: the same bits
+    # (drawn again from the seed) on the same batches: the same bits as
+    # the auto arm after as many steps
     for arm, backend in (("plain xla", "xla"), ("auto again", "auto")):
         t_arm = time.perf_counter()
         w_state, w_losses, w_ms, w_counts, _, _ = run.fit(
-            run.step(backend=backend), P16_STEPS)
+            run.step(backend=backend), WITNESS_STEPS)
         add_counts(totals, w_counts)
         err_p, bits_p = host_compare(w_state.params, host["params"])
         err_s, bits_s = host_compare(w_state.opt_state, host["opt_state"])
-        bits = w_losses == losses and bits_p and bits_s
+        bits = w_losses == losses[:WITNESS_STEPS] and bits_p and bits_s
         log(f"phase {tag}: {arm}: ms/step median "
             f"{statistics.median(w_ms[1:])}; launches {w_counts}; params "
             f"max_abs_err {err_p}, state {err_s}; losses, params and state "
-            f"equal to the bit: {bits}; "
+            f"after {WITNESS_STEPS} steps equal to the bit: {bits}; "
             f"{time.perf_counter() - t_arm:.1f} s with the comparison")
         del w_state
         torch.cuda.empty_cache()
@@ -6358,7 +6407,7 @@ def phase_a14b_part4(dev, seed: int, held: int = 0):
     b3 = time_ema_tables(dev, seed, (RWKV_ARCH, HYBRID_ARCH), tag="17")
     for arch, layers, train_tag, serve_tag in (
             (RWKV_ARCH, RWKV_TRAIN_LAYERS, "17a", "17b"),
-            (HYBRID_ARCH, None, "17c", "17d")):
+            (HYBRID_ARCH, HYBRID_TRAIN_LAYERS, "17c", "17d")):
         add_counts(totals, phase_family_train(dev, seed, arch, train_tag,
                                               layers))
         torch.cuda.empty_cache()
@@ -6368,6 +6417,324 @@ def phase_a14b_part4(dev, seed: int, held: int = 0):
                                              P17_LAUNCHES))
     log(f"phase 17: launches of the path {totals}")
     return totals, b3
+
+
+# ---------------------------------------------------------------- phase 18
+P18_ARCH = "qwen2_0_5b"
+# (FLOPs, bytes, argument bytes) of the dry run's qwen2-0.5b cells on one
+# card, traced on the CPU's meta device (tests/test_torch_dryrun.py holds
+# the same numbers there)
+P18_META = {"train_4k": (5_586_756_019_683_328, 269_513_461_305_048,
+                         5_832_645_124),
+            "decode_32k": (487_231_324_160, 503_582_576_100,
+                           54_060_277_764)}
+P18_STEPS, P18_LOG_EVERY = 10, 5
+# the four torch examples at their smoke sizes (each a subprocess)
+P18_EXAMPLES = (("quickstart", ()),
+                ("train_lm_100m", ("--small", "--steps", "20")),
+                ("elastic_recovery", ()),
+                ("serve_decode", ("--arch", "yi_9b")),
+                ("serve_decode", ("--arch", "rwkv6_7b")))
+P18_TIMEOUT = 400.0            # s for one example
+
+
+def example_child(argv) -> int:
+    """``--example-child SCRIPT ARGS``: the example as ``python SCRIPT
+    ARGS`` runs it, then the kernels' launch counts of the run as
+    ``[counts] {json}``."""
+    import runpy
+    reset_counts()
+    sys.argv = list(argv)
+    rc = 0
+    try:
+        runpy.run_path(argv[0], run_name="__main__")
+    except SystemExit as e:
+        rc = 0 if e.code is None else e.code
+    print("[counts] " + json.dumps(read_counts()), flush=True)
+    return rc
+
+
+def phase_p18_dryrun(dev, seed: int) -> None:
+    """18a: the dry run in this process: qwen2-0.5b ``train_4k`` and
+    ``decode_32k`` traced on ``meta`` (the same counts as on the CPU; the
+    train cell's FLOPs 256 x the reference record's a device); the
+    meta record's argument bytes against the real params, CS-Adam state
+    and batch on the card; one step at a batch the card holds counted
+    under ``op_cost`` on the card (B3 launched), equal in FLOPs to its
+    meta trace, its time beside the roofline bound."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import ZipfLM, ZipfLMConfig
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.train.steps import make_train_step
+    cfg = configs.get(P18_ARCH)
+    ref = json.loads((ROOT / "experiments" / "dryrun" / "single"
+                      / f"{P18_ARCH}__train_4k.json").read_text())
+    for name, (flops, nbytes, args) in P18_META.items():
+        t0 = time.perf_counter()
+        cost, _ps, _tok, _kind, info = dryrun.trace_cell(
+            cfg, configs.SHAPES[name])
+        log(f"phase 18a: {P18_ARCH} {name} on meta in "
+            f"{time.perf_counter() - t0:.1f} s: {cost.flops} FLOPs "
+            f"(the CPU's {flops}), {cost.bytes} bytes (the CPU's {nbytes}, "
+            f"equal {cost.bytes == nbytes}), argument bytes "
+            f"{info['argument_bytes']} (the CPU's {args})")
+        if cost.flops != flops or info["argument_bytes"] != args:
+            raise AssertionError(f"18a: the {name} trace differs from the "
+                                 f"CPU's")
+    want = 256 * ref["roofline"]["flops_per_device"]
+    log(f"phase 18a: train_4k FLOPs {P18_META['train_4k'][0]} against 256 x "
+        f"the reference record's {ref['roofline']['flops_per_device']} = "
+        f"{want}")
+    if P18_META["train_4k"][0] != want:
+        raise AssertionError("18a: train_4k FLOPs are not the reference's")
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ts = make_train_step(cfg, optimizer="cs_adam", lr=LM_LR,
+                         kernel_backend="auto", device=dev)
+    params = ts.init_fn(torch.Generator(device=dev).manual_seed(seed))
+    state = ts.optimizer.init(params)
+    full = {k: torch.zeros(tuple(v.shape), dtype=v.dtype, device=dev)
+            for k, v in configs.train_batch_specs(
+                cfg, configs.SHAPES["train_4k"]).items()}
+    real = sum(analysis.tree_nbytes(t) for t in (params, state, full))
+    log(f"phase 18a: the real params, CS-Adam state and train_4k batch on "
+        f"the card: {real} B by nbytes against the meta record's "
+        f"{P18_META['train_4k'][2]}; torch.cuda.memory_allocated "
+        f"{torch.cuda.memory_allocated() - base} B above the phase's start")
+    if real != P18_META["train_4k"][2]:
+        raise AssertionError("18a: the meta argument bytes are not the "
+                             "real tensors' nbytes")
+    del full
+
+    shape = configs.ShapeConfig("train_4k@card", "train", LM_SEQ, LM_BATCH)
+    meta, ps, tokens, _kind, _info = dryrun.trace_cell(
+        cfg, shape, store_backend="auto")
+    data = ZipfLM(ZipfLMConfig(vocab_size=cfg.vocab, seq_len=LM_SEQ,
+                               global_batch=LM_BATCH, seed=seed))
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in data.batch(0).items()}
+    ts.step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    before = read_counts()
+    with OpCost() as card:
+        ts.step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    b3 = read_counts()["cs_ema_tiled"] - before["cs_ema_tiled"]
+    ms = cuda_ms(lambda: ts.step_fn(params, state, batch), reps=3,
+                 warmup=0)
+    peak = torch.cuda.max_memory_allocated() - base
+    roof = dryrun.roofline(cfg, meta, ps, tokens, "train", 1)
+    log(f"phase 18a: one step of {LM_BATCH} x {LM_SEQ} tokens on the card "
+        f"under op_cost: {card.flops} FLOPs, {card.bytes} bytes, B3 "
+        f"{b3}; on meta {meta.flops} FLOPs, {meta.bytes} bytes")
+    log(f"phase 18a: the step {ms} ms (CUDA events, mean of 3) against the "
+        f"roofline bound {roof.step_s * 1e3} ms ({roof.dominant}: compute "
+        f"{roof.compute_s * 1e3} ms at {analysis.PEAK_FLOPS_BF16:.4g} "
+        f"FLOP/s, memory {roof.memory_s * 1e3} ms of unfused bytes at "
+        f"{analysis.HBM_BW:.4g} B/s); model FLOPs "
+        f"{roof.model_flops_per_device}, "
+        f"{roof.model_flops_per_device / (ms * 1e-3) / 1e12} TFLOP/s; "
+        f"memory {json.dumps(analysis.memory_dict(real, peak))} (the peak "
+        f"measured by torch.cuda.max_memory_allocated above the start)")
+    if card.flops != meta.flops or b3 != 4:
+        raise AssertionError(f"18a: the card's step counted {card.flops} "
+                             f"FLOPs and B3 {b3} times; meta {meta.flops}, "
+                             f"B3 4")
+
+
+def phase_p18_breakdown() -> None:
+    """18b: ``launch.breakdown --device cuda`` on 18a's cell at 18a's
+    batch."""
+    import contextlib
+    import io
+    from repro_torch.launch import breakdown
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = breakdown.main(["--arch", P18_ARCH, "--shape", "train_4k",
+                             "--device", "cuda", "--batch", str(LM_BATCH),
+                             "--seq", str(LM_SEQ), "--store-backend", "auto",
+                             "--kind", "all", "--top", "8"])
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            log(f"phase 18b: {line}")
+    if rc != 0:
+        raise AssertionError(f"18b: breakdown exited {rc}")
+
+
+def one_monitor_records(mon, gathered, steps) -> list:
+    """The records one fresh copy of the launcher's ``mon`` computes in
+    this thread on each gathered state at its step, through the JSON the
+    writer writes."""
+    out, last = [], 0
+    for st, step in zip(gathered, steps):
+        fresh = dataclasses.replace(mon, getter=None)
+        fresh._keys = fresh._host = fresh._pending = None
+        fresh._last_step = last
+        fresh.collect(st, step)
+        out.append(json.loads(json.dumps(fresh.flush())))
+        last = step
+    return out
+
+
+def phase_p18_monitors(dev, seed: int) -> None:
+    """18c: A13d.  The launcher's ``sparse_embedding`` at its default
+    sizes on ``ReplicaMesh`` threads, 1 x 4 in the width layout and 1 x 2
+    in the hash layout, with ``--metrics-dir`` and ``--probe-rows 16``,
+    10 steps, ``--log-every 5``: every replica gathers the slabs at each
+    boundary, replica 0 writes.  The records validate, and each ``table``
+    record equals to the bit what one monitor in this thread computes
+    on the gathered state; the gather's ms."""
+    import argparse
+    import contextlib
+    import io
+    import torch
+    from repro_torch.distributed import ReplicaMesh
+    from repro_torch.launch import train
+    from repro_torch.obs import validate_file
+    for shape, layout in (((1, 4), "width"), ((1, 2), "hash")):
+        out_dir = ROOT / "build" / f"metrics-18c-{layout}"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        argv = ["--workload", "sparse_embedding", "--steps", str(P18_STEPS),
+                "--log-every", str(P18_LOG_EVERY), "--probe-rows", "16",
+                "--metrics-dir", str(out_dir), "--seed", str(seed),
+                "--sketch-shards", str(shape[1]), "--shard-layout", layout]
+        if dev.type == "cpu":
+            argv += ["--device", "cpu"]
+        args = train.parser().parse_args(argv)
+        _shape, grid = train.grid_shapes(args, shape[0] * shape[1])
+        mesh = ReplicaMesh(shape, timeout=GROUP_TIMEOUT)
+        monitors, gathered, gather_ms = [], [], []
+        make, gather = train.make_observer, train.shd.global_tree
+
+        def make_observer(a, meta, mons=(), *rest, **kw):
+            if mesh.rank == 0:
+                monitors.extend(mons)
+            return make(a, meta, mons, *rest, **kw)
+
+        def global_tree(tree, placement):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = gather(tree, placement)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            if mesh.rank == 0:
+                gather_ms.append((time.perf_counter() - t0) * 1e3)
+                gathered.append(clone_tree(got))
+            return got
+
+        def replica():
+            a = argparse.Namespace(**vars(args))
+            a.rank = mesh.rank
+            return train.run_sparse_embedding(a, dev, mesh, grid)
+
+        before = read_counts()
+        buf = io.StringIO()
+        train.make_observer, train.shd.global_tree = make_observer, global_tree
+        try:
+            with contextlib.redirect_stdout(buf):   # one redirect, all threads
+                rcs = mesh.run(replica, [()] * mesh.size)
+        finally:
+            train.make_observer, train.shd.global_tree = make, gather
+        after = read_counts()
+        counts = {k: after[k] - before[k] for k in after}
+        recs = [{k: v for k, v in r.items() if k not in ("schema", "kind")}
+                for r in validate_file(out_dir / "metrics.jsonl")
+                if r["kind"] == "table"]
+        steps = [r["step"] for r in recs]
+        mine = one_monitor_records(monitors[0], gathered, steps)
+        lines = [l for l in buf.getvalue().splitlines()
+                 if l.startswith("[train]")]
+        log(f"phase 18c: {shape[0]} x {shape[1]} {layout}: exit codes {rcs}; "
+            f"{lines[-1] if lines else ''}; table records at steps {steps}, "
+            f"each equal to one monitor on the gathered state: "
+            f"{recs == mine}; the gather's ms on replica 0 {gather_ms}; "
+            f"gathered v {tuple(gathered[0]['v'].shape)}; launches {counts}")
+        log(f"phase 18c: last table record {json.dumps(recs[-1])}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        if any(rc != 0 for rc in rcs) or recs != mine \
+                or steps != [P18_LOG_EVERY, P18_STEPS]:
+            raise AssertionError(f"18c: the {layout} run's table records "
+                                 f"are not the gathered tables'")
+        if dev.type == "cuda" and (counts["cs_update"] == 0
+                                   or counts["bucket_csr"] == 0
+                                   or counts["cs_adam_tiled"]):
+            raise AssertionError("18c: the sharded run did not write slabs "
+                                 "through B5 alone")
+
+
+def phase_p18_examples(dev) -> dict:
+    """18d: the four ``examples_torch/`` scripts as subprocesses on the
+    card at their smoke sizes, all started together: each must exit 0
+    and print its device; their kernels' launches."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    try:
+        for name, extra in P18_EXAMPLES:
+            cmd = [sys.executable, str(ROOT / "chip_smoke.py"),
+                   "--example-child",
+                   str(ROOT / "examples_torch" / f"{name}.py"), *extra]
+            if dev.type == "cpu":
+                cmd += ["--device", "cpu"]
+            procs.append((name, extra, subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        totals: dict = {}
+        failed = []
+        for name, extra, p in procs:
+            out, _ = p.communicate(timeout=P18_TIMEOUT)
+            lines = out.splitlines()
+            counts = next((json.loads(l[len("[counts] "):]) for l in lines
+                           if l.startswith("[counts] ")), {})
+            add_counts(totals, counts)
+            first = next((l for l in lines if l.startswith("device: ")), "")
+            tail = [l for l in lines if not l.startswith("[counts]")][-3:]
+            log(f"phase 18d: {name} {' '.join(extra)}: exit {p.returncode}; "
+                f"{first}; B3 launches {counts.get('cs_ema_tiled')}; "
+                f"{' | '.join(tail)}")
+            want = dev.type
+            if p.returncode != 0 or not first.startswith(f"device: {want}") \
+                    or (dev.type == "cuda" and name != "serve_decode"
+                        and not counts.get("cs_ema_tiled")):
+                failed.append(name)
+                log(f"phase 18d: {name} output: {out[-3000:]}")
+    finally:
+        for _n, _e, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError(f"18d: {failed} failed")
+    return totals
+
+
+def phase_slice17(dev, seed: int, held: int = 0) -> dict:
+    """Phase 18: the dry run and its cost tooling in the card's process
+    (18a, 18b), the table monitors under a sharded grid (18c) and the
+    torch examples (18d).  Returns the launches of the path."""
+    import torch
+    log(f"phase 18: {held} B allocated on the card as it starts")
+    reset_counts()
+    t0 = time.perf_counter()
+    phase_p18_dryrun(dev, seed)
+    torch.cuda.empty_cache()
+    log(f"phase 18a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_p18_breakdown()
+    torch.cuda.empty_cache()
+    log(f"phase 18b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_p18_monitors(dev, seed)
+    log(f"phase 18c: {time.perf_counter() - t0:.1f} s")
+    totals = read_counts()
+    t0 = time.perf_counter()
+    add_counts(totals, phase_p18_examples(dev))
+    log(f"phase 18d: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 18: launches of the path {totals}")
+    return totals
 
 
 def main(argv=None) -> int:
@@ -6384,6 +6751,8 @@ def main(argv=None) -> int:
                           "expandable_segments:True")
     if argv[:1] == ["--launcher-child"]:
         return launcher_child(argv[1:])
+    if argv[:1] == ["--example-child"]:
+        return example_child(argv[1:])
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6442,6 +6811,7 @@ def main(argv=None) -> int:
         ("15", lambda: phase_a14b(dev, args.seed, release(out))),
         ("16", lambda: phase_a14b_part3(dev, args.seed, release(out))),
         ("17", lambda: phase_a14b_part4(dev, args.seed, release(out))),
+        ("18", lambda: phase_slice17(dev, args.seed, release(out))),
     ]
     if args.phases:
         keep = args.phases.split(",")
@@ -6482,6 +6852,9 @@ def main(argv=None) -> int:
     # 17a-e: the rwkv6 and hybrid training arms and launcher runs, and B3
     # at their tables
     part4, b3_tables4 = out["17"]
+    # 18a-d: the dry run's step on the card, breakdown, the sharded
+    # monitors' runs and the examples
+    slice17 = out["18"]
     launches = {"cs_adam_tiled": (out["3"][4]["cs_adam_tiled"]
                                   + placed["cs_adam_tiled"]
                                   + extreme["cs_adam_tiled"]
@@ -6524,7 +6897,7 @@ def main(argv=None) -> int:
                                + lm_b3["bucket_csr"])}
     for name in launches:
         launches[name] += (a14b.get(name, 0) + part3.get(name, 0)
-                           + part4.get(name, 0))
+                           + part4.get(name, 0) + slice17.get(name, 0))
     for row in kernels:
         row.setdefault("launches", launches.get(row["name"]))
         if row["name"] == "cs_adam_tiled":
@@ -6554,6 +6927,8 @@ def main(argv=None) -> int:
         row["launches_a14b_part3_path"] = part3.get(row["name"], 0)
         # the A14b part 4 path (17a-e), in the total above as well
         row["launches_a14b_part4_path"] = part4.get(row["name"], 0)
+        # the slice 17 path (18a-d), in the total above as well
+        row["launches_slice17_path"] = slice17.get(row["name"], 0)
         if row["name"] == "cs_ema_tiled":
             row["at_whisper_tables"] = b3_tables[ENCDEC_ARCH]
             row["at_internvl2_tables"] = b3_tables[VLM_ARCH]

@@ -131,19 +131,6 @@ class _PlacedWrite:
         self.mesh.barrier()
 
 
-def _global_leaves(tree, shardings) -> List[Tuple[str, Any]]:
-    """``tree``'s leaves, each placed one gathered into its global tensor
-    (a collective every replica makes in the same order)."""
-    from repro_torch.distributed.sharding import global_leaf
-    out = []
-    for (path, leaf), spec in zip(_flatten(tree),
-                                  shardings.spec_leaves(tree)):
-        if isinstance(leaf, torch.Tensor) and spec:
-            leaf = global_leaf(leaf, spec, shardings.mesh)
-        out.append((path, leaf))
-    return out
-
-
 def save(ckpt_dir, step: int, tree, *, async_: bool = False, keep: int = 3,
          extra: Optional[Dict[str, Any]] = None, shardings=None):
     """Write ``tree`` as step-<step>; returns the writer thread when
@@ -156,12 +143,12 @@ def save(ckpt_dir, step: int, tree, *, async_: bool = False, keep: int = 3,
     the others wait for it at the mesh's barrier.  With ``async_`` every
     replica gets a handle whose ``join`` does that wait."""
     if shardings is not None:
-        flat = _global_leaves(tree, shardings)
+        from repro_torch.distributed.sharding import global_tree
+        tree = global_tree(tree, shardings)
         writer = None
         if shardings.is_writer():
-            writer = save(ckpt_dir, step, _rebuild(
-                tree, iter(leaf for _p, leaf in flat)), async_=async_,
-                keep=keep, extra=extra)
+            writer = save(ckpt_dir, step, tree, async_=async_, keep=keep,
+                          extra=extra)
         if async_:
             return _PlacedWrite(writer, shardings.mesh)
         shardings.mesh.barrier()

@@ -25,9 +25,9 @@ description, the launcher's grid over its processes) or an object with
 the reference's ``devices.shape``.  ``local_block(x, spec, mesh,
 coords)`` is one replica's block of a global tensor, the counterpart of
 ``device_put`` with a ``NamedSharding``; ``global_leaf`` gathers it back
-over the mesh's axes.  A ``Placement`` (spec tree, mesh, this replica's
-coordinates) is what ``checkpoint.store.save`` and ``restore`` take as
-``shardings``.
+over the mesh's axes (``global_tree`` a whole tree).  A ``Placement``
+(spec tree, mesh, this replica's coordinates) is what
+``checkpoint.store.save`` and ``restore`` take as ``shardings``.
 
 The reference's mesh and tracing helpers have no counterpart here
 (``make_mesh_compat``, ``shard_map_compat``, ``named``,
@@ -433,6 +433,19 @@ def global_leaf(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
             parts = mesh.axis(a).all_gather(t)
             t = torch.cat(list(parts.unbind(0)), dim=dim)
     return t
+
+
+def global_tree(tree, placement: "Placement"):
+    """``tree`` with each placed leaf gathered into its global tensor
+    (``global_leaf``), a collective every replica makes in the same
+    order; the other leaves as they are."""
+    out = []
+    for (_path, leaf), spec in zip(_flatten(tree),
+                                   placement.spec_leaves(tree)):
+        if isinstance(leaf, torch.Tensor) and spec:
+            leaf = global_leaf(leaf, spec, placement.mesh)
+        out.append(leaf)
+    return _rebuild(tree, iter(out))
 
 
 @dataclasses.dataclass

@@ -38,7 +38,7 @@ def cs_adam_fused(M: Optional[torch.Tensor], V: torch.Tensor,
     """Streaming CS-Adam over ``k`` items, duplicates allowed.  Same
     arguments as ``cs_adam_tiled.cs_adam_tiled`` without ``n_valid``.
     M and V are updated IN PLACE.  Returns ``(M, V, upd)``."""
-    if V.device.type == "cpu":
+    if V.device.type in ref.PLAIN_DEVICES:
         return ref.adam_fused_ref(M, V, bm, sm, bv, g, lr=lr, b1=b1, b2=b2,
                                   eps=eps, bc1=bc1, bc2=bc2)
     dev = V.device

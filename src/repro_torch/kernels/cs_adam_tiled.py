@@ -109,7 +109,7 @@ def cs_adam_tiled(M: Optional[torch.Tensor], V: torch.Tensor,
     first_pos)``, (k,) int32 each; the update then comes back per input
     position (``dedup.scatter_back``'s layout), else per row of g.  M and
     V are updated IN PLACE.  Returns ``(M, V, upd)``."""
-    if V.device.type == "cpu":
+    if V.device.type in ref.PLAIN_DEVICES:
         M, V, upd = cs_adam_tiled_plain(M, V, bm, sm, bv, g, lr=lr, b1=b1,
                                         b2=b2, eps=eps, bc1=bc1, bc2=bc2,
                                         n_valid=n_valid)

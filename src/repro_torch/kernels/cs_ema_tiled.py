@@ -139,7 +139,7 @@ def cs_ema_tiled(S: torch.Tensor, b: torch.Tensor, s: Optional[torch.Tensor],
     seed, needed for bf16 cells.  ``csr`` is ``bucket_csr(b, w)`` when
     the caller has it (the dense path caches it).  Returns ``(S, est)``."""
     bf16 = _bf16(S, sr_seed)
-    if S.device.type == "cpu":
+    if S.device.type in ref.PLAIN_DEVICES:
         return cs_ema_tiled_plain(S, b, s, x, mask, beta=beta, scale=scale,
                                   sr_seed=sr_seed)
     dev = S.device

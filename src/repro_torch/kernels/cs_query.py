@@ -25,7 +25,7 @@ def cs_query(S: torch.Tensor, buckets: torch.Tensor,
              signs: Optional[torch.Tensor]) -> torch.Tensor:
     """S (v, w, d) f32; buckets (v, k) int32 in range; signs (v, k) f32 or
     None (Count-Min).  Returns the (k, d) estimates."""
-    if S.device.type == "cpu":
+    if S.device.type in ref.PLAIN_DEVICES:
         return ref.cs_query_ref(S, buckets, signs)
     dev = S.device
     if dev.type != "cuda":

@@ -92,7 +92,7 @@ def bucket_csr(buckets: torch.Tensor, width: int
     w+1) int32, where bucket ``b``'s items are ``order[j, starts[j, b]:
     starts[j, b+1]]``, in item order.  ``buckets`` (v, k) int32 in [0,
     width)."""
-    if buckets.device.type == "cpu":
+    if buckets.device.type in ref.PLAIN_DEVICES:
         return bucket_csr_plain(buckets, width)[:2]
     return _csr_kernel(buckets, width, False)[:2]
 
@@ -101,7 +101,7 @@ def bucket_prev(buckets: torch.Tensor, width: int) -> torch.Tensor:
     """For each item, the last earlier item of its hash row with the same
     bucket, or -1: (v, k) int32.  On CUDA tensors one launch of the CSR
     kernel, counted on ``bucket_csr``."""
-    if buckets.device.type == "cpu":
+    if buckets.device.type in ref.PLAIN_DEVICES:
         return bucket_csr_plain(buckets, width)[2]
     return _csr_kernel(buckets, width, True)[2]
 
@@ -156,7 +156,7 @@ def cs_update(S: torch.Tensor, buckets: torch.Tensor,
     """Add ``signs*delta`` (k, d) at ``buckets`` (v, k) into S (v, w, d),
     IN PLACE; returns S.  ``csr`` is ``bucket_csr(buckets, w)`` when the
     caller has it already."""
-    if S.device.type == "cpu":
+    if S.device.type in ref.PLAIN_DEVICES:
         return ref.cs_update_ref(S, buckets, signs, delta)
     return _scatter_kernel("cs_update", S, buckets, signs, delta, csr,
                            S.shape[1])
@@ -171,7 +171,7 @@ def cs_update_slab(slab: torch.Tensor, local: torch.Tensor,
     CUDA one launch (its CSR over ``lw + 1`` buckets, ``csr`` when the
     caller has it), counted on ``cs_update``; on the CPU the plain version
     ``ref.cs_update_slab_ref``."""
-    if slab.device.type == "cpu":
+    if slab.device.type in ref.PLAIN_DEVICES:
         return ref.cs_update_slab_ref(slab, local, signs, delta)
     return _scatter_kernel("cs_update_slab", slab, local, signs, delta, csr,
                            slab.shape[1] + 1)

@@ -19,6 +19,11 @@ import torch
 
 from repro_torch.core.sketch import median_rows, min_rows
 
+# the devices whose tensors take the plain versions: the CPU, and
+# ``meta`` (shapes only, the dry run's device); a CUDA tensor launches
+# its kernel or raises
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` by float32 division on every device.  PyTorch's CUDA

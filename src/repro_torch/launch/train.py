@@ -61,7 +61,10 @@ host mesh:
 
 Checkpoints hold global leaves: each placed leaf is gathered over its
 axes, process 0 writes, the others wait at a barrier; a restore loads
-each process's block.  Without ``--dp`` the rows of the grid repeat the
+each process's block.  The table monitors of ``--metrics-dir`` read
+global sketches the same way: under ``--sketch-shards`` every process
+gathers the slabs at each log boundary and process 0 writes the
+records.  Without ``--dp`` the rows of the grid repeat the
 same step.
 """
 from __future__ import annotations
@@ -92,11 +95,18 @@ def say(*args, **kw) -> None:
         print(*args, flush=True, **kw)
 
 
-def make_observer(args, run_meta, monitors=(), subdir: str = ""):
+def make_observer(args, run_meta, monitors=(), subdir: str = "",
+                  follow: bool = False):
     """A ``RunObserver`` over ``--metrics-dir`` (its ``subdir``) on
-    process 0, or None when it is off."""
-    if not args.metrics_dir or args.rank != 0:
+    process 0, or None when it is off.  ``follow``: the monitors read the
+    state collectively (each replica holds slabs, gathered at every
+    boundary), so every other replica gets a follower, an observer with no
+    writer that enters the same gathers at the same boundaries."""
+    if not args.metrics_dir:
         return None
+    if args.rank != 0:
+        return (RunObserver(None, monitors=monitors,
+                            log_every=args.log_every) if follow else None)
     out = os.path.join(args.metrics_dir, subdir) if subdir \
         else args.metrics_dir
     writer = MetricsWriter(out, run_meta=run_meta)
@@ -542,37 +552,44 @@ def run_sparse_embedding(args, device, mesh, grid) -> int:
         seed=args.seed)), grid, batch_coords(args, mesh))
 
     probe = None
-    monitors = []
-    if args.metrics_dir:
-        from repro_torch.obs import (TableMonitor, TableProbe,
-                                     predicted_table_errors)
-        if args.probe_rows > 0:
-            probe = TableProbe.for_table("sparse_embedding", n_rows,
-                                         k=args.probe_rows)
-        monitors = [TableMonitor(
-            path="sparse_embedding", m_store=m_st, v_store=v_st,
-            probe=probe, cleaner=cleaner,
-            predicted=predicted_table_errors(m_st, v_st, n_rows,
-                                             alpha=data.stream.cfg.alpha))]
-    observer = make_observer(args, {
-        "workload": "sparse_embedding", "rows": n_rows, "dim": dim,
-        "compression": args.sparse_compression, "steps": args.steps,
-        "batch": args.batch, "dp": bool(args.dp),
-        "sketch_cell_dtype": args.sketch_cell_dtype,
-        "probe_rows": args.probe_rows}, monitors)
-
+    if args.metrics_dir and args.probe_rows > 0:
+        from repro_torch.obs import TableProbe
+        probe = TableProbe.for_table("sparse_embedding", n_rows,
+                                     k=args.probe_rows)
     table = init_fn(torch.Generator(device=device).manual_seed(args.seed))
     opt_state = opt.init()
     if probe is not None:
         opt_state = dict(opt_state, probe=probe.init(dim, device))
     target = sparse_target(init_fn, args.seed, device)
-    shardings = None
+    shardings = state_placement = None
     if mesh is not None:
         specs = {"params": (), "opt_state": (
             shd.sketch_state_specs(opt_state) if shards > 1 else None)}
         shardings = shd.Placement(specs, mesh)
-        opt_state = shd.place(opt_state, shd.Placement(
-            specs["opt_state"], mesh), device)
+        state_placement = shd.Placement(specs["opt_state"], mesh)
+        opt_state = shd.place(opt_state, state_placement, device)
+
+    monitors = []
+    gathered = shards > 1 and state_placement is not None
+    if args.metrics_dir:
+        from repro_torch.obs import TableMonitor, predicted_table_errors
+        monitors = [TableMonitor(
+            path="sparse_embedding", m_store=m_st, v_store=v_st,
+            probe=probe, cleaner=cleaner,
+            predicted=predicted_table_errors(m_st, v_st, n_rows,
+                                             alpha=data.stream.cfg.alpha),
+            # each replica holds one slab of every sketch: the monitor
+            # reads the global sketches, gathered by every replica at the
+            # same boundary, as the reference's monitor reads its global
+            # arrays (a copy: no sum, so no colliding adds)
+            getter=(lambda st: shd.global_tree(st, state_placement))
+            if gathered else None)]
+    observer = make_observer(args, {
+        "workload": "sparse_embedding", "rows": n_rows, "dim": dim,
+        "compression": args.sparse_compression, "steps": args.steps,
+        "batch": args.batch, "dp": bool(args.dp),
+        "sketch_cell_dtype": args.sketch_cell_dtype,
+        "probe_rows": args.probe_rows}, monitors, follow=gathered)
     axis = dp_axis
 
     def train_step(table, opt_state, batch):
@@ -850,11 +867,6 @@ def main(argv=None) -> int:
             raise ValueError(
                 "--dp and --sketch-shards need a process group: run under "
                 "torch.distributed.run (which sets WORLD_SIZE)")
-        if mesh is not None and args.sketch_shards > 1 and args.metrics_dir:
-            raise ValueError(
-                "--metrics-dir with --sketch-shards > 1 under a process "
-                "group is not supported: the table monitors read the "
-                "whole sketch, and each process holds one slab")
         if args.workload == "serve-replay":
             return run_serve_replay(args, device)
         if args.workload == "sparse_embedding":

@@ -284,7 +284,8 @@ class TableMonitor:
     # previous boundary, materialized at the next one
     _pending: Any = dataclasses.field(default=None, repr=False)
 
-    def _states(self, opt_state) -> Dict[str, Any]:
+    def states(self, opt_state) -> Dict[str, Any]:
+        """This table's state dict (``getter`` applied)."""
         if self.getter is not None:
             return self.getter(opt_state)
         return opt_state
@@ -316,7 +317,7 @@ class TableMonitor:
         event after it; records carry the step they measured, so the lag
         only delays file writes."""
         out = self.flush()
-        payload = self._device_collect(self._states(opt_state))
+        payload = self._device_collect(self.states(opt_state))
         keys = tuple(sorted(payload))
         if self._keys is None:
             self._keys = keys
@@ -391,9 +392,14 @@ class RunObserver:
         obs.close(final_step, opt_state)    # flush the trailing window
 
     Per-step cost is appending the host floats the loop already has;
-    device state is touched only at ``log_every`` boundaries."""
+    device state is touched only at ``log_every`` boundaries.
 
-    def __init__(self, writer: MetricsWriter,
+    ``writer`` None makes a follower, for a replica that does not write:
+    at the same boundaries it only reads each monitor's state
+    (``TableMonitor.states``), so a monitor whose getter gathers slabs
+    meets the writer's replica in every collective."""
+
+    def __init__(self, writer: Optional[MetricsWriter],
                  monitors: Sequence[TableMonitor] = (),
                  log_every: int = 10,
                  phase_timer: Optional[PhaseTimer] = None):
@@ -418,6 +424,13 @@ class RunObserver:
 
     def _emit(self, step: int, opt_state) -> None:
         if not self._window:
+            return
+        if self.writer is None:
+            self._window.clear()
+            if opt_state is not None:
+                for mon in self.monitors:
+                    mon.states(opt_state)
+            self._emitted_at = int(step)
             return
         keys = set().union(*(r.keys() for r in self._window)) - {"step"}
         means = {k: float(np.mean([r[k] for r in self._window if k in r]))
@@ -447,6 +460,8 @@ class RunObserver:
         if self._window and final_step is not None \
                 and final_step != self._emitted_at:
             self._emit(final_step, opt_state)
+        if self.writer is None:
+            return
         for mon in self.monitors:
             rec = mon.flush()
             if rec is not None:

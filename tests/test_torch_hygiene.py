@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``repro_torch``, ``chip_smoke.py`` or
-``tools/`` imports ``jax`` or the reference package ``repro``."""
+"""The port stands alone: no file of ``repro_torch``, ``chip_smoke.py``,
+``tools/`` or ``examples_torch/`` imports ``jax`` or the reference package
+``repro``."""
 import ast
 from pathlib import Path
 
@@ -7,7 +8,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + \
+    sorted((ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -47,3 +49,13 @@ def test_the_check_covers_every_model_family():
     models = {p.name for p in FILES if p.parent.name == "models"}
     assert {"transformer.py", "moe.py", "rwkv.py", "mamba.py", "encdec.py",
             "vlm.py"} <= models
+
+
+def test_the_check_covers_the_examples_and_the_tooling():
+    """The four torch examples and the dry run's modules are checked."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"examples_torch/{n}.py" for n in (
+        "quickstart", "train_lm_100m", "elastic_recovery",
+        "serve_decode")} <= names
+    assert {f"src/repro_torch/launch/{n}.py" for n in (
+        "analysis", "op_cost", "dryrun", "breakdown")} <= names

@@ -279,50 +279,54 @@ def gather_rows(spec: SketchSpec, S, b: torch.Tensor,
     return rows
 
 
-def query(spec: SketchSpec, S, ids: torch.Tensor) -> torch.Tensor:
-    """QUERY (paper Alg. 1): f32 estimates of rows ``ids`` -> (k, dim)."""
+def addressing(spec: SketchSpec, ids: torch.Tensor):
+    """``(buckets, signs)`` of rows ``ids``, each (depth, k): int32 buckets
+    and, for a signed spec, f32 signs (None for an unsigned one)."""
     fam = spec.family
-    if spec.signed:
-        return median_rows(gather_rows(spec, S, fam.bucket(ids),
-                                       fam.sign(ids)))
-    return min_rows(gather_rows(spec, S, fam.bucket(ids)))
+    return fam.bucket(ids), (fam.sign(ids) if spec.signed else None)
 
 
-def _signed_rows(spec: SketchSpec, ids: torch.Tensor, delta: torch.Tensor,
+def query(spec: SketchSpec, S, ids: torch.Tensor, addr=None) -> torch.Tensor:
+    """QUERY (paper Alg. 1): f32 estimates of rows ``ids`` -> (k, dim).
+    ``addr``: their ``addressing``, when the caller hashed them already."""
+    b, s = addr if addr is not None else addressing(spec, ids)
+    rows = gather_rows(spec, S, b, s)
+    return median_rows(rows) if spec.signed else min_rows(rows)
+
+
+def _signed_rows(spec: SketchSpec, s, delta: torch.Tensor,
                  dtype) -> List[torch.Tensor]:
     """Per hash row, the rows the update adds: ``s_j·delta`` or ``delta``."""
     delta = delta.to(dtype)
     if not spec.signed:
         return [delta] * spec.depth
-    s = spec.family.sign(ids).to(dtype)
+    s = s.to(dtype)
     return [s[j][:, None] * delta for j in range(spec.depth)]
 
 
-def _add_rows(spec: SketchSpec, acc: torch.Tensor, ids: torch.Tensor,
-              b: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+def _add_rows(spec: SketchSpec, acc: torch.Tensor, b: torch.Tensor, s,
+              delta: torch.Tensor) -> torch.Tensor:
     """Add ``s_j·delta`` (or ``delta``) at buckets ``b`` into the f32
     tensor ``acc`` (depth, width, dim), IN PLACE, in batch order: row by
     row with ``index_add_`` on the CPU, B5's run scatter on CUDA."""
     if acc.device.type == "cuda":
         from repro_torch.kernels.cs_update import cs_update
-        signs = spec.family.sign(ids) if spec.signed else None
-        return cs_update(acc, b, signs,
+        return cs_update(acc, b, s if spec.signed else None,
                          delta.to(torch.float32).contiguous())
-    upd = _signed_rows(spec, ids, delta, torch.float32)
+    upd = _signed_rows(spec, s, delta, torch.float32)
     bl = b.long()
     for j in range(spec.depth):
         acc[j].index_add_(0, bl[j], upd[j])
     return acc
 
 
-def _update_quant(spec: SketchSpec, S: QuantState, ids: torch.Tensor,
-                  b: torch.Tensor, delta: torch.Tensor,
-                  sr_seed: int) -> QuantState:
+def _update_quant(spec: SketchSpec, S: QuantState, b: torch.Tensor, s,
+                  delta: torch.Tensor, sr_seed: int) -> QuantState:
     """int8 UPDATE, in place: dequantize, add in f32, grow the block
     scales, re-round the touched buckets and every bucket of a block whose
     scale grew; the other cells keep their exact int8 values."""
     w = spec.width
-    new = _add_rows(spec, qz.dequantize(S, spec.scale_block), ids, b, delta)
+    new = _add_rows(spec, qz.dequantize(S, spec.scale_block), b, s, delta)
     touched = torch.zeros((spec.depth, w), dtype=torch.bool, device=b.device)
     bl = b.long()
     for j in range(spec.depth):
@@ -338,22 +342,23 @@ def _update_quant(spec: SketchSpec, S: QuantState, ids: torch.Tensor,
 
 
 def update(spec: SketchSpec, S, ids: torch.Tensor, delta: torch.Tensor,
-           sr_seed=None):
+           sr_seed=None, addr=None):
     """UPDATE (paper Alg. 1): add ``delta`` (k, dim) at rows ``ids``,
     IN PLACE; colliding ids accumulate.  Low-precision writes round
-    stochastically with ``sr_seed`` (None: the step-0 seed).  Returns
-    ``S``."""
-    b = spec.family.bucket(ids)
+    stochastically with ``sr_seed`` (None: the step-0 seed).  ``addr``:
+    the rows' ``addressing``, when the caller hashed them already.
+    Returns ``S``."""
+    b, s = addr if addr is not None else addressing(spec, ids)
     if spec.quantized:
-        return _update_quant(spec, S, ids, b, delta,
+        return _update_quant(spec, S, b, s, delta,
                              sr_seed_or_default(spec, sr_seed))
     if spec.lowp:
         inc = _add_rows(spec, torch.zeros(spec.shape, dtype=torch.float32,
-                                          device=S.device), ids, b, delta)
+                                          device=S.device), b, s, delta)
         bits = qz.cell_bits(sr_seed_or_default(spec, sr_seed),
                             qz._lin_index(spec.shape, device=S.device))
         return S.copy_(qz.sr_bfloat16(S.to(torch.float32) + inc, bits))
-    return _add_rows(spec, S, ids, b, delta)
+    return _add_rows(spec, S, b, s, delta)
 
 
 def update_and_query(spec: SketchSpec, S, ids: torch.Tensor,

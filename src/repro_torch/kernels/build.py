@@ -123,16 +123,30 @@ def build() -> tuple:
     return lib, time.perf_counter() - t0, "\n".join(logs)
 
 
+# what the first ``library()`` call of this process spent
+_LOAD: dict = {}
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    path, _secs, _log = build()
+    t0 = time.perf_counter()
+    path, nvcc_s, _log = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    _LOAD.update(seconds=time.perf_counter() - t0, nvcc=nvcc_s > 0.0)
     return lib
+
+
+def load_stats() -> Optional[dict]:
+    """``{"seconds", "nvcc"}`` of the library's build or load in this
+    process: the seconds the first ``library()`` call took, and whether
+    ``nvcc`` ran in it (False: the library was on disk already); None
+    before the library is loaded."""
+    return dict(_LOAD) if _LOAD else None
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -4,7 +4,10 @@
 Sparse-rows CS-Adam, ``ref | xla | stream | tiled``: each backend takes
 ``(spec_m, spec_v, M, V, ids, g, step)`` and returns ``(M', V',
 row_updates)`` with ``row_updates`` aligned to ``ids`` such that
-``table.index_add_(0, ids, row_updates)`` applies the step.
+``table.index_add_(0, ids, row_updates)`` applies the step.  Each runs
+its stages in profiler spans (``obs.profiling.scope``): the dedup in
+``obs.dedup``, both sketches' addressing in ``obs.hash`` (hashed once a
+step, ``xla`` included), the update in ``obs.adam_rows``.
 
 The dense path's fused ``update_read``, ``ref | xla | tiled``: each takes
 ``(spec, S, ids, x, beta=, scale=, mask=)`` and returns ``(S', est)``;
@@ -54,6 +57,7 @@ from repro_torch.kernels.cs_adam_tiled import cs_adam_tiled
 from repro_torch.kernels.cs_ema_tiled import cs_ema_tiled, cs_ema_tiled_plain
 from repro_torch.kernels.cs_query import cs_query
 from repro_torch.kernels.cs_update import bucket_csr, cs_update
+from repro_torch.obs.profiling import scope
 
 Result = Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]
 
@@ -63,17 +67,12 @@ def _lowp(*specs: Optional[SketchSpec]) -> bool:
     return any(spec is not None and spec.lowp for spec in specs)
 
 
-def _addressing(spec: SketchSpec, ids: torch.Tensor):
-    fam = spec.family
-    return fam.bucket(ids), (fam.sign(ids) if spec.signed else None)
-
-
 def sketch_query(spec: SketchSpec, S, ids: torch.Tensor) -> torch.Tensor:
     """QUERY rows ``ids``: B4 for CUDA tensors, ``ref`` on the CPU;
     low-precision cells through ``core.sketch.query``."""
     if _lowp(spec):
         return cs.query(spec, S, ids)
-    b, s = _addressing(spec, ids)
+    b, s = cs.addressing(spec, ids)
     return cs_query(S, b, s)
 
 
@@ -84,7 +83,7 @@ def sketch_update(spec: SketchSpec, S, ids: torch.Tensor,
     (rounding seed ``sr_seed``, None: the step-0 seed)."""
     if _lowp(spec):
         return cs.update(spec, S, ids, delta, sr_seed=sr_seed)
-    b, s = _addressing(spec, ids)
+    b, s = cs.addressing(spec, ids)
     return cs_update(S, b, s, delta.contiguous())
 
 
@@ -104,8 +103,12 @@ def _adam_hypers(step, lr, b1: float, b2: float):
 
 def _adam_addressing(spec_m: Optional[SketchSpec], spec_v: SketchSpec,
                      ids: torch.Tensor):
-    bm, sm = _addressing(spec_m, ids) if spec_m is not None else (None, None)
-    bv, _ = _addressing(spec_v, ids)
+    """Both moments' buckets, and the first moment's signs, in the span
+    ``obs.hash``."""
+    with scope("obs.hash"):
+        bm, sm = cs.addressing(spec_m, ids) if spec_m is not None \
+            else (None, None)
+        bv, _ = cs.addressing(spec_v, ids)
     return bm, sm, bv
 
 
@@ -124,8 +127,9 @@ def adam_rows_ref(spec_m, spec_v, M, V, ids, g, step, *, lr,
                              b1=b1, b2=b2, eps=eps)
     bm, sm, bv = _adam_addressing(spec_m, spec_v, ids)
     eta, bc1, bc2 = _adam_hypers(step, lr, b1, b2)
-    return ref.adam_fused_ref(M, V, bm, sm, bv, g, lr=eta, b1=b1, b2=b2,
-                              eps=eps, bc1=bc1, bc2=bc2)
+    with scope("obs.adam_rows"):
+        return ref.adam_fused_ref(M, V, bm, sm, bv, g, lr=eta, b1=b1, b2=b2,
+                                  eps=eps, bc1=bc1, bc2=bc2)
 
 
 def adam_rows_stream(spec_m, spec_v, M, V, ids, g, step, *, lr,
@@ -138,8 +142,9 @@ def adam_rows_stream(spec_m, spec_v, M, V, ids, g, step, *, lr,
                              b1=b1, b2=b2, eps=eps)
     bm, sm, bv = _adam_addressing(spec_m, spec_v, ids)
     eta, bc1, bc2 = _adam_hypers(step, lr, b1, b2)
-    return cs_adam_fused(M, V, bm, sm, bv, g.contiguous(), lr=eta, b1=b1,
-                         b2=b2, eps=eps, bc1=bc1, bc2=bc2)
+    with scope("obs.adam_rows"):
+        return cs_adam_fused(M, V, bm, sm, bv, g.contiguous(), lr=eta,
+                             b1=b1, b2=b2, eps=eps, bc1=bc1, bc2=bc2)
 
 
 def adam_rows_xla(spec_m, spec_v, M, V, ids, g, step, *, lr,
@@ -152,24 +157,28 @@ def adam_rows_xla(spec_m, spec_v, M, V, ids, g, step, *, lr,
     if ids.shape[0] == 0:
         return _empty(M, V, g)
     eta, bc1, bc2 = _adam_hypers(step, lr, b1, b2)
-    batch = dd.dedup_rows(ids, g)
-    mask = batch.mask[:, None]
+    with scope("obs.dedup"):
+        batch = dd.dedup_rows(ids, g)
     uids, rows = batch.unique_ids, batch.rows
     sr_m = qz.step_seed(spec_m.seed, step) if _lowp(spec_m) else None
     sr_v = qz.step_seed(spec_v.seed, step) if _lowp(spec_v) else None
-    if spec_m is not None:
-        m_old = cs.query(spec_m, M, uids)
-        dm = (1.0 - b1) * (rows - m_old) * mask
-        M = cs.update(spec_m, M, uids, dm, sr_seed=sr_m)
-        mhat = ref.true_div(m_old + dm, bc1)
-    else:
-        mhat = rows
-    v_old = cs.query(spec_v, V, uids)
-    dv = (1.0 - b2) * (rows * rows - v_old) * mask
-    V = cs.update(spec_v, V, uids, dv, sr_seed=sr_v)
-    vhat = ref.true_div(torch.clamp_min(v_old + dv, 0.0), bc2)
-    upd = mask * (-eta) * mhat / (torch.sqrt(vhat) + eps)
-    return M, V, dd.scatter_back(batch, upd)
+    # hashed once for each sketch's query and update
+    bm, sm, bv = _adam_addressing(spec_m, spec_v, uids)
+    with scope("obs.adam_rows"):
+        mask = batch.mask[:, None]
+        if spec_m is not None:
+            m_old = cs.query(spec_m, M, uids, addr=(bm, sm))
+            dm = (1.0 - b1) * (rows - m_old) * mask
+            M = cs.update(spec_m, M, uids, dm, sr_seed=sr_m, addr=(bm, sm))
+            mhat = ref.true_div(m_old + dm, bc1)
+        else:
+            mhat = rows
+        v_old = cs.query(spec_v, V, uids, addr=(bv, None))
+        dv = (1.0 - b2) * (rows * rows - v_old) * mask
+        V = cs.update(spec_v, V, uids, dv, sr_seed=sr_v, addr=(bv, None))
+        vhat = ref.true_div(torch.clamp_min(v_old + dv, 0.0), bc2)
+        upd = mask * (-eta) * mhat / (torch.sqrt(vhat) + eps)
+        return M, V, dd.scatter_back(batch, upd)
 
 
 def adam_rows_tiled(spec_m, spec_v, M, V, ids, g, step, *, lr,
@@ -188,11 +197,14 @@ def adam_rows_tiled(spec_m, spec_v, M, V, ids, g, step, *, lr,
     if ids.shape[0] == 0:
         return _empty(M, V, g)
     eta, bc1, bc2 = _adam_hypers(step, lr, b1, b2)
-    batch = dd.dedup_rows(ids, g)
+    with scope("obs.dedup"):
+        batch = dd.dedup_rows(ids, g)
     bm, sm, bv = _adam_addressing(spec_m, spec_v, batch.unique_ids)
-    return cs_adam_tiled(M, V, bm, sm, bv, batch.rows, lr=eta, b1=b1, b2=b2,
-                         eps=eps, bc1=bc1, bc2=bc2, n_valid=batch.n_unique,
-                         positions=(batch.inv, batch.first_pos))
+    with scope("obs.adam_rows"):
+        return cs_adam_tiled(M, V, bm, sm, bv, batch.rows, lr=eta, b1=b1,
+                             b2=b2, eps=eps, bc1=bc1, bc2=bc2,
+                             n_valid=batch.n_unique,
+                             positions=(batch.inv, batch.first_pos))
 
 
 def adam_rows_fused(spec_m, spec_v, M, V, ids, g, step, *, lr,
@@ -226,8 +238,8 @@ def _cached_addressing(spec: SketchSpec, n: int, device: torch.device):
     per (spec, n, device) and kept on the device.  The caller knows the
     row set is dense (``ids is None``), so the ids are never looked at on
     the host."""
-    return _addressing(spec, torch.arange(n, dtype=torch.int32,
-                                          device=device))
+    return cs.addressing(spec, torch.arange(n, dtype=torch.int32,
+                                            device=device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -240,7 +252,7 @@ def _ema_addressing(spec: SketchSpec, ids: Optional[torch.Tensor], n: int,
                     device: torch.device):
     if ids is None:
         return _cached_addressing(spec, n, device)
-    return _addressing(spec, ids)
+    return cs.addressing(spec, ids)
 
 
 def _ordered_scatter(spec: SketchSpec, ids, x: torch.Tensor):

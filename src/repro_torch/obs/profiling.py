@@ -4,8 +4,9 @@ Counterpart of ``repro.obs.profiling``:
 
   * ``scope(name)`` - ``torch.profiler.record_function(name)``, a span
     that shows in ``torch.profiler`` traces beside the device kernels it
-    launched, and costs a few microseconds of host time when no profiler
-    runs;
+    launched, while a profiler (or a dispatch mode, such as
+    ``launch.op_cost.OpCost``, which reads the spans) runs; otherwise a
+    no-op context, so a span costs a check of the profiler's state;
   * ``PhaseTimer.phase(name)`` - host-side spans around a loop's phases
     (data / step / checkpoint).  Each span is a ``record_function`` (and
     an NVTX range when CUDA is up) AND accumulates wall time, drained into
@@ -32,9 +33,18 @@ import numpy as np
 import torch
 
 
+_OFF = contextlib.nullcontext()
+
+
 def scope(name: str):
-    """A named profiler span around the code in its ``with`` block."""
-    return torch.profiler.record_function(name)
+    """A named profiler span around the code in its ``with`` block.  The
+    profiler's state is read on every call, so a profiler started
+    between two calls sees the second; with no profiler and no dispatch
+    mode running it enters no ``record_function`` (a dispatcher op)."""
+    if torch._C._autograd._profiler_enabled() \
+            or torch._C._len_torch_dispatch_stack():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager

@@ -168,13 +168,15 @@ def make_train_step(cfg: ArchConfig, *, optimizer: str = "cs_adam",
                     plan=None, dp_axis=None,
                     device="cuda") -> TrainStep:
     """The LM train step in the reference's order: loss and gradient
-    (``obs.grad``), ``clip_by_global_norm(grad_clip)``, ``opt.update``
-    (``obs.kernel``), ``apply_updates``, then the ``loss`` and
-    ``grad_norm`` metrics (device scalars; the norm of the clipped
-    gradient).  ``step_fn`` updates params and optimizer state IN
-    PLACE.  ``init_fn(generator)`` draws the model's params on
-    ``device`` from a ``torch.Generator`` (not ``jax.random``: start
-    both packages from one state with ``repro_torch.convert``).
+    (``obs.grad``: the loss in ``obs.forward``, the gradient in
+    ``obs.backward``), ``clip_by_global_norm(grad_clip)`` with the norm
+    of the clipped gradient (``obs.clip``), ``opt.update``
+    (``obs.kernel``), ``apply_updates`` (``obs.apply``); the metrics are
+    ``loss`` and ``grad_norm`` (device scalars).  ``step_fn`` updates
+    params and optimizer state IN PLACE.  ``init_fn(generator)`` draws
+    the model's params on ``device`` from a ``torch.Generator`` (not
+    ``jax.random``: start both packages from one state with
+    ``repro_torch.convert``).
 
     ``dp_axis``: each replica of that axis calls ``step_fn`` with its
     shard of the batch; the loss and every gradient leaf are ``pmean``'d
@@ -194,9 +196,13 @@ def make_train_step(cfg: ArchConfig, *, optimizer: str = "cs_adam",
             lambda _p, x: x.detach().requires_grad_(True), params)
         leaves = leaf_paths(live)
         with scope("obs.grad"):
-            loss = mod.train_loss(cfg, live, batch, remat=remat,
-                                  sampled_softmax=sampled_softmax)
-            grad_list = torch.autograd.grad(loss, [x for _p, x in leaves])
+            with scope("obs.forward"):
+                loss = mod.train_loss(cfg, live, batch, remat=remat,
+                                      sampled_softmax=sampled_softmax)
+            # remat's recompute of the forward runs in here
+            with scope("obs.backward"):
+                grad_list = torch.autograd.grad(
+                    loss, [x for _p, x in leaves])
         by_path = {p: g for (p, _x), g in zip(leaves, grad_list)}
         grads = tree_map_with_path(lambda p, _x: by_path[p], params)
         loss = loss.detach()
@@ -205,12 +211,14 @@ def make_train_step(cfg: ArchConfig, *, optimizer: str = "cs_adam",
                 loss = axis.pmean(loss)
                 grads = tree_map_with_path(lambda _p, g: axis.pmean(g),
                                            grads)
-        grads = clip(grads)
+        with scope("obs.clip"):
+            grads = clip(grads)
+            grad_norm = _grad_norm(grads)
         with scope("obs.kernel"):
             updates, opt_state = opt.update(grads, opt_state, params)
-        params = opt_lib.apply_updates(params, updates)
-        metrics = {"loss": loss.to(torch.float32),
-                   "grad_norm": _grad_norm(grads)}
+        with scope("obs.apply"):
+            params = opt_lib.apply_updates(params, updates)
+        metrics = {"loss": loss.to(torch.float32), "grad_norm": grad_norm}
         return params, opt_state, metrics
 
     def init_fn(generator: Optional[torch.Generator] = None):
@@ -291,10 +299,13 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
     ``step_fn`` updates the table and the sketches IN PLACE.  The
     optimizer is ``sparse_rows_adam``, routed through the backend named by
     ``hparams.backend`` ('auto': the CUDA kernel pipeline ``tiled`` on a
-    card, plain ``xla`` on the CPU).  ``init_fn`` draws from a
-    ``torch.Generator``, so its numbers differ from the reference's
-    ``jax.random.normal``; start both packages from one state with
-    ``repro_torch.convert.from_jax_state``.
+    card, plain ``xla`` on the CPU).  Its stages are profiler spans: the
+    backend's ``obs.dedup``, ``obs.hash`` and ``obs.adam_rows``
+    (``kernels/ops.py``), then the apply, ``obs.apply``; the learning
+    rate's scale of the direction (``scale_by_lr``) lies between them.
+    ``init_fn`` draws from a ``torch.Generator``, so its numbers differ
+    from the reference's ``jax.random.normal``; start both packages from
+    one state with ``repro_torch.convert.from_jax_state``.
 
     ``dp_axis``: data parallelism.  Each replica of that axis (a
     ``ReplicaGroup`` thread or a ``ProcessGroupAxis`` process) calls
@@ -370,7 +381,9 @@ def make_sparse_embedding_step(n_rows: int, dim: int, *, lr=1e-3,
                         opt_state)
         updates, opt_state = opt.update(
             {"ids": ids, "rows": grad_rows}, opt_state)
-        return apply(table, updates), opt_state
+        with scope("obs.apply"):
+            table = apply(table, updates)
+        return table, opt_state
 
     return init_fn, step_fn, opt
 

@@ -12,6 +12,7 @@ own copy of every buffer (the port writes its states in place, and
 ``jnp.asarray`` may alias a numpy buffer XLA still reads).  Torch runs
 on one CPU thread, as in ``test_torch_dense.py``.
 """
+import contextlib
 import io
 import json
 
@@ -214,6 +215,41 @@ def test_maybe_trace_writes_spans(tmp_path):
     names = {e.get("name") for e in json.loads(files[0].read_text())
              ["traceEvents"]}
     assert "obs.adapt" in names
+
+
+def test_scope_is_free_without_a_profiler(monkeypatch):
+    entered = []
+    real = torch.profiler.record_function
+
+    def counting(name, *a):
+        entered.append(name)
+        return real(name, *a)
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    ctx = TPr.scope("obs.dedup")
+    assert isinstance(ctx, contextlib.nullcontext)
+    with ctx:
+        torch.ones(4).sum()
+    assert entered == []
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        with TPr.scope("obs.dedup"):
+            torch.ones(4).sum()
+    assert entered == ["obs.dedup"]
+    assert "obs.dedup" in {e.name for e in prof.events()}
+    # the state is read at every call: a profiler started after a
+    # span's first use sees its next one
+    with torch.profiler.profile(activities=acts) as prof:
+        with TPr.scope("obs.hash"):
+            pass
+    assert "obs.hash" in {e.name for e in prof.events()}
+
+
+def test_scope_is_seen_by_a_dispatch_mode():
+    from repro_torch.launch.op_cost import OpCost
+    with OpCost(sources=True) as cost:
+        with TPr.scope("obs.clip"):
+            torch.ones(4, device="meta").sum()
+    assert any(src.startswith("obs.clip") for _op, src in cost.rows)
 
 
 # ------------------------------------------------------------- store gauges

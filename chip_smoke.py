@@ -187,7 +187,9 @@ own line; any failure raises and the exit code is not 0:
      first window (the reference's ``cs_adam`` does the same at d_model
      896, ``tests/test_torch_lm_spike.py``), and the arms that learn are
      the gated ones of 11d and 11f; B3 exactly 4 launches a step (M
-     and V of both tables), CUDA-event ms a step, peak memory, three steps
+     and V of both tables), B10 (flash attention) 48 forward and 24
+     backward launches a step (24 layers: the forward, remat's recompute
+     and the backward), CUDA-event ms a step, peak memory, three steps
      under the profiler (busy time, idle share, launches) and one under
      ``set_sync_debug_mode("error")``.  11b: the same batches from the
      same start through plain ``xla``: losses within rtol 1e-4, params
@@ -453,8 +455,11 @@ own line; any failure raises and the exit code is not 0:
      must sum to the record's argument bytes
      (``torch.cuda.memory_allocated`` printed beside); one step of 4 x
      2,048 tokens on ``auto`` counted by ``op_cost.OpCost`` on the card:
-     B3 4 launches, FLOPs equal to its meta trace's; its time (CUDA
-     events, 3 steps) beside the roofline bound.  18b:
+     B3 4 launches, B10 48 forward and 24 backward launches, FLOPs equal
+     to its meta trace's, and so under the span ``obs.attn`` (on the
+     card the flash attention kernels report the FLOPs of the einsums
+     that the meta trace runs there) above zero and equal too; its time
+     (CUDA events, 3 steps) beside the roofline bound.  18b:
      ``launch.breakdown --device cuda`` on that cell at that batch: the
      heaviest rows with their device ms.  18c: A13d, the launcher's
      ``sparse_embedding`` at its default sizes on ``ReplicaMesh``
@@ -470,6 +475,21 @@ own line; any failure raises and the exit code is not 0:
      launch counts): each exits 0 and prints ``device: cuda``;
      quickstart, train_lm_100m and elastic_recovery launch B3 (printed).
      ``--phases 18`` runs phase 18 alone.
+ 19. flash attention (B10, ``kernels/flash_attn.py``) at qwen2-0.5b's
+     attention of the benchmark's batch (4 x 2,048 tokens, 14 query and
+     2 KV heads of 64, causal) and at head_dim 128 (16 heads, 2,048
+     tokens): the kernels' f32 o, lse, dq, dk and dv within
+     ``FLASH_TOL`` of their plain versions (the einsum path in the
+     kernels' layouts; gap = norm of the difference over the plain
+     one's), two backward calls equal to the bit, one launch counted a
+     call (the kernels' line gives the launches of the paths above,
+     ``launches``/``bwd_launches``, and each path's apart as the other
+     rows do: the LM path 11a, 11f and 11h, 12b, 14b, 15, 16, 17, 18);
+     the forward's and the backward's ms (CUDA events) beside the
+     causal FLOPs at 989.4 TFLOP/s, the MMA FLOPs the design runs
+     (the three-term splits), the plain versions' ms and, as a
+     yardstick only, ``scaled_dot_product_attention``'s (never called
+     by the port).  ``--phases 19`` runs phase 19 alone.
 
 The CUDA caching allocator runs with ``expandable_segments:True`` (set
 in ``PYTORCH_CUDA_ALLOC_CONF`` unless the caller set it): phase 15's
@@ -581,10 +601,13 @@ def kernel_counts():
                                                   cs_ema_tiled_bf16)
     from repro_torch.kernels.cs_query import cs_query
     from repro_torch.kernels.cs_update import bucket_csr, cs_update
+    from repro_torch.kernels.flash_attn import flash_attn_bwd, flash_attn_fwd
     return {"cs_adam_tiled": cs_adam_tiled, "cs_adam_fused": cs_adam_fused,
             "cs_ema_tiled": cs_ema_tiled,
             "cs_ema_tiled_bf16": cs_ema_tiled_bf16, "cs_query": cs_query,
-            "cs_update": cs_update, "bucket_csr": bucket_csr}
+            "cs_update": cs_update, "bucket_csr": bucket_csr,
+            "flash_attn_fwd": flash_attn_fwd,
+            "flash_attn_bwd": flash_attn_bwd}
 
 
 def reset_counts() -> None:
@@ -3644,6 +3667,11 @@ def phase_lm(dev, seed: int):
         raise AssertionError(f"B3 launched {counts['cs_ema_tiled']} times "
                              f"in {LM_STEPS} steps, not 4 a step (M and V "
                              f"of two tables)")
+    flash = (counts["flash_attn_fwd"], counts["flash_attn_bwd"])
+    if flash != (2 * cfg.n_layers * LM_STEPS, cfg.n_layers * LM_STEPS):
+        raise AssertionError(f"B10 launched {flash} times (forward, "
+                             f"backward) in {LM_STEPS} steps, not "
+                             f"{2 * cfg.n_layers} and {cfg.n_layers} a step")
     # the sketched first moment's spike sits in the first window, so this
     # gate does not test learning here; 11d and 11f gate the arms that learn
     if not last < first:
@@ -6512,24 +6540,34 @@ def phase_p18_dryrun(dev, seed: int) -> None:
 
     shape = configs.ShapeConfig("train_4k@card", "train", LM_SEQ, LM_BATCH)
     meta, ps, tokens, _kind, _info = dryrun.trace_cell(
-        cfg, shape, store_backend="auto")
+        cfg, shape, store_backend="auto", sources=True)
     data = ZipfLM(ZipfLMConfig(vocab_size=cfg.vocab, seq_len=LM_SEQ,
                                global_batch=LM_BATCH, seed=seed))
     batch = {k: torch.as_tensor(v).to(dev) for k, v in data.batch(0).items()}
     ts.step_fn(params, state, batch)
     torch.cuda.synchronize()
     before = read_counts()
-    with OpCost() as card:
+    with OpCost(sources=True) as card:
         ts.step_fn(params, state, batch)
     torch.cuda.synchronize()
-    b3 = read_counts()["cs_ema_tiled"] - before["cs_ema_tiled"]
+
+    def attn_flops(cost):
+        # under obs.attn: the einsums on meta; on the card the flash
+        # attention kernels, which report the FLOPs of those einsums
+        return sum(r.flops for r in cost.rows.values()
+                   if r.source.split(" ")[0] == "obs.attn")
+    after = read_counts()
+    b3 = after["cs_ema_tiled"] - before["cs_ema_tiled"]
+    flash = tuple(after[n] - before[n]
+                  for n in ("flash_attn_fwd", "flash_attn_bwd"))
     ms = cuda_ms(lambda: ts.step_fn(params, state, batch), reps=3,
                  warmup=0)
     peak = torch.cuda.max_memory_allocated() - base
     roof = dryrun.roofline(cfg, meta, ps, tokens, "train", 1)
     log(f"phase 18a: one step of {LM_BATCH} x {LM_SEQ} tokens on the card "
         f"under op_cost: {card.flops} FLOPs, {card.bytes} bytes, B3 "
-        f"{b3}; on meta {meta.flops} FLOPs, {meta.bytes} bytes")
+        f"{b3}, B10 {flash} (forward, backward); on meta {meta.flops} "
+        f"FLOPs, {meta.bytes} bytes")
     log(f"phase 18a: the step {ms} ms (CUDA events, mean of 3) against the "
         f"roofline bound {roof.step_s * 1e3} ms ({roof.dominant}: compute "
         f"{roof.compute_s * 1e3} ms at {analysis.PEAK_FLOPS_BF16:.4g} "
@@ -6539,10 +6577,17 @@ def phase_p18_dryrun(dev, seed: int) -> None:
         f"{roof.model_flops_per_device / (ms * 1e-3) / 1e12} TFLOP/s; "
         f"memory {json.dumps(analysis.memory_dict(real, peak))} (the peak "
         f"measured by torch.cuda.max_memory_allocated above the start)")
-    if card.flops != meta.flops or b3 != 4:
+    log(f"phase 18a: attention's FLOPs (obs.attn) on meta "
+        f"{attn_flops(meta)}, on the card {attn_flops(card)} (its kernels)")
+    if (card.flops != meta.flops or attn_flops(card) != attn_flops(meta)
+            or not attn_flops(meta) or b3 != 4
+            or flash != (2 * cfg.n_layers, cfg.n_layers)):
         raise AssertionError(f"18a: the card's step counted {card.flops} "
-                             f"FLOPs and B3 {b3} times; meta {meta.flops}, "
-                             f"B3 4")
+                             f"FLOPs ({attn_flops(card)} under obs.attn), "
+                             f"B3 {b3} and B10 {flash} times; meta "
+                             f"{meta.flops} ({attn_flops(meta)} under "
+                             f"obs.attn), B3 4, B10 {2 * cfg.n_layers} and "
+                             f"{cfg.n_layers}")
 
 
 def phase_p18_breakdown() -> None:
@@ -6737,6 +6782,100 @@ def phase_slice17(dev, seed: int, held: int = 0) -> dict:
     return totals
 
 
+FLASH_TOL = 1e-5                   # tests/test_torch_cuda.py::FLASH_TOL
+BF16_PEAK = 989.4e12               # H100 SXM data sheet, dense bf16
+FLASH_SHAPES = {"qwen2-0.5b": (4, 2048, 14, 2, 64),
+                "hd128": (1, 2048, 16, 16, 128)}
+
+
+def time_flash(dev, seed: int, name: str) -> dict:
+    """Phase 19 at one shape: the kernels against their plain versions,
+    then their times beside the bound, the plain versions' and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as fa
+    b, s, hq, hkv, hd = FLASH_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(bf)
+    k = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(bf)
+    v = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(bf)
+    dout = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(bf)
+    n_f, n_b = fa.flash_attn_fwd.launches, fa.flash_attn_bwd.launches
+    out, o, lse = fa.flash_attn_fwd(q, k, v, True, 0)
+    grads = fa.flash_attn_bwd(q, k, v, o, lse, dout, True, 0)
+    again = fa.flash_attn_bwd(q, k, v, o, lse, dout, True, 0)
+    torch.cuda.synchronize()
+    if (fa.flash_attn_fwd.launches - n_f, fa.flash_attn_bwd.launches
+            - n_b) != (1, 2):
+        raise SystemExit(f"phase 19 ({name}): launches not counted")
+    if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+        raise SystemExit(f"phase 19 ({name}): two backward calls differ")
+    p_out, p_o, p_lse = fa.flash_attn_fwd_plain(q, k, v, True, 0)
+    p_grads = fa.flash_attn_bwd_plain(q, k, v, p_o, p_lse, dout, True, 0)
+
+    def gap(got, want):
+        return float(torch.linalg.vector_norm((got - want).double())
+                     / torch.linalg.vector_norm(want.double()))
+    gaps = {"o": gap(o, p_o), "lse": gap(lse, p_lse)}
+    for key, a, w in zip(("dq", "dk", "dv"), grads, p_grads):
+        gaps[key] = gap(a, w)
+    log(f"phase 19 ({name}): gaps to the plain versions {gaps}")
+    if not all(x <= FLASH_TOL for x in gaps.values()):
+        raise SystemExit(f"phase 19 ({name}): a gap above {FLASH_TOL}")
+    del p_out, p_o, p_lse, p_grads, again
+    fwd_ms = cuda_ms(lambda: fa.flash_attn_fwd(q, k, v, True, 0), 20, 2)
+    bwd_ms = cuda_ms(lambda: fa.flash_attn_bwd(q, k, v, o, lse, dout,
+                                               True, 0), 20, 2)
+    plain_fwd_ms = cuda_ms(lambda: fa.flash_attn_fwd_plain(q, k, v, True,
+                                                           0), 3)
+    plain_bwd_ms = cuda_ms(lambda: fa.flash_attn_bwd_plain(
+        q, k, v, o, lse, dout, True, 0), 3)
+    # SDPA: a yardstick only, never called by the port
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=hq != hkv)
+    with torch.no_grad():
+        lib_fwd_ms = cuda_ms(sdpa, 20, 2)
+    lib_both_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dt), 20, 2)
+    pairs = s * (s + 1) // 2
+    flops_fwd = 4 * b * hq * hd * pairs          # S and P V
+    flops_bwd = 2 * flops_fwd                    # dV, dP, dQ, dK
+    row = {"name": "flash_attn", "shape": name,
+           "b_s_hq_hkv_hd": [b, s, hq, hkv, hd], "causal": True,
+           "ms": fwd_ms, "bwd_ms": bwd_ms,
+           "bound_ms": flops_fwd / BF16_PEAK * 1e3,
+           "bwd_bound_ms": flops_bwd / BF16_PEAK * 1e3, "bound_by": "flops",
+           "flops": flops_fwd, "bwd_flops": flops_bwd,
+           # the MMAs the design runs: S 1 + P V 3; the dK/dV kernel S 1 +
+           # dP 1 + dV 3 + dK 3, the dQ kernel S 1 + dP 1 + dQ 3
+           "mma_flops": 2 * flops_fwd, "bwd_mma_flops": 13 * flops_bwd // 4,
+           "plain_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+           "library_ms": lib_fwd_ms, "library_bwd_ms": lib_both_ms
+           - lib_fwd_ms, "gaps": gaps}
+    log(f"phase 19 ({name}): forward {fwd_ms:.4f} ms (bound "
+        f"{row['bound_ms']:.4f}, plain {plain_fwd_ms:.3f}, SDPA "
+        f"{lib_fwd_ms:.4f}), backward {bwd_ms:.4f} ms (bound "
+        f"{row['bwd_bound_ms']:.4f}, plain {plain_bwd_ms:.3f}, SDPA "
+        f"{row['library_bwd_ms']:.4f}); the design's MMA rate forward "
+        f"{row['mma_flops'] / fwd_ms * 1e-9:.1f} TFLOP/s, backward "
+        f"{row['bwd_mma_flops'] / bwd_ms * 1e-9:.1f}")
+    return row
+
+
+def phase_flash(dev, seed: int) -> list:
+    """Phase 19: flash attention's kernels at qwen2-0.5b's shapes and at
+    head_dim 128.  Returns their rows for the kernels' line."""
+    rows = [time_flash(dev, seed, name) for name in FLASH_SHAPES]
+    print(json.dumps({"flash_attn": rows}), flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6812,6 +6951,7 @@ def main(argv=None) -> int:
         ("16", lambda: phase_a14b_part3(dev, args.seed, release(out))),
         ("17", lambda: phase_a14b_part4(dev, args.seed, release(out))),
         ("18", lambda: phase_slice17(dev, args.seed, release(out))),
+        ("19", lambda: phase_flash(dev, args.seed)),
     ]
     if args.phases:
         keep = args.phases.split(",")
@@ -6832,9 +6972,13 @@ def main(argv=None) -> int:
     lm, lm_plan, lm_cli = out["11"][0], out["11"][1], out["11h"]  # 11a/f/h
     lm_b3 = {name: lm[name] + lm_plan[name] + lm_cli[name]
              for name in ("cs_ema_tiled", "bucket_csr")}
+    flash_names = ("flash_attn_fwd", "flash_attn_bwd")
+    lm_flash = {name: lm[name] + lm_plan[name] + lm_cli[name]
+                for name in flash_names}
     # 12a-c's DP steps: the sparse, serve, extreme and LM dp_axis paths
     dp = {name: sum(part[name] for part in out["12"])
-          for name in ("cs_update", "bucket_csr", "cs_ema_tiled")}
+          for name in ("cs_update", "bucket_csr", "cs_ema_tiled")
+          + flash_names}
     # 13a-c's sharded steps: the slabbed sparse step, the llama4 vocab
     # plan and the sharded plans' dense path
     (sh_a, slab_row), sh_b, sh_c = out["13"]
@@ -6894,7 +7038,11 @@ def main(argv=None) -> int:
                                + out["4 (sketch ops)"][4]["bucket_csr"]
                                + out["6"][0]["bucket_csr"]
                                + planned_dense["bucket_csr"]
-                               + lm_b3["bucket_csr"])}
+                               + lm_b3["bucket_csr"]),
+                # flash attention on the LM (11a, 11f, 11h), DP (12b) and
+                # placement (14b) paths; the other paths' below
+                **{name: lm_flash[name] + dp[name] + placed[name]
+                   for name in flash_names}}
     for name in launches:
         launches[name] += (a14b.get(name, 0) + part3.get(name, 0)
                            + part4.get(name, 0) + slice17.get(name, 0))
@@ -6937,6 +7085,18 @@ def main(argv=None) -> int:
         if row["name"] == "cs_adam_fused":
             row["adam_rows_fused_ms"] = fused["ms"]
             row["adam_rows_stream_ms"] = fused["stream_ms"]
+    for row in out["19"]:
+        # phase 19's own calls are not counted here: the launches of the
+        # paths above, each path apart (forward, backward)
+        row["launches"], row["bwd_launches"] = (launches[n]
+                                                for n in flash_names)
+        for path, counts in (("lm", lm_flash), ("dp", dp),
+                             ("placement", placed), ("a14b", a14b),
+                             ("a14b_part3", part3), ("a14b_part4", part4),
+                             ("slice17", slice17)):
+            row[f"launches_{path}_path"] = [counts.get(n, 0)
+                                            for n in flash_names]
+    kernels.extend(out["19"])
     log(f"peak device memory of the whole run {max(peak, out['8'][4])} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

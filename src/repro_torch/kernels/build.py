@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "kernels"
 SOURCES = ("cs_adam_tiled.cu", "cs_adam.cu", "cs_csr.cu", "cs_ema_tiled.cu",
-           "cs_query.cu", "cs_update.cu")
+           "cs_query.cu", "cs_update.cu", "flash_attn.cu")
 HEADERS = ("cs_common.cuh",)
 ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false",
@@ -62,6 +62,12 @@ SIGNATURES = {
     # S, order, starts, buckets, s, delta, depth, width, csr_width, d, k,
     # stream
     "cs_update_launch": [P] * 6 + [I] * 5 + [P],
+    # q, k, v, o, out, lse, b, sq, skv, hq, hkv, hd, causal, q_offset,
+    # scale, stream
+    "flash_attn_fwd_launch": [P] * 6 + [I] * 8 + [F, P],
+    # q, k, v, o, dout, lse, D, dq, dk, dv, b, sq, skv, hq, hkv, hd,
+    # causal, q_offset, scale, bf16_out, stream
+    "flash_attn_bwd_launch": [P] * 10 + [I] * 8 + [F, I, P],
 }
 
 

@@ -137,8 +137,10 @@ def print_rows(rows, kinds, top: int, device_ms=None) -> None:
         total = sum(r[0] for r in rows[k])
         print(f"\n==== {k}: total {total / 1e12:.4f} T{unit} a step ====")
         for tot, per, n, op, src, idx in rows[k][:top]:
+            # a reported kernel's row has no label, so no device ms
             ms = ("" if device_ms is None or idx is None
-                  else f" {device_ms.get(idx, 0.0):10.4f} ms")
+                  else f" {device_ms[idx]:10.4f} ms" if idx in device_ms
+                  else f" {'-':>10} ms")
             print(f"{tot / 1e9:12.3f} G{unit} per={per / 1e6:12.3f} M{unit}"
                   f" x{n:6d}{ms} {op:22s} {src[:90]}")
 
@@ -184,7 +186,8 @@ def main(argv=None) -> int:
     print(f"\n[breakdown] on {torch.cuda.get_device_name(0)} at batch "
           f"{run_shape.global_batch} x {run_shape.seq_len}: "
           f"{cost.flops:.6e} FLOPs, device {total:.3f} ms, of which "
-          f"{other:.3f} ms outside the counted aten ops")
+          f"{other:.3f} ms outside the counted aten ops (the "
+          f"hand-written kernels' among it)")
     print_rows(collect_rows(cost), [k for k in kinds if k != "collective"],
                args.top, per_row)
     return 0

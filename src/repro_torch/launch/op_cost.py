@@ -15,13 +15,16 @@ or on a card:
     HLO (trip counts, remat) are simply what executes.  Elementwise ops
     and the sketch ops (gathers, scatters, the hand-written kernels,
     which are no aten ops) count no FLOPs, as in the reference, whose
-    Pallas calls are opaque to ``hlo_cost``.
+    Pallas calls are opaque to ``hlo_cost``.  Flash attention's kernels
+    are the exception: they report (``obs.profiling.kernel_work``,
+    ``record_kernel``) the FLOPs of the einsums they stand for, so a
+    step counts the same FLOPs on a card as on ``meta``.
   * **Bytes**: the operands and results of every aten op that is not a
-    view and not a bare allocation.  Every op is its own kernel here,
-    so this is an unfused upper bound; the reference counts bytes at
-    the granularity of XLA's fusions, so the two byte counts differ by
-    design (``dryrun`` records their ratio where a reference record
-    exists).
+    view and not a bare allocation, and of every reported kernel.  Every
+    op is its own kernel here, so this is an unfused upper bound; the
+    reference counts bytes at the granularity of XLA's fusions, so the
+    two byte counts differ by design (``dryrun`` records their ratio
+    where a reference record exists).
   * **Collectives**: a ``StandInAxis`` of size g is a ``dp_axis`` that
     needs no process group.  It returns results of the right shapes
     and records each ``psum``/``pmean`` (an all-reduce) and
@@ -31,8 +34,8 @@ or on a card:
 ``OpCost(sources=True)`` also keeps a row for each (op, source): the
 innermost ``obs.*`` scope (``obs.profiling.scope``) and the innermost
 frame of this package, or the autograd node in a backward pass; with
-``label=True`` each counted op runs inside a ``record_function`` named
-after its row, so a profiler attributes device time to rows
+``label=True`` each counted aten op runs inside a ``record_function``
+named after its row, so a profiler attributes device time to rows
 (``breakdown``).
 """
 from __future__ import annotations
@@ -56,6 +59,8 @@ _FREE = {aten.empty.memory_format, aten.empty_strided.default,
          aten.new_empty_strided.default, aten._unsafe_view.default}
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _HERE = os.path.abspath(__file__)
+# frames that stand between a counted op or kernel and its caller
+_RELAYS = (_HERE, os.path.join(_PACKAGE, "obs", "profiling.py"))
 LABEL = "op_cost#"
 
 
@@ -119,7 +124,7 @@ class OpCost(TorchDispatchMode):
         f = sys._getframe(1)
         while f is not None:
             path = os.path.abspath(f.f_code.co_filename)
-            if path.startswith(_PACKAGE) and path != _HERE:
+            if path.startswith(_PACKAGE) and path not in _RELAYS:
                 rel = os.path.relpath(path, _PACKAGE)
                 return f"{scope} {rel}:{f.f_lineno} {f.f_code.co_name}"
             f = f.f_back
@@ -144,6 +149,32 @@ class OpCost(TorchDispatchMode):
             row[1] += nbytes
             row[2] += link
 
+    def _row(self, op: str) -> Optional[Row]:
+        """The row of ``op`` at its source, made on first use; None
+        without rows."""
+        if self.rows is None:
+            return None
+        key = (op, self._source())
+        row = self.rows.get(key)
+        if row is None:
+            row = self.rows[key] = Row(*key, index=len(self.rows))
+        return row
+
+    def _add(self, row: Optional[Row], flops: float, nbytes: float) -> None:
+        self.flops += flops
+        self.bytes += nbytes
+        if row is not None:
+            row.count += 1
+            row.flops += flops
+            row.bytes += nbytes
+
+    def record_kernel(self, name: str, flops: float, nbytes: float) -> None:
+        """One call of the hand-written kernel ``name`` (through
+        ``obs.profiling.kernel_work``).  Its row carries no label: the
+        profiler does not tie such a kernel's device time to a host span,
+        so ``breakdown`` counts that time outside the rows."""
+        self._add(self._row(name), flops, nbytes)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if func.namespace == "profiler":
@@ -154,12 +185,7 @@ class OpCost(TorchDispatchMode):
             return func(*args, **kwargs)
         if func.is_view or func in _FREE:
             return func(*args, **kwargs)
-        row = None
-        if self.rows is not None:
-            key = (str(func.overloadpacket), self._source())
-            row = self.rows.get(key)
-            if row is None:
-                row = self.rows[key] = Row(*key, index=len(self.rows))
+        row = self._row(str(func.overloadpacket))
         if self.label:
             with torch.profiler.record_function(f"{LABEL}{row.index}"):
                 out = func(*args, **kwargs)
@@ -170,13 +196,8 @@ class OpCost(TorchDispatchMode):
         if packet in self._registry:
             flops = float(self._registry[packet](*args, **kwargs,
                                                  out_val=out))
-        nbytes = float(_tensor_bytes((args, kwargs)) + _tensor_bytes(out))
-        self.flops += flops
-        self.bytes += nbytes
-        if row is not None:
-            row.count += 1
-            row.flops += flops
-            row.bytes += nbytes
+        self._add(row, flops,
+                  float(_tensor_bytes((args, kwargs)) + _tensor_bytes(out)))
         return out
 
 

@@ -10,7 +10,12 @@ attends one query against the whole cache.
 
 Scores, softmax and the products are f32 ``torch.einsum``s, as the
 reference computes them, so the port's numbers follow its f32 online
-softmax; the reference has no Pallas kernel here.
+softmax; the reference has no Pallas kernel here.  That plain math lives
+beside the kernels that stand for it, in ``kernels/flash_attn.py``.  On
+a card, bf16 q, k and v at head_dim 64 or 128 take the flash attention
+kernels (``_FlashKernel``), whose products keep that f32 precision, at
+any length; ``_FlashCore`` is their plain version.  Both forwards, and
+both backwards, run in the span ``obs.attn``.
 
 Layouts:
   q        (b, s, hq, hd)
@@ -21,64 +26,13 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
-from repro_torch.kernels.ref import true_div
+from repro_torch.kernels import flash_attn as fa
+from repro_torch.kernels.flash_attn import (NEG_INF, flash_grads,
+                                            online_softmax, scaled_group)
 from repro_torch.models import common as cm
-
-NEG_INF = -1e30
-
-
-def _group(q: torch.Tensor, hkv: int) -> torch.Tensor:
-    b, s, hq, hd = q.shape
-    return q.reshape(b, s, hkv, hq // hkv, hd)
-
-
-def _scaled_group(q: torch.Tensor, hkv: int) -> torch.Tensor:
-    """(b, sq, hkv, g, hd) f32 queries over √hd."""
-    hd = q.shape[-1]
-    return true_div(_group(q, hkv).to(torch.float32),
-                    float(np.sqrt(np.float32(hd))))
-
-
-def _causal_scores(qg, kb, c_idx: int, chunk: int, q_pos, causal: bool):
-    """Scores (b, hkv, g, sq, chunk) of the pre-scaled queries against one
-    KV chunk, masked to -1e30 past the causal frontier."""
-    s = torch.einsum("bqhgd,bchd->bhgqc", qg, kb.to(torch.float32))
-    if causal:
-        k_pos = c_idx * chunk + torch.arange(chunk, device=qg.device)
-        mask = q_pos[:, None] >= k_pos[None, :]               # (sq, chunk)
-        s = torch.where(mask[None, None, None], s,
-                        torch.full((), NEG_INF, dtype=s.dtype,
-                                   device=s.device))
-    return s
-
-
-def _online_softmax(qg, k, v, *, causal: bool, chunk: int, q_offset: int):
-    """qg (b,sq,hkv,g,hd) pre-scaled f32; k/v (b,skv,hkv,hd).  Returns
-    (out (b,hkv,g,sq,hd) f32, m, l), the running max and sum."""
-    b, sq, hkv, g, hd = qg.shape
-    n_chunks = k.shape[1] // chunk
-    q_pos = q_offset + torch.arange(sq, device=qg.device)
-    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
-                   device=qg.device)
-    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=qg.device)
-    acc = torch.zeros((b, hkv, g, sq, hd), dtype=torch.float32,
-                      device=qg.device)
-    for c in range(n_chunks):
-        kb = k[:, c * chunk:(c + 1) * chunk]
-        vb = v[:, c * chunk:(c + 1) * chunk]
-        s = _causal_scores(qg, kb, c, chunk, q_pos, causal)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + torch.sum(p, dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhgqc,bchd->bhgqd", p, vb.to(torch.float32))
-        m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out, m, l
+from repro_torch.obs.profiling import scope
 
 
 def _ungroup(out: torch.Tensor, dtype) -> torch.Tensor:
@@ -98,8 +52,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunk = min(chunk, skv)
     if skv % chunk != 0:
         chunk = skv  # odd lengths (tests, ragged tails): single chunk
-    out, _, _ = _online_softmax(_scaled_group(q, hkv), k, v, causal=causal,
-                                chunk=chunk, q_offset=q_offset)
+    out, _, _ = online_softmax(scaled_group(q, hkv), k, v, causal=causal,
+                               chunk=chunk, q_offset=q_offset)
     return _ungroup(out, q.dtype)
 
 
@@ -110,7 +64,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     the card with no copy), or a () or (b,) tensor."""
     b, _, hq, hd = q.shape
     S, hkv = cache_k.shape[1], cache_k.shape[2]
-    qg = _scaled_group(q, hkv)                                # (b,1,hkv,g,hd)
+    qg = scaled_group(q, hkv)                               # (b,1,hkv,g,hd)
     s = torch.einsum("bqhgd,bshd->bhgqs", qg, cache_k.to(torch.float32))
     pos = torch.arange(S, device=q.device)
     if isinstance(length, torch.Tensor):
@@ -134,9 +88,9 @@ class _FlashCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, chunk: int, q_offset: int):
         hkv = k.shape[2]
-        qg = _scaled_group(q, hkv)
-        o, m, l = _online_softmax(qg, k, v, causal=causal, chunk=chunk,
-                                  q_offset=q_offset)
+        qg = scaled_group(q, hkv)
+        o, m, l = online_softmax(qg, k, v, causal=causal, chunk=chunk,
+                                 q_offset=q_offset)
         lse = m + torch.log(torch.clamp_min(l, 1e-30))
         ctx.save_for_backward(qg, k, v, o, lse)
         ctx.flash = (causal, chunk, q_offset, q.dtype)
@@ -147,42 +101,70 @@ class _FlashCore(torch.autograd.Function):
         qg, k, v, o, lse = ctx.saved_tensors
         causal, chunk, q_offset, qdt = ctx.flash
         b, sq, hkv, g, hd = qg.shape
-        skv = k.shape[1]
-        do = torch.movedim(
-            dout.to(torch.float32).reshape(b, sq, hkv, g, hd), 1, 3)
-        D = torch.sum(do * o, dim=-1)                     # (b,hkv,g,sq)
-        q_pos = q_offset + torch.arange(sq, device=qg.device)
-        dq = torch.zeros((b, sq, hkv, g, hd), dtype=torch.float32,
-                         device=qg.device)
-        dks, dvs = [], []
-        for c in range(skv // chunk):
-            kb = k[:, c * chunk:(c + 1) * chunk].to(torch.float32)
-            vb = v[:, c * chunk:(c + 1) * chunk].to(torch.float32)
-            s = _causal_scores(qg, kb, c, chunk, q_pos, causal)
-            p = torch.exp(s - lse[..., None])             # (b,hkv,g,sq,c)
-            dvs.append(torch.einsum("bhgqc,bhgqd->bchd", p, do))
-            dp = torch.einsum("bhgqd,bchd->bhgqc", do, vb)
-            ds = p * (dp - D[..., None])
-            dq = dq + torch.einsum("bhgqc,bchd->bqhgd", ds, kb)
-            dks.append(torch.einsum("bhgqc,bqhgd->bchd", ds, qg))
-        scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
-        dq = (dq * scale).reshape(b, sq, hkv * g, hd).to(qdt)
-        dk = torch.cat(dks, dim=1).to(k.dtype)
-        dv = torch.cat(dvs, dim=1).to(v.dtype)
-        return dq, dk, dv, None, None, None
+        with scope("obs.attn"):
+            dq, dk, dv = flash_grads(qg, k, v, o, lse, dout, causal=causal,
+                                     chunk=chunk, q_offset=q_offset)
+            return (dq.reshape(b, sq, hkv * g, hd).to(qdt), dk.to(k.dtype),
+                    dv.to(v.dtype), None, None, None)
+
+
+class _FlashKernel(torch.autograd.Function):
+    """``_FlashCore`` on the card's kernels (``kernels/flash_attn.py``):
+    saves (q, k, v, o, lse), o in f32 as ``_FlashCore`` saves it; the
+    kernels round the f32 gradients to bf16, as ``_FlashCore`` rounds
+    them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, o, lse = fa.flash_attn_fwd(q, k, v, causal, q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.flash = (causal, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, q_offset = ctx.flash
+        with scope("obs.attn"):
+            dq, dk, dv = fa.flash_attn_bwd(
+                q, k, v, o, lse, dout.to(q.dtype).contiguous(), causal,
+                q_offset, out_dtype=q.dtype)
+            return dq, dk, dv, None, None
+
+
+def takes_kernel(q, k, v, q_offset: int = 0) -> bool:
+    """Whether ``flash_attention`` sends a call to the kernels: CUDA
+    tensors, all bf16, head_dim 64 or 128, ``q_offset`` not negative."""
+    return (q.is_cuda and k.is_cuda and v.is_cuda
+            and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] in fa.HEAD_DIMS and q_offset >= 0)
 
 
 def flash_attention(q, k, v, causal: bool = True, chunk: int = 1024,
                     q_offset: int = 0):
     """Memory-linear attention.  q (b,sq,hq,hd); k,v (b,skv,hkv,hd).
-    Matches ``chunked_attention`` to f32 accumulation accuracy; ragged
-    sequence lengths fall back to it."""
-    skv = k.shape[1]
-    chunk = min(chunk, skv)
-    if skv % chunk != 0:
-        return chunked_attention(q, k, v, causal=causal, chunk=chunk,
-                                 q_offset=q_offset)
-    return _FlashCore.apply(q, k, v, causal, chunk, q_offset)
+    Where ``takes_kernel`` holds, the kernels take the call at any
+    length (``chunk`` means nothing to them).  Otherwise ``_FlashCore``
+    over KV chunks, which matches ``chunked_attention`` to f32
+    accumulation accuracy; a length the chunk does not divide falls back
+    to ``chunked_attention``.  ``calls`` counts every call,
+    ``kernel_calls`` those that took the kernels."""
+    flash_attention.calls += 1
+    with scope("obs.attn"):
+        if takes_kernel(q, k, v, q_offset):
+            flash_attention.kernel_calls += 1
+            return _FlashKernel.apply(q, k, v, causal, q_offset)
+        skv = k.shape[1]
+        chunk = min(chunk, skv)
+        if skv % chunk != 0:
+            return chunked_attention(q, k, v, causal=causal, chunk=chunk,
+                                     q_offset=q_offset)
+        return _FlashCore.apply(q, k, v, causal, chunk, q_offset)
+
+
+flash_attention.calls = 0
+flash_attention.kernel_calls = 0
 
 
 def attn_init(generator, d_model: int, n_heads: int, n_kv: int,

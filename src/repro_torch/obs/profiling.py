@@ -7,6 +7,9 @@ Counterpart of ``repro.obs.profiling``:
     launched, while a profiler (or a dispatch mode, such as
     ``launch.op_cost.OpCost``, which reads the spans) runs; otherwise a
     no-op context, so a span costs a check of the profiler's state;
+  * ``kernel_work(name, flops, tensors)`` - reports a hand-written
+    kernel's call to a dispatch mode that counts work (``OpCost``),
+    which sees no such kernel otherwise; free when none runs;
   * ``PhaseTimer.phase(name)`` - host-side spans around a loop's phases
     (data / step / checkpoint).  Each span is a ``record_function`` (and
     an NVTX range when CUDA is up) AND accumulates wall time, drained into
@@ -27,10 +30,11 @@ import contextlib
 import os
 import pathlib
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 
 _OFF = contextlib.nullcontext()
@@ -45,6 +49,22 @@ def scope(name: str):
             or torch._C._len_torch_dispatch_stack():
         return torch.profiler.record_function(name)
     return _OFF
+
+
+def kernel_work(name: str, flops: float,
+                tensors: Sequence[torch.Tensor]) -> None:
+    """Reports one call of a hand-written kernel.  Such a kernel is no
+    aten op, so a dispatch mode never sees it: the innermost mode with a
+    ``record_kernel`` method (``launch.op_cost.OpCost``) is handed its
+    ``name``, ``flops`` and the bytes of ``tensors`` (its operands and
+    results).  With no dispatch mode running it does nothing."""
+    if not torch._C._len_torch_dispatch_stack():
+        return
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        record = getattr(mode, "record_kernel", None)
+        if record is not None:
+            record(name, float(flops), float(sum(t.nbytes for t in tensors)))
+            return
 
 
 @contextlib.contextmanager

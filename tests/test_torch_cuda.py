@@ -29,7 +29,10 @@ equals ``xla`` and itself to the bit (also whisper-medium's and
 internvl2-2b's, with their stub frames and patches) and follows a CPU copy (losses
 rtol 1e-4, state rtol 1e-4/atol 1e-5), flash attention matches the
 CPU's within the reference's envelopes (atol 1e-4 forward, 1e-3
-gradients), and decode matches the prefill of its prefix.
+gradients), and decode matches the prefill of its prefix.  The flash
+attention kernels (bf16 q, k, v) match their plain versions' f32 o,
+lse, dq, dk and dv within ``FLASH_TOL`` by norm, where P rounded to
+bf16 does not, and give the same bits twice.
 """
 import numpy as np
 import pytest
@@ -1227,3 +1230,143 @@ def test_sharded_step_on_the_card_equals_dp_step(cuda_device):
         assert torch.equal(got[0], other[0])
         for key in ("m", "v", "residual"):
             assert torch.equal(got[1][key], other[1][key]), key
+
+
+# ------------------------------------------------------- flash attention
+# The kernels (kernels/flash_attn.py) against their plain versions, the
+# einsum path in the kernels' layouts, on the card.  Each tensor's gap is
+# the norm of the difference over the norm of the plain one.  The
+# kernels and the plain versions add the same exact bf16 products (P and
+# dS as exact three-term bf16 splits) in another order, so they differ
+# by f32 accumulation: FLASH_TOL, 4.5x the largest gap these cases read
+# on an H100 (2.2e-6, dK and dV of the qwen2 case, whose sums run over
+# the 14,336 query rows of a group).  The control, the plain forward and
+# dV with P rounded to one bf16 (a precision cut), reads 1.5e-3 to
+# 1.7e-3, 150x above it.
+FLASH_TOL = 1e-5
+FLASH_CASES = {
+    # b, sq, skv, hq, hkv, hd, causal, q_offset
+    "qwen2": (1, 2048, 2048, 14, 2, 64, True, 0),
+    "hd128_offset": (1, 512, 1024, 8, 2, 128, True, 512),
+    "hd64_full": (2, 256, 512, 8, 4, 64, False, 0),
+    "ragged": (2, 100, 100, 6, 2, 64, True, 0),
+    # whisper-medium's cross attention: 448 decoder positions against
+    # 1,500 encoder frames, a length no chunk of 1,024 divides
+    "whisper_cross": (1, 448, 1500, 16, 16, 64, False, 0),
+}
+
+
+def _flash_inputs(case, dev, seed=0):
+    b, sq, skv, hq, hkv, hd, causal, q_offset = FLASH_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.randn((b, sq, hq, hd), generator=gen, device=dev).to(bf)
+    k = torch.randn((b, skv, hkv, hd), generator=gen, device=dev).to(bf)
+    v = torch.randn((b, skv, hkv, hd), generator=gen, device=dev).to(bf)
+    dout = torch.randn((b, sq, hq, hd), generator=gen, device=dev).to(bf)
+    return q, k, v, dout, causal, q_offset
+
+
+def _gap(got, want) -> float:
+    return float(torch.linalg.vector_norm((got - want).double())
+                 / torch.linalg.vector_norm(want.double()))
+
+
+def _bf16_p_control(q, k, v, dout, lse, causal, q_offset):
+    """The plain forward's o and the backward's dV in one KV chunk, with
+    P rounded to bf16 before its products."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.float().reshape(b, sq, hkv, g, hd) / float(np.sqrt(hd))
+    s = torch.einsum("bqhgd,bchd->bhgqc", qg, k.float())
+    if causal:
+        q_pos = q_offset + torch.arange(sq, device=q.device)
+        mask = q_pos[:, None] >= torch.arange(skv, device=q.device)[None]
+        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    lg = lse.reshape(b, hkv, sq, g).transpose(2, 3)
+    p = torch.exp(s - lg[..., None]).to(torch.bfloat16).float()
+    o = torch.einsum("bhgqc,bchd->bqhgd", p, v.float()).reshape(q.shape)
+    do = torch.movedim(dout.float().reshape(b, sq, hkv, g, hd), 1, 3)
+    dv = torch.einsum("bhgqc,bhgqd->bchd", p, do)
+    return o, dv
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernels_match_plain(cuda_device, case):
+    from repro_torch.kernels import flash_attn as fa
+    q, k, v, dout, causal, q_offset = _flash_inputs(case, cuda_device)
+    f0, b0 = fa.flash_attn_fwd.launches, fa.flash_attn_bwd.launches
+    out, o, lse = fa.flash_attn_fwd(q, k, v, causal, q_offset)
+    grads = fa.flash_attn_bwd(q, k, v, o, lse, dout, causal, q_offset)
+    torch.cuda.synchronize()
+    assert (fa.flash_attn_fwd.launches - f0,
+            fa.flash_attn_bwd.launches - b0) == (1, 1)
+    p_out, p_o, p_lse = fa.flash_attn_fwd_plain(q, k, v, causal, q_offset)
+    p_grads = fa.flash_attn_bwd_plain(q, k, v, p_o, p_lse, dout, causal,
+                                      q_offset)
+    gaps = {"o": _gap(o, p_o), "lse": _gap(lse, p_lse)}
+    for name, a, w in zip(("dq", "dk", "dv"), grads, p_grads):
+        gaps[name] = _gap(a, w)
+    ctrl_o, ctrl_dv = _bf16_p_control(q, k, v, dout, p_lse, causal,
+                                      q_offset)
+    control = {"o": _gap(ctrl_o, p_o), "dv": _gap(ctrl_dv, p_grads[2])}
+    print(f"flash {case}: gaps {gaps}, bf16-P control {control}")
+    assert all(x <= FLASH_TOL for x in gaps.values()), gaps
+    assert all(x > FLASH_TOL for x in control.values()), control
+    assert torch.equal(out, o.to(torch.bfloat16))
+    # the backward again on the same inputs: the same bits
+    again = fa.flash_attn_bwd(q, k, v, o, lse, dout, causal, q_offset)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    # bf16 gradients, as the autograd path asks: the f32 ones rounded
+    bf = fa.flash_attn_bwd(q, k, v, o, lse, dout, causal, q_offset,
+                           out_dtype=torch.bfloat16)
+    assert all(a.dtype == torch.bfloat16 and torch.equal(a, b.to(a.dtype))
+               for a, b in zip(bf, grads))
+
+
+def test_flash_attention_routes_and_counts_on_the_card(cuda_device):
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models import attention as A
+    q, k, v, dout, causal, q_offset = _flash_inputs("qwen2", cuda_device)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = (A.flash_attention.calls, A.flash_attention.kernel_calls,
+              fa.flash_attn_fwd.launches, fa.flash_attn_bwd.launches)
+    out = A.flash_attention(*xs, True, 1024, 0)
+    assert fa.flash_attn_fwd.launches == counts[2] + 1
+    out.backward(dout)
+    assert (A.flash_attention.calls, A.flash_attention.kernel_calls,
+            fa.flash_attn_fwd.launches, fa.flash_attn_bwd.launches) == \
+        tuple(c + 1 for c in counts)
+    want = [t.clone().requires_grad_() for t in (q, k, v)]
+    w_out = A._FlashCore.apply(*want, True, 1024, 0)
+    w_out.backward(dout)
+    # bf16 results: the einsum path's within one bf16 rounding of f32
+    # accumulation gaps
+    torch.testing.assert_close(out, w_out, rtol=1e-2, atol=1e-2)
+    for a, w in zip(xs, want):
+        assert _gap(a.grad.float(), w.grad.float()) < 4e-3
+    # a length the chunk does not divide takes the kernels too
+    n = fa.flash_attn_fwd.launches
+    qw, kw, vw, _dw, _c, _o = _flash_inputs("whisper_cross", cuda_device)
+    A.flash_attention(qw, kw, vw, False, 1024, 0)
+    assert fa.flash_attn_fwd.launches == n + 1
+    # f32 and other head dims keep the einsum path on the card
+    n = fa.flash_attn_fwd.launches
+    A.flash_attention(q.float(), k.float(), v.float(), True, 1024, 0)
+    A.flash_attention(q[..., :32], k[..., :32], v[..., :32], True, 1024, 0)
+    assert fa.flash_attn_fwd.launches == n
+
+
+def test_flash_attention_wrappers_reject_bad_inputs(cuda_device):
+    from repro_torch.kernels import flash_attn as fa
+    q, k, v, _dout, _c, _o = _flash_inputs("ragged", cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attn_fwd(q.float(), k, v, True, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attn_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                          v[..., :32].contiguous(), True, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attn_fwd(q.transpose(1, 2), k, v, True, 0)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attn_fwd(q, k, v, True, -1)

@@ -153,6 +153,8 @@ def test_lm_step_stages_are_spans(arch):
     params, state, _m = ts.step_fn(params, state, batch)
     _out, events = _profiled(lambda: ts.step_fn(params, state, batch))
     spans = _spans(events)
+    attn = [s for s in spans if s[0] == "obs.attn"]
+    spans = [s for s in spans if s[0] != "obs.attn"]
     names = [n for n, _a, _b in spans]
     assert names == ["obs.grad", "obs.forward", "obs.backward", "obs.clip",
                      "obs.kernel", "obs.apply"]
@@ -164,6 +166,14 @@ def test_lm_step_stages_are_spans(arch):
     assert _disjoint(top)
     assert _disjoint([s for s in spans if s[0] in ("obs.forward",
                                                    "obs.backward")])
+    # attention's forward, its recompute under remat and its backward,
+    # a layer each, inside the forward's and the backward's spans
+    cfg = configs.get(arch).reduced()
+    n_attn = cfg.n_layers if cfg.family == "gqa" else 0
+    assert len(attn) == 3 * n_attn
+    assert all(any(by[o][0] <= a and b <= by[o][1]
+                   for o in ("obs.forward", "obs.backward"))
+               for _n, a, b in attn)
     rest = _outside(events, spans)
     # the loss's cast to f32 for the metrics, a 0-d tensor
     assert all(_scalar(s) for _n, s in rest), rest

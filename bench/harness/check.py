@@ -34,8 +34,17 @@ floors the scale is the group's own):
 * ``change_layers_gap``: each layer leaf's change across the steps,
   leaving out the same negligible leaves as ``change_gap``.
 
+And the layers' second moment once more, with the program's norms first
+divided by their median ratio to the reference's, so that a factor
+common to every layer leaf drops out, such as the clip's scale, which
+the global norm over every leaf, the tables' too, sets for all layers
+alike.  What is left is how the gradient spreads over the leaves, which
+a coarser precision or a lost part of the batch changes leaf by leaf:
+
+* ``moment2_layers_shape_gap``.
+
 A group with no leaf reads None.  A gap that is not a number fails.  A
-tensor the program lacks reads 1.
+tensor the program lacks, or a group it leaves at zero, reads 1.
 """
 from __future__ import annotations
 
@@ -45,7 +54,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 NUMBERS = ("loss_gap", "loss1_gap", "state_gap", "change_gap",
            "state_layers_gap", "moment2_layers_gap", "state_tables_gap",
-           "change_layers_gap")
+           "change_layers_gap", "moment2_layers_shape_gap")
 NEGLIGIBLE_GRAD = 1e-3
 
 
@@ -55,24 +64,41 @@ def _rel(p: float, r: float, scale: float) -> float:
     return abs(p - r) / scale
 
 
+def _most(gaps) -> float:
+    """The largest gap; a gap that is not a number is the result, wherever
+    it stands."""
+    gaps = list(gaps)
+    return math.nan if any(map(math.isnan, gaps)) else max(gaps, default=0.0)
+
+
 def _worst(prog: Dict[str, float], ref: Dict[str, float],
-           keys, look: Dict[str, float] = None) -> Optional[float]:
+           keys, look: Dict[str, float] = None,
+           shape: bool = False) -> Optional[float]:
+    """The worst gap over ``keys``; with ``shape``, the program's norms
+    are first divided by their median ratio to the reference's."""
     if not keys:
         return None
+    if any(k not in prog for k in keys):
+        return 1.0
+    common = 1.0
+    if shape:
+        ratios = [prog[k] / ref[k] for k in keys if ref[k] > 0]
+        if any(map(math.isnan, ratios)):
+            return math.nan
+        common = statistics.median(ratios) if ratios else 0.0
+        if common == 0.0:
+            return 1.0
     groups: Dict[str, list] = {}
     for k in keys:
         groups.setdefault(k.split("/", 1)[0], []).append(ref[k])
     med = {g: statistics.median(v) for g, v in groups.items()}
-    worst = 0.0
+    out = {}
     for k in keys:
-        if k not in prog:
-            return 1.0
         scale = max(ref[k], med[k.split("/", 1)[0]])
-        gap = _rel(prog[k], ref[k], scale)
-        if look is not None:
-            look[k] = gap
-        worst = max(worst, gap)
-    return worst
+        out[k] = _rel(prog[k] / common, ref[k], scale)
+    if look is not None:
+        look.update(out)
+    return _most(out.values())
 
 
 def gaps(prog: dict, ref: dict, look: Dict[str, float] = None,
@@ -96,13 +122,15 @@ def gaps(prog: dict, ref: dict, look: Dict[str, float] = None,
     c_p = {"p/" + k: v for k, v in prog["change"].items()}
     c_r = {"p/" + k: ref["change"][k] for k in moved}
     layers = ["p/" + k for k in moved if k not in sketched]
-    return {"loss_gap": max(losses), "loss1_gap": losses[0],
+    return {"loss_gap": _most(losses), "loss1_gap": losses[0],
             "state_gap": _worst(s_p, s_r, state("m"), look),
             "change_gap": _worst(c_p, c_r, list(c_r), look),
             "state_layers_gap": _worst(s_p, s_r, state("m", False)),
             "moment2_layers_gap": _worst(s_p, s_r, state("v", False), look),
             "state_tables_gap": _worst(s_p, s_r, state("m", True)),
-            "change_layers_gap": _worst(c_p, c_r, layers)}
+            "change_layers_gap": _worst(c_p, c_r, layers),
+            "moment2_layers_shape_gap": _worst(s_p, s_r, state("v", False),
+                                               shape=True)}
 
 
 def verdict(numbers: Dict[str, float], limits: Dict[str, float]

@@ -11,14 +11,14 @@ def _arch(cell):
 
 
 def test_parameter_counts():
-    assert arith.gqa_params(_arch("qwen2-0.5b.lm_train")) == 494_032_768
+    assert arith.gqa_params(_arch("qwen2-0.5b.lm_train_b8")) == 494_032_768
     assert arith.rwkv6_params(_arch("rwkv6-7b.lm_train")) == 2_017_857_536
 
 
 def test_parameter_counts_match_the_port_on_meta():
     from repro_torch.train import steps
     from harness.kinds.lm_train import arch_config
-    for cell in ("qwen2-0.5b.lm_train", "rwkv6-7b.lm_train"):
+    for cell in ("qwen2-0.5b.lm_train_b8", "rwkv6-7b.lm_train"):
         spec = manifest.cell(cell)
         cfg = arch_config(spec.config)
         p = steps.family_module(cfg).init(None, cfg, device="meta")
@@ -28,7 +28,7 @@ def test_parameter_counts_match_the_port_on_meta():
 
 
 def test_flops_per_token():
-    q = _arch("qwen2-0.5b.lm_train")
+    q = _arch("qwen2-0.5b.lm_train_b8")
     assert arith.mixer_flops_per_token(q, 2048) == 528_482_304
     assert arith.lm_flops_per_token(q, 2048) == 3_492_678_912
     r = _arch("rwkv6-7b.lm_train")
@@ -51,7 +51,7 @@ def test_sparse_step_bytes():
 
 
 def test_configs_keep_the_published_widths():
-    for cell, keys in (("qwen2-0.5b.lm_train",
+    for cell, keys in (("qwen2-0.5b.lm_train_b8",
                         {"d_model": "hidden_size", "d_ff": "intermediate_size",
                          "n_heads": "num_attention_heads",
                          "n_kv": "num_key_value_heads",
@@ -64,4 +64,4 @@ def test_configs_keep_the_published_widths():
         for ours, theirs in keys.items():
             assert conf["arch"][ours] == conf["published"][theirs]
     assert _arch("rwkv6-7b.lm_train")["n_layers"] == 8
-    assert _arch("qwen2-0.5b.lm_train")["n_layers"] == 24
+    assert _arch("qwen2-0.5b.lm_train_b8")["n_layers"] == 24

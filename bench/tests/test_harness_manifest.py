@@ -61,6 +61,14 @@ def test_moves_is_reported_in_each_of_its_metrics_cells():
         assert set(m["workloads"]) <= e2e[m["moves"]], m["name"]
 
 
+def test_metric_lists_name_only_cells_whose_files_exist():
+    for m in M["end_to_end"] + M["per_layer"]:
+        assert set(m.get("workloads", CELLS)) <= set(CELLS), m["name"]
+    for w in M["workloads"]:
+        assert (BENCH / "traffic" / f"{w['traffic']}.json").is_file()
+        assert (BENCH / "limits" / f"{w['name']}.json").is_file()
+
+
 def test_layers_are_named_alike():
     layers = {m["layer"] for m in M["per_layer"]}
     assert layers == {"whole step", "model forward and backward",

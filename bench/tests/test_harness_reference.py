@@ -61,7 +61,7 @@ def test_sparse_reference_is_the_ports_xla_step():
     torch.testing.assert_close(sk.V, state["v"], rtol=1e-6, atol=1e-9)
 
 
-@pytest.mark.parametrize("cell,model", [("qwen2-0.5b.lm_train", gqa),
+@pytest.mark.parametrize("cell,model", [("qwen2-0.5b.lm_train_b8", gqa),
                                         ("rwkv6-7b.lm_train", rwkv6)])
 def test_model_references_are_the_ports_loss(cell, model):
     from repro_torch.train.steps import family_module

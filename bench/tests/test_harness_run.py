@@ -6,6 +6,7 @@ control, the precision below the configuration's, does too."""
 from __future__ import annotations
 
 import copy
+import math
 import subprocess
 import sys
 import time
@@ -16,7 +17,7 @@ import torch
 from harness_tiny import BENCH, ROOT, tiny_spec
 from harness.runner import run_cell
 
-CELLS = ["qwen2-0.5b.sparse_rows", "qwen2-0.5b.lm_train",
+CELLS = ["qwen2-0.5b.sparse_rows", "qwen2-0.5b.lm_train_b8",
          "rwkv6-7b.lm_train"]
 
 
@@ -111,8 +112,47 @@ def test_numbers_split_the_layers_from_the_sketched_tables():
     assert not check.verdict(alone, {"state_layers_gap": 1.0})[0]
 
 
+def test_shape_numbers_take_out_a_factor_common_to_the_layers():
+    from harness import check
+    keys = ("w", "u", "b")
+    ref = {"loss": [2.0], "grad1": dict.fromkeys(keys, 1.0),
+           "state1": {f"{m}/{k}": 1.0 for m in "mv" for k in keys},
+           "change": dict.fromkeys(keys, 1.0)}
+    scaled = {"loss": [2.0], "change": ref["change"],
+              "state1": {k: 1.01 for k in ref["state1"]}}
+    got = check.gaps(scaled, ref)
+    assert got["moment2_layers_gap"] == pytest.approx(0.01)
+    assert got["moment2_layers_shape_gap"] == pytest.approx(0.0)
+    one_leaf = dict(scaled, state1=dict(scaled["state1"], **{"v/u": 1.212}))
+    got = check.gaps(one_leaf, ref)
+    assert got["moment2_layers_shape_gap"] == pytest.approx(0.2)
+    zero = dict(scaled, state1=dict.fromkeys(ref["state1"], 0.0))
+    assert check.gaps(zero, ref)["moment2_layers_shape_gap"] == 1.0
+
+
+@pytest.mark.parametrize("leaf", ["b", "u", "w"])
+@pytest.mark.parametrize("moment,number", [
+    ("m", "state_layers_gap"), ("v", "moment2_layers_gap"),
+    ("v", "moment2_layers_shape_gap"), ("loss", "loss_gap")])
+def test_a_gap_that_is_not_a_number_is_not_passed_over(leaf, moment, number):
+    from harness import check
+    keys = ("w", "u", "b")
+    ref = {"loss": [2.0, 2.0, 2.0], "grad1": dict.fromkeys(keys, 1.0),
+           "state1": {f"{m}/{k}": 1.0 for m in "mv" for k in keys},
+           "change": dict.fromkeys(keys, 1.0)}
+    prog = {"loss": list(ref["loss"]), "change": ref["change"],
+            "state1": dict(ref["state1"])}
+    if moment == "loss":
+        prog["loss"][sorted(keys).index(leaf)] = float("nan")
+    else:
+        prog["state1"][f"{moment}/{leaf}"] = float("nan")
+    got = check.gaps(prog, ref)
+    assert math.isnan(got[number])
+    assert not check.verdict(got, {number: 1.0})[0]
+
+
 def test_traced_run_reports_what_a_cpu_can_count():
-    res = _run(tiny_spec("qwen2-0.5b.lm_train"), trace=True)
+    res = _run(tiny_spec("qwen2-0.5b.lm_train_b8"), trace=True)
     assert set(res["metrics"]) == {"step_mfu.lm", "opt_state_gib"}
 
 

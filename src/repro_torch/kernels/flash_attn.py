@@ -27,7 +27,7 @@ any device: the tests hold the kernels to them.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,17 +40,23 @@ HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
 
 
-def scale_of(hd: int) -> float:
-    """The softmax scale ``f32(1) / sqrt(f32(hd))``, as the plain
-    backward multiplies dq by it."""
+def scale_of(hd: int, scale: Optional[float] = None) -> float:
+    """The softmax scale: ``scale``, or by default ``f32(1) /
+    sqrt(f32(hd))``, as the plain backward multiplies dq by it."""
+    if scale is not None:
+        return float(np.float32(scale))
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
-def scaled_group(q: torch.Tensor, hkv: int) -> torch.Tensor:
-    """(b, sq, hq, hd) -> (b, sq, hkv, g, hd) f32 queries over √hd."""
+def scaled_group(q: torch.Tensor, hkv: int,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """(b, sq, hq, hd) -> (b, sq, hkv, g, hd) f32 queries over √hd, or
+    times ``scale`` where one is given."""
     b, s, hq, hd = q.shape
-    return true_div(q.reshape(b, s, hkv, hq // hkv, hd).to(torch.float32),
-                    float(np.sqrt(np.float32(hd))))
+    qg = q.reshape(b, s, hkv, hq // hkv, hd).to(torch.float32)
+    if scale is not None:
+        return qg * scale_of(hd, scale)
+    return true_div(qg, float(np.sqrt(np.float32(hd))))
 
 
 def causal_scores(qg, kb, c_idx: int, chunk: int, q_pos, causal: bool):
@@ -93,11 +99,12 @@ def online_softmax(qg, k, v, *, causal: bool, chunk: int, q_offset: int):
 
 
 def flash_grads(qg, k, v, o, lse, dout, *, causal: bool, chunk: int,
-                q_offset: int):
+                q_offset: int, scale: Optional[float] = None):
     """The backward of ``online_softmax`` in f32: qg (b,sq,hkv,g,hd)
-    pre-scaled, o (b,hkv,g,sq,hd), lse (b,hkv,g,sq), dout (b,sq,hq,hd).
-    Returns (dq (b,sq,hkv,g,hd), dk, dv (b,skv,hkv,hd)), each chunk's
-    probabilities formed again from lse."""
+    pre-scaled by ``scale_of(hd, scale)``, o (b,hkv,g,sq,hd), lse
+    (b,hkv,g,sq), dout (b,sq,hq,hd).  Returns (dq (b,sq,hkv,g,hd), dk,
+    dv (b,skv,hkv,hd)), each chunk's probabilities formed again from
+    lse."""
     b, sq, hkv, g, hd = qg.shape
     skv = k.shape[1]
     do = torch.movedim(
@@ -117,7 +124,8 @@ def flash_grads(qg, k, v, o, lse, dout, *, causal: bool, chunk: int,
         ds = p * (dp - D[..., None])
         dq = dq + torch.einsum("bhgqc,bchd->bqhgd", ds, kb)
         dks.append(torch.einsum("bhgqc,bqhgd->bchd", ds, qg))
-    return dq * scale_of(hd), torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+    return (dq * scale_of(hd, scale), torch.cat(dks, dim=1),
+            torch.cat(dvs, dim=1))
 
 
 def plain_flops(q: torch.Tensor, k: torch.Tensor, backward: bool) -> float:
@@ -140,11 +148,12 @@ def _lse_rows(lse: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attn_fwd_plain(q, k, v, causal: bool, q_offset: int,
-                         chunk: int = 1024):
+                         chunk: int = 1024, scale: Optional[float] = None):
     """``flash_attn_fwd`` by the einsums of ``online_softmax``."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    o, m, l = online_softmax(scaled_group(q, hkv), k, v, causal=causal,
+    o, m, l = online_softmax(scaled_group(q, hkv, scale), k, v,
+                             causal=causal,
                              chunk=_chunk(skv, chunk), q_offset=q_offset)
     lse = m + torch.log(torch.clamp_min(l, 1e-30))
     o = torch.movedim(o, 3, 1).reshape(b, sq, hq, hd)
@@ -152,16 +161,17 @@ def flash_attn_fwd_plain(q, k, v, causal: bool, q_offset: int,
 
 
 def flash_attn_bwd_plain(q, k, v, o, lse, dout, causal: bool,
-                         q_offset: int, chunk: int = 1024):
+                         q_offset: int, chunk: int = 1024,
+                         scale: Optional[float] = None):
     """``flash_attn_bwd`` by ``flash_grads`` (f32 results)."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     og = torch.movedim(o.reshape(b, sq, hkv, g, hd), 1, 3)
     lg = lse.reshape(b, hkv, sq, g).transpose(2, 3)
-    dq, dk, dv = flash_grads(scaled_group(q, hkv), k, v, og, lg, dout,
-                             causal=causal, chunk=_chunk(skv, chunk),
-                             q_offset=q_offset)
+    dq, dk, dv = flash_grads(scaled_group(q, hkv, scale), k, v, og, lg,
+                             dout, causal=causal, chunk=_chunk(skv, chunk),
+                             q_offset=q_offset, scale=scale)
     return dq.reshape(b, sq, hq, hd), dk, dv
 
 
@@ -193,9 +203,11 @@ def _check(name: str, q, k, v, q_offset: int, **more) -> None:
 
 
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool, q_offset: int
+                   causal: bool, q_offset: int,
+                   scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q (b, sq, hq, hd), k and v (b, skv, hkv, hd), bf16.  Returns
+    """q (b, sq, hq, hd), k and v (b, skv, hkv, hd), bf16; the softmax
+    scale ``scale_of(hd, scale)``.  Returns
     ``(out, o, lse)``: out (b, sq, hq, hd) bf16, the rounding of the f32
     o of the same shape, and lse (b, hkv, sq * g) f32, row ``r`` of KV
     head ``h`` being position ``r // g`` of query head ``h * g + r % g``."""
@@ -212,7 +224,7 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.flash_attn_fwd_launch(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
             build.ptr(out), build.ptr(lse), b, sq, skv, hq, hkv, hd,
-            int(causal), int(q_offset), scale_of(hd),
+            int(causal), int(q_offset), scale_of(hd, scale),
             build.stream_handle(dev))
     build.check_launch(rc, "flash_attn_fwd")
     flash_attn_fwd.launches += 1
@@ -224,7 +236,8 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                    causal: bool, q_offset: int,
-                   out_dtype: torch.dtype = torch.float32
+                   out_dtype: torch.dtype = torch.float32,
+                   scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward of ``flash_attn_fwd`` for ``dout`` (q's shape, bf16).
     Returns ``(dq, dk, dv)`` in q's and k's shapes: f32, or with
@@ -251,7 +264,7 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
             build.ptr(dout), build.ptr(lse), build.ptr(D), build.ptr(dq),
             build.ptr(dk), build.ptr(dv), b, sq, skv, hq, hkv, hd,
-            int(causal), int(q_offset), scale_of(hd),
+            int(causal), int(q_offset), scale_of(hd, scale),
             int(out_dtype == torch.bfloat16), build.stream_handle(dev))
     build.check_launch(rc, "flash_attn_bwd")
     flash_attn_bwd.launches += 1

@@ -24,7 +24,7 @@ Layouts:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,17 +43,18 @@ def _ungroup(out: torch.Tensor, dtype) -> torch.Tensor:
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, chunk: int = 1024,
-                      q_offset: int = 0) -> torch.Tensor:
+                      q_offset: int = 0,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention over KV chunks, differentiated by
     autograd (the tests' oracle).  q (b,sq,hq,hd); k,v (b,skv,hkv,hd);
-    ``q_offset``: absolute position of q[0] relative to k[0].  Returns
-    (b,sq,hq,hd)."""
+    ``q_offset``: absolute position of q[0] relative to k[0]; ``scale``
+    the softmax scale (default 1/√hd).  Returns (b,sq,hq,hd)."""
     skv, hkv = k.shape[1], k.shape[2]
     chunk = min(chunk, skv)
     if skv % chunk != 0:
         chunk = skv  # odd lengths (tests, ragged tails): single chunk
-    out, _, _ = online_softmax(scaled_group(q, hkv), k, v, causal=causal,
-                               chunk=chunk, q_offset=q_offset)
+    out, _, _ = online_softmax(scaled_group(q, hkv, scale), k, v,
+                               causal=causal, chunk=chunk, q_offset=q_offset)
     return _ungroup(out, q.dtype)
 
 
@@ -86,26 +87,28 @@ class _FlashCore(torch.autograd.Function):
     lse) and runs the chunked backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, chunk: int, q_offset: int):
+    def forward(ctx, q, k, v, causal: bool, chunk: int, q_offset: int,
+                scale=None):
         hkv = k.shape[2]
-        qg = scaled_group(q, hkv)
+        qg = scaled_group(q, hkv, scale)
         o, m, l = online_softmax(qg, k, v, causal=causal, chunk=chunk,
                                  q_offset=q_offset)
         lse = m + torch.log(torch.clamp_min(l, 1e-30))
         ctx.save_for_backward(qg, k, v, o, lse)
-        ctx.flash = (causal, chunk, q_offset, q.dtype)
+        ctx.flash = (causal, chunk, q_offset, q.dtype, scale)
         return _ungroup(o, q.dtype)
 
     @staticmethod
     def backward(ctx, dout):
         qg, k, v, o, lse = ctx.saved_tensors
-        causal, chunk, q_offset, qdt = ctx.flash
+        causal, chunk, q_offset, qdt, scale = ctx.flash
         b, sq, hkv, g, hd = qg.shape
         with scope("obs.attn"):
             dq, dk, dv = flash_grads(qg, k, v, o, lse, dout, causal=causal,
-                                     chunk=chunk, q_offset=q_offset)
+                                     chunk=chunk, q_offset=q_offset,
+                                     scale=scale)
             return (dq.reshape(b, sq, hkv * g, hd).to(qdt), dk.to(k.dtype),
-                    dv.to(v.dtype), None, None, None)
+                    dv.to(v.dtype), None, None, None, None)
 
 
 class _FlashKernel(torch.autograd.Function):
@@ -115,22 +118,23 @@ class _FlashKernel(torch.autograd.Function):
     them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+    def forward(ctx, q, k, v, causal: bool, q_offset: int, scale=None):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, o, lse = fa.flash_attn_fwd(q, k, v, causal, q_offset)
+        out, o, lse = fa.flash_attn_fwd(q, k, v, causal, q_offset,
+                                        scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.flash = (causal, q_offset)
+        ctx.flash = (causal, q_offset, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, q_offset = ctx.flash
+        causal, q_offset, scale = ctx.flash
         with scope("obs.attn"):
             dq, dk, dv = fa.flash_attn_bwd(
                 q, k, v, o, lse, dout.to(q.dtype).contiguous(), causal,
-                q_offset, out_dtype=q.dtype)
-            return dq, dk, dv, None, None
+                q_offset, out_dtype=q.dtype, scale=scale)
+            return dq, dk, dv, None, None, None
 
 
 def takes_kernel(q, k, v, q_offset: int = 0) -> bool:
@@ -142,8 +146,9 @@ def takes_kernel(q, k, v, q_offset: int = 0) -> bool:
 
 
 def flash_attention(q, k, v, causal: bool = True, chunk: int = 1024,
-                    q_offset: int = 0):
-    """Memory-linear attention.  q (b,sq,hq,hd); k,v (b,skv,hkv,hd).
+                    q_offset: int = 0, scale: Optional[float] = None):
+    """Memory-linear attention.  q (b,sq,hq,hd); k,v (b,skv,hkv,hd);
+    ``scale`` the softmax scale, by default 1/√hd.
     Where ``takes_kernel`` holds, the kernels take the call at any
     length (``chunk`` means nothing to them).  Otherwise ``_FlashCore``
     over KV chunks, which matches ``chunked_attention`` to f32
@@ -154,13 +159,13 @@ def flash_attention(q, k, v, causal: bool = True, chunk: int = 1024,
     with scope("obs.attn"):
         if takes_kernel(q, k, v, q_offset):
             flash_attention.kernel_calls += 1
-            return _FlashKernel.apply(q, k, v, causal, q_offset)
+            return _FlashKernel.apply(q, k, v, causal, q_offset, scale)
         skv = k.shape[1]
         chunk = min(chunk, skv)
         if skv % chunk != 0:
             return chunked_attention(q, k, v, causal=causal, chunk=chunk,
-                                     q_offset=q_offset)
-        return _FlashCore.apply(q, k, v, causal, chunk, q_offset)
+                                     q_offset=q_offset, scale=scale)
+        return _FlashCore.apply(q, k, v, causal, chunk, q_offset, scale)
 
 
 flash_attention.calls = 0

@@ -153,24 +153,28 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     return _masked_mean(logz - gold, mask)
 
 
-def _xent_chunk(xc: torch.Tensor, lc: torch.Tensor, table: torch.Tensor
-                ) -> torch.Tensor:
+def _xent_chunk(xc: torch.Tensor, lc: torch.Tensor, table: torch.Tensor,
+                divisor: float = 1.0) -> torch.Tensor:
     logits = torch.matmul(xc, table.to(xc.dtype).T).to(torch.float32)
+    if divisor != 1.0:
+        logits = true_div(logits, divisor)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
     return torch.sum(logz - gold)
 
 
 def chunked_softmax_xent(x: torch.Tensor, table: torch.Tensor,
-                         labels: torch.Tensor, chunk: int = 512
-                         ) -> torch.Tensor:
+                         labels: torch.Tensor, chunk: int = 512,
+                         divisor: float = 1.0) -> torch.Tensor:
     """Full-softmax mean token xent WITHOUT materialising (b·s, V) logits.
 
     Runs over SEQUENCE chunks of ``chunk`` (one chunk when it does not
     divide s); each chunk's body runs under ``torch.utils.checkpoint``, so
     its (b, chunk, V) logits are formed again in the backward instead of
     being kept, as the reference's ``jax.checkpoint`` body does.  x (b, s,
-    d); table (V, d); labels (b, s)."""
+    d); table (V, d); labels (b, s).  The logits are divided by
+    ``divisor`` (GraniteMoeHybrid's ``logits_scaling``) before the
+    softmax."""
     b, s, _ = x.shape
     if s % chunk != 0:
         chunk = s
@@ -178,9 +182,10 @@ def chunked_softmax_xent(x: torch.Tensor, table: torch.Tensor,
     for lo in range(0, s, chunk):
         xc, lc = x[:, lo:lo + chunk], labels[:, lo:lo + chunk]
         if torch.is_grad_enabled():
-            part = checkpoint(_xent_chunk, xc, lc, table, use_reentrant=False)
+            part = checkpoint(_xent_chunk, xc, lc, table, divisor,
+                              use_reentrant=False)
         else:
-            part = _xent_chunk(xc, lc, table)
+            part = _xent_chunk(xc, lc, table, divisor)
         total = total + part
     return true_div(total, float(b * s))
 
@@ -218,4 +223,5 @@ def head_loss(cfg, x: torch.Tensor, table: torch.Tensor,
         b, s = labels.shape
         return sampled_softmax_xent(x.reshape(b * s, -1), table,
                                     labels.reshape(-1), batch["neg_ids"])
-    return chunked_softmax_xent(x, table, labels, cfg.loss_chunk)
+    return chunked_softmax_xent(x, table, labels, cfg.loss_chunk,
+                                cfg.logits_scaling)

@@ -1,12 +1,15 @@
 """Architecture and run configuration.
 
 Counterpart of ``repro.models.config``: the same fields, defaults and
-``reduced()`` smoke config, with ``dtype`` a ``torch.dtype``.
+``reduced()`` smoke config, with ``dtype`` a ``torch.dtype``.  The port
+adds the fields of the ``hybrid_moe`` family (GraniteMoeHybrid,
+``models/granite.py``), which the reference lacks; their defaults leave
+every other family as it is.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,6 +48,11 @@ class ArchConfig:
     dense_d_ff: int = 0          # d_ff of interleaved dense layers (moe_every>1)
     fsdp: bool = False           # shard master weights over data/pod (llama4)
     moe_groups: int = 32         # grouped dispatch (aligned with DP shards)
+    # expert parallelism (hybrid_moe): this device holds experts
+    # [expert_rank * experts_held, (expert_rank + 1) * experts_held) of
+    # n_experts; 0 holds them all
+    experts_held: int = 0
+    expert_rank: int = 0
 
     # --- SSM / hybrid ----------------------------------------------------
     ssm_state: int = 0           # Mamba2 N
@@ -53,7 +61,17 @@ class ArchConfig:
     conv_kernel: int = 4
     attn_every: int = 0          # zamba2: shared attn block every N layers
     rwkv_head_dim: int = 64
-    rwkv_chunk: int = 16
+    rwkv_chunk: int = 16         # also the Mamba2 SSD's chunk
+    # the Mamba2 gated norm: rmsnorm(y·silu(z)), not rmsnorm(y)·silu(z)
+    mamba_gate_first: bool = False
+
+    # --- hybrid_moe (GraniteMoeHybrid) ----------------------------------
+    layer_types: Tuple[str, ...] = ()    # "mamba" | "attention" a layer
+    attention_multiplier: float = 0.0    # softmax scale; 0 = 1/sqrt(head_dim)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0     # each mixer and FFN output
+    logits_scaling: float = 1.0          # the logits' divisor
+    norm_eps: float = 1e-6               # read by hybrid_moe's norms
 
     # --- enc-dec / multimodal --------------------------------------------
     enc_layers: int = 0
@@ -75,6 +93,10 @@ class ArchConfig:
     # (``repro_torch.plan``) solves per-leaf layouts under it when an
     # entry point asks for --aux-budget config.
     aux_budget_bytes: Optional[int] = None
+
+    def __post_init__(self):
+        # a configuration file gives the layer pattern as a list
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
 
     @property
     def vocab(self) -> int:
@@ -105,6 +127,8 @@ class ArchConfig:
             n_heads=4, n_kv=max(1, min(self.n_kv, 2)), head_dim=32,
             d_ff=256, vocab_size=512, vocab_multiple=64,
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            experts_held=min(self.experts_held, 2) if self.experts_held
+            else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0,
             shared_d_ff=128 if self.shared_d_ff else 0,
             dense_d_ff=256 if self.dense_d_ff else 0,

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
+from repro_torch.obs.profiling import scope
 
 Params = Dict[str, Any]
 
@@ -165,13 +166,30 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def mamba_apply(cfg: ArchConfig, p, x: torch.Tensor, state, mode: str):
     """x (b,s,d); state dict(conv_x (b,K-1,di), conv_bc (b,K-1,2n), h
-    (b,heads,p,n)).  Returns (x', state')."""
-    b, s, _d = x.shape
+    (b,heads,p,n)).  Returns (x', state'): the residual stream plus the
+    mixer of its RMSNorm (``p["ln"]``)."""
+    h_in = cm.shard_act(cm.rmsnorm(x, p["ln"]), None, None)
+    out, state = mamba_mixer(cfg, p, h_in, state, mode)
+    return x + out, state
+
+
+def mamba_mixer(cfg: ArchConfig, p, h_in: torch.Tensor, state, mode: str):
+    """The Mamba2 mixer of the normed input h_in (b,s,d), in the span
+    ``obs.mamba`` (its SSD in ``obs.ssd``): the projections, the causal
+    convs, the SSD, the gated RMSNorm (``p["gn"]``: the norm first, then
+    the gate ``silu(z)``; gate first under ``cfg.mamba_gate_first``, as
+    the published Mamba2 and Granite layers order it) and the output
+    projection.  Returns (out (b,s,d), state')."""
+    with scope("obs.mamba"):
+        return _mixer(cfg, p, h_in, state, mode)
+
+
+def _mixer(cfg: ArchConfig, p, h_in: torch.Tensor, state, mode: str):
+    b, s, _d = h_in.shape
     di, n, hds, hp = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
                       cfg.ssm_head_dim)
-    dt_ = x.dtype
+    dt_ = h_in.dtype
     f32 = torch.float32
-    h_in = cm.shard_act(cm.rmsnorm(x, p["ln"]), None, None)
     z = h_in @ p["z_proj"].to(dt_)
     xr = h_in @ p["x_proj"].to(dt_)
     bc = h_in @ p["bc_proj"].to(dt_)
@@ -189,16 +207,20 @@ def mamba_apply(cfg: ArchConfig, p, x: torch.Tensor, state, mode: str):
     dt = cm.shard_act(dt, None, "model")
     la = -torch.exp(p["A_log"])[None, None] * dt                # ≤ 0
 
-    if mode == "chunked":
-        y, h_state = ssd_chunked(xs, dt, la, B, C, state["h"],
-                                 cfg.rwkv_chunk)
-    else:
-        y, h_state = ssd_scan(xs, dt, la, B, C, state["h"])
+    with scope("obs.ssd"):
+        if mode == "chunked":
+            y, h_state = ssd_chunked(xs, dt, la, B, C, state["h"],
+                                     cfg.rwkv_chunk)
+        else:
+            y, h_state = ssd_scan(xs, dt, la, B, C, state["h"])
     y = y + p["D"][None, None, :, None] * xs.to(f32)
     y = cm.shard_act(y, None, "model", None).reshape(b, s, di)
-    y = cm.rmsnorm(y, p["gn"]) * F.silu(z.to(f32))
+    if cfg.mamba_gate_first:
+        y = cm.rmsnorm(y * F.silu(z.to(f32)), p["gn"], cfg.norm_eps)
+    else:
+        y = cm.rmsnorm(y, p["gn"]) * F.silu(z.to(f32))
     out = cm.shard_act(y.to(dt_) @ p["out_proj"].to(dt_), "model", None)
-    return x + out, {"conv_x": conv_x, "conv_bc": conv_bc, "h": h_state}
+    return out, {"conv_x": conv_x, "conv_bc": conv_bc, "h": h_state}
 
 
 def mamba_zero_state(cfg: ArchConfig, batch: int, layers: int,

@@ -25,16 +25,26 @@ compute dtype, rounding after each add as the reference does.  The two
 ``autograd.Function``s below are each other's backward, so the sums are
 the same on every run and on every device.  The reference's ``_shard``
 constraints have no counterpart: one device has no mesh.
+
+The expert-parallel layer of the ``hybrid_moe`` family
+(``held_moe_apply``, GraniteMoeHybrid's) has no counterpart in the
+reference.  It routes every token over all ``n_experts`` and computes
+only the part of the result that the experts this device holds give
+(``held_range``): the share of one rank of expert parallelism, run
+without its exchange.  It is dropless: every assignment to a held expert
+is computed, in one grouped product a weight over the assignments sorted
+by expert (``grouped_mm``), with no host sync.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common as cm
 from repro_torch.models.config import ArchConfig
+from repro_torch.obs.profiling import scope
 
 
 def moe_init(generator, cfg: ArchConfig, *, lead=(), device="cuda"):
@@ -259,3 +269,193 @@ def moe_apply(cfg: ArchConfig, p, x: torch.Tensor
         y = y + hs @ sp["w_down"].to(dt)
     return y, aux
 
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism, dropless (hybrid_moe)
+# ---------------------------------------------------------------------------
+
+def held_range(cfg: ArchConfig) -> Tuple[int, int]:
+    """``(first, count)``: this device holds experts first .. first +
+    count - 1 of ``cfg.n_experts`` (all of them when ``experts_held`` is
+    0)."""
+    held = cfg.experts_held or cfg.n_experts
+    first = cfg.expert_rank * held
+    if first < 0 or first + held > cfg.n_experts:
+        raise ValueError(f"expert share {cfg.expert_rank} of {held} does "
+                         f"not fit {cfg.n_experts} experts")
+    return first, held
+
+
+def held_moe_init(generator, cfg: ArchConfig, *, lead=(), device="cuda"):
+    """The router over all experts (…, d, n_experts), the held experts'
+    ``w_gate``/``w_up`` (…, held, d, f) and ``w_down`` (…, held, f, d),
+    and the shared SwiGLU ``shared`` (d_ff ``shared_d_ff``); ``lead`` =
+    (n_layers,) stacks them."""
+    lead = tuple(lead)
+    d, f = cfg.d_model, cfg.d_ff
+    held = held_range(cfg)[1]
+
+    def dense(d_in, d_out, more=()):
+        return cm.dense_init(generator, d_in, d_out, lead=lead + more,
+                             device=device)
+
+    p = {"router": dense(d, cfg.n_experts),
+         "w_gate": dense(d, f, (held,)), "w_up": dense(d, f, (held,)),
+         "w_down": dense(f, d, (held,))}
+    s = cfg.shared_d_ff
+    p["shared"] = {"w_gate": dense(d, s), "w_up": dense(d, s),
+                   "w_down": dense(s, d)}
+    return p
+
+
+_EXPERT_ROWS: Dict[torch.device, torch.Tensor] = {}
+
+
+def expert_rows(device) -> torch.Tensor:
+    """The count, on ``device``, of the assignments that held experts
+    have computed in this process: each call of ``held_moe_apply`` adds
+    its own, the forward and remat's recompute alike (a device add, no
+    host sync).  Read it after a run."""
+    key = torch.device(device)
+    if key not in _EXPERT_ROWS:
+        _EXPERT_ROWS[key] = torch.zeros((), dtype=torch.int64, device=key)
+    return _EXPERT_ROWS[key]
+
+
+def _grouped_plain(x: torch.Tensor, w: torch.Tensor,
+                   offs: torch.Tensor) -> torch.Tensor:
+    """``grouped_mm`` by one masked product a group (every row times
+    every group's weight): the plain version, rows past the last group
+    zero."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    start = torch.cat([offs.new_zeros(1), offs[:-1]])
+    y = torch.zeros((x.shape[0], w.shape[-1]), dtype=x.dtype,
+                    device=x.device)
+    for e in range(w.shape[0]):
+        inside = (rows >= start[e]) & (rows < offs[e])
+        y = y + torch.where(inside, x @ w[e], 0.0)
+    return y
+
+
+class _GroupedMM(torch.autograd.Function):
+    """``torch._grouped_mm`` forward and backward: dx by the same grouped
+    product against wᵀ, dw by the product grouped along the rows, which
+    reads no row past the last group."""
+
+    @staticmethod
+    def forward(ctx, x, w, offs):
+        ctx.save_for_backward(x, w, offs)
+        return torch._grouped_mm(x, w, offs=offs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, offs = ctx.saved_tensors
+        g = g.contiguous()
+        dx = torch._grouped_mm(g, w.transpose(-2, -1), offs=offs)
+        dw = torch._grouped_mm(x.transpose(0, 1), g, offs=offs)
+        return dx, dw, None
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor,
+               offs: torch.Tensor) -> torch.Tensor:
+    """x (N, d_in), w (E, d_in, d_out), offs (E,) int32 group ends:
+    rows offs[e-1] .. offs[e]-1 of x times w[e].  Rows past ``offs[-1]``
+    are left undefined (the callers read none of them), and so are their
+    gradients.  bf16 CUDA tensors take ``torch._grouped_mm``; any other
+    takes the plain version."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        return _GroupedMM.apply(x, w, offs)
+    return _grouped_plain(x, w, offs)
+
+
+class _HeldGather(torch.autograd.Function):
+    """x[tok]: each token's row once for each of its K assignments, in
+    sorted order; its backward sums each token's rows of the held
+    assignments (positions ``pos`` (T, K), masked by ``held``) in a
+    fixed order, reading no other row."""
+
+    @staticmethod
+    def forward(ctx, x, tok, pos, held):
+        ctx.save_for_backward(pos, held)
+        return x[tok]
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, held = ctx.saved_tensors
+        rows = g[pos.reshape(-1)].view(pos.shape + g.shape[-1:])
+        return (torch.where(held[..., None], rows, 0.0).sum(1), None, None,
+                None)
+
+
+class _Permute(torch.autograd.Function):
+    """rows[perm] for a permutation ``perm`` of the rows, whose inverse
+    is ``inv``: the backward is the gather g[inv], with no scatter."""
+
+    @staticmethod
+    def forward(ctx, rows, perm, inv):
+        ctx.save_for_backward(inv)
+        return rows[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        return g[inv], None, None
+
+
+def held_route(cfg: ArchConfig, p, x: torch.Tensor):
+    """(gates (T, K) f32, eids (T, K) int64): the K largest router logits
+    over all experts, ties to the lower expert id, and the gates a
+    softmax over those K logits (GraniteMoeHybrid's router)."""
+    logits = (x @ p["router"].to(x.dtype)).to(torch.float32)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    K = cfg.top_k
+    return torch.softmax(vals[:, :K], dim=-1), idx[:, :K]
+
+
+def held_moe_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """x (b, s, d) -> the held experts' part of the routed output plus
+    the shared expert's, in the span ``obs.moe`` (the grouped products
+    in ``obs.experts``).
+
+    The T·K assignments are sorted by expert with the held ones first (a
+    stable sort: each expert's rows in token order) and every token's
+    row is gathered once for each of its assignments; the grouped
+    products stop at the held count, a device value (``offs[-1]``), and
+    the rows past it are never read.  Each assignment keeps its own row
+    in that order, so the combine gathers a permutation and its backward
+    is a gather too."""
+    with scope("obs.moe"):
+        b, s, d = x.shape
+        x = x.reshape(b * s, d)
+        T, K, dt = b * s, cfg.top_k, x.dtype
+        first, held = held_range(cfg)
+        gates, eids = held_route(cfg, p, x)
+        local = eids - first
+        is_held = (local >= 0) & (local < held)                 # (T, K)
+        key = torch.where(is_held, local, held).reshape(-1)
+        order = torch.argsort(key, stable=True)
+        offs = torch.searchsorted(
+            key[order], torch.arange(1, held + 1, device=x.device)
+        ).to(torch.int32)
+        pos = torch.empty_like(order)
+        pos[order] = torch.arange(T * K, device=x.device)
+        xs = _HeldGather.apply(x, order // K, pos.view(T, K), is_held)
+        wg, wu, wd = (p[k].to(dt) for k in ("w_gate", "w_up", "w_down"))
+        with scope("obs.experts"):
+            a, u = grouped_mm(xs, wg, offs), grouped_mm(xs, wu, offs)
+        h = _act(cfg, a) * u
+        with scope("obs.experts"):
+            ys = grouped_mm(h, wd, offs)
+        with torch.no_grad():
+            expert_rows(x.device).add_(offs[-1])
+        # the rows of assignments to other experts are undefined: masked
+        # before the gates multiply them, so no gradient reads them
+        contrib = torch.where(is_held[..., None],
+                              _Permute.apply(ys, pos, order).view(T, K, d),
+                              0.0)
+        y = (contrib * gates.to(dt)[..., None]).sum(1)
+        sp = p["shared"]
+        hs = _act(cfg, x @ sp["w_gate"].to(dt)) * (x @ sp["w_up"].to(dt))
+        y = y + hs @ sp["w_down"].to(dt)
+        return y.view(b, s, d)

@@ -49,10 +49,13 @@ from repro_torch.obs.profiling import scope
 def family_module(cfg: ArchConfig):
     """The model module of ``cfg.family``: the transformer for the dense
     ``gqa`` and the ``moe`` families, ``rwkv`` for ``rwkv6``, ``mamba``
-    for ``hybrid``, ``encdec`` and ``vlm``."""
-    from repro_torch.models import encdec, mamba, rwkv, transformer, vlm
+    for ``hybrid``, ``granite`` for ``hybrid_moe``, ``encdec`` and
+    ``vlm``."""
+    from repro_torch.models import (encdec, granite, mamba, rwkv,
+                                    transformer, vlm)
     return {"gqa": transformer, "moe": transformer, "rwkv6": rwkv,
-            "hybrid": mamba, "encdec": encdec, "vlm": vlm}[cfg.family]
+            "hybrid": mamba, "hybrid_moe": granite, "encdec": encdec,
+            "vlm": vlm}[cfg.family]
 
 
 def stub_input(cfg: ArchConfig) -> Optional[Tuple[str, int]]:
@@ -205,6 +208,9 @@ def make_train_step(cfg: ArchConfig, *, optimizer: str = "cs_adam",
                     loss, [x for _p, x in leaves])
         by_path = {p: g for (p, _x), g in zip(leaves, grad_list)}
         grads = tree_map_with_path(lambda p, _x: by_path[p], params)
+        # the clip makes a scaled copy: with no other reference left, the
+        # unclipped gradients are freed before the optimizer runs
+        del grad_list, by_path
         loss = loss.detach()
         if axis is not None:
             with scope("obs.collective"):

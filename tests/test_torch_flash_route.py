@@ -99,11 +99,13 @@ def test_cpu_calls_keep_the_einsum_path(dtype, hd, s):
 def plain_kernels(monkeypatch):
     """The kernel route on the CPU: the kernels' plain versions stand in
     for the kernels, counting as they do."""
-    def fwd(q, k, v, causal, q_offset):
+    def fwd(q, k, v, causal, q_offset, scale):
+        assert scale is None
         fwd.launches += 1
         return fa.flash_attn_fwd_plain(q, k, v, causal, q_offset, chunk=16)
 
-    def bwd(q, k, v, o, lse, dout, causal, q_offset, out_dtype):
+    def bwd(q, k, v, o, lse, dout, causal, q_offset, out_dtype, scale):
+        assert scale is None
         assert dout.dtype == q.dtype and dout.is_contiguous()
         bwd.launches += 1
         grads = fa.flash_attn_bwd_plain(q, k, v, o, lse, dout, causal,

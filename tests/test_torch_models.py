@@ -69,13 +69,24 @@ def _batch(cfg, b=2, s=32, seed=0):
 
 
 # ---------------------------------------------------------------- configs
+def _shared_and_own(j, t):
+    """The port's config as (the reference's fields, the port's own
+    fields), the latter checked to be at their defaults."""
+    jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
+    own = {k: v for k, v in td.items() if k not in jd}
+    defaults = {f.name: f.default for f in dataclasses.fields(t)}
+    assert own == {k: defaults[k] for k in own}
+    return {k: v for k, v in td.items() if k in jd}, own
+
+
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_configs_match_reference(arch):
     j, t = jconfigs.get(arch), tconfigs.get(arch)
-    jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
-    assert jd == td
+    jd = dataclasses.asdict(j)
+    assert jd == _shared_and_own(j, t)[0]
     assert (j.vocab, str(j.dtype)) == (t.vocab, str(t.dtype).split(".")[1])
-    assert dataclasses.asdict(j.reduced()) == dataclasses.asdict(t.reduced())
+    assert dataclasses.asdict(j.reduced()) == \
+        _shared_and_own(j.reduced(), t.reduced())[0]
     assert t.reduced().dtype == torch.float32
 
 

@@ -490,6 +490,23 @@ own line; any failure raises and the exit code is not 0:
      (the three-term splits), the plain versions' ms and, as a
      yardstick only, ``scaled_dot_product_attention``'s (never called
      by the port).  ``--phases 19`` runs phase 19 alone.
+ 20. the Mamba2 SSD's chunked-scan kernels (B14, ``kernels/ssd.py``)
+     through ``ssd_chunked``'s autograd Function at zamba2-2.7b's layer
+     of 17c (4 x 2,048 tokens, 80 heads of 64, state 64, chunk 64) and
+     granite-4.0-h-small's of the benchmark cell (2 x 8,192 tokens, 128
+     heads of 64, state 128, chunk 256), with a nonzero h0 and a
+     gradient of h_final: the six gradients, the in-chunk cumsum Acs, and
+     y and h_final of the plain forward fed the kernels' Acs, each within
+     its limit in ``SSD_TOL`` of the plain form's (``ssd_fwd_plain`` and
+     its autograd on the card; gap = norm of the difference over the
+     plain one's; y and h_final against the plain form's own cumsum
+     printed), two calls equal to the bit, one launch counted a call
+     each way; the forward's and the backward's ms (CUDA events) beside
+     their bytes at 3.35 TB/s and the plain form's ms.  The kernels' line
+     gives B14's launches of the paths above (17c-e: zamba2's Mamba2
+     layers; phase 17 gates that every chunked SSD of 17c's arms took
+     the kernels and that 17d's chunked prefill launched the forward).
+     ``--phases 20`` runs phase 20 alone.
 
 The CUDA caching allocator runs with ``expandable_segments:True`` (set
 in ``PYTORCH_CUDA_ALLOC_CONF`` unless the caller set it): phase 15's
@@ -602,12 +619,14 @@ def kernel_counts():
     from repro_torch.kernels.cs_query import cs_query
     from repro_torch.kernels.cs_update import bucket_csr, cs_update
     from repro_torch.kernels.flash_attn import flash_attn_bwd, flash_attn_fwd
+    from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
     return {"cs_adam_tiled": cs_adam_tiled, "cs_adam_fused": cs_adam_fused,
             "cs_ema_tiled": cs_ema_tiled,
             "cs_ema_tiled_bf16": cs_ema_tiled_bf16, "cs_query": cs_query,
             "cs_update": cs_update, "bucket_csr": bucket_csr,
             "flash_attn_fwd": flash_attn_fwd,
-            "flash_attn_bwd": flash_attn_bwd}
+            "flash_attn_bwd": flash_attn_bwd, "ssd_fwd": ssd_fwd,
+            "ssd_bwd": ssd_bwd}
 
 
 def reset_counts() -> None:
@@ -6430,21 +6449,53 @@ def phase_a14b_part4(dev, seed: int, held: int = 0):
     tables.  Returns the launches of the path and B3's times at the
     tables."""
     import torch
+    from repro_torch.models.mamba import ssd_chunked
     log(f"phase 17: {held} B allocated on the card as it starts")
     totals: dict = {}
     b3 = time_ema_tables(dev, seed, (RWKV_ARCH, HYBRID_ARCH), tag="17")
     for arch, layers, train_tag, serve_tag in (
             (RWKV_ARCH, RWKV_TRAIN_LAYERS, "17a", "17b"),
             (HYBRID_ARCH, HYBRID_TRAIN_LAYERS, "17c", "17d")):
-        add_counts(totals, phase_family_train(dev, seed, arch, train_tag,
-                                              layers))
+        chunked = (ssd_chunked.calls, ssd_chunked.kernel_calls)
+        train = phase_family_train(dev, seed, arch, train_tag, layers)
+        chunked = (ssd_chunked.calls - chunked[0],
+                   ssd_chunked.kernel_calls - chunked[1])
+        add_counts(totals, train)
         torch.cuda.empty_cache()
-        add_counts(totals, phase_family_serve(dev, seed, arch, serve_tag))
+        serve = phase_family_serve(dev, seed, arch, serve_tag)
+        add_counts(totals, serve)
         torch.cuda.empty_cache()
+        check_ssd_launches(arch, train_tag, train, chunked, serve_tag,
+                           serve)
     add_counts(totals, phase_family_launcher(dev, seed, "17e",
                                              P17_LAUNCHES))
     log(f"phase 17: launches of the path {totals}")
     return totals, b3
+
+
+def check_ssd_launches(arch, train_tag, train, chunked, serve_tag,
+                       serve) -> None:
+    """Phase 17's B14 launches, counted from zero by each arm: zamba2's
+    Mamba2 layers (bf16, head dim 64, chunk 64, state 64) send every
+    chunked SSD of its training arms to the kernels, forward and
+    backward, and its chunked prefill to the forward; rwkv6 runs none."""
+    b14 = {tag: (counts["ssd_fwd"], counts["ssd_bwd"])
+           for tag, counts in ((train_tag, train), (serve_tag, serve))}
+    log(f"phase {train_tag}/{serve_tag}: B14 launches (forward, backward) "
+        f"{b14}; ssd_chunked calls in {train_tag} {chunked[0]}, "
+        f"{chunked[1]} on the kernels")
+    if arch != HYBRID_ARCH:
+        if any(map(any, b14.values())):
+            raise AssertionError(f"{train_tag}: {arch} launched B14")
+        return
+    fwd, bwd = b14[train_tag]
+    # the profiled steps after an arm call the SSD outside fit's counts
+    if not (fwd and bwd and chunked[0] == chunked[1] >= fwd):
+        raise AssertionError(f"{train_tag}: not every chunked SSD took B14 "
+                             f"({chunked}, launches {fwd}, {bwd})")
+    if not b14[serve_tag][0]:
+        raise AssertionError(f"{serve_tag}: the chunked prefill did not "
+                             f"launch B14")
 
 
 # ---------------------------------------------------------------- phase 18
@@ -6876,6 +6927,121 @@ def phase_flash(dev, seed: int) -> list:
     return rows
 
 
+# limits on each output's gap to the plain form, each a few times the
+# largest of 3 seeds at both shapes (NVIDIA H100 80GB HBM3, 700 W).  Acs,
+# the in-chunk cumsum, differs from the plain form's by the order of its
+# f32 sums (read 6.8e-8 to 9.9e-8).  y and h_final are held to the plain
+# forward fed the kernels' Acs (read 6.7e-6 to 2.3e-5, 6.0e-8 to 6.5e-8):
+# against the plain form's own, a last-bit difference of Acs rounds some w
+# or M entries to another bf16, and h_final read 6.0e-8 to 1.4e-4 over the
+# seeds (printed, not held).  The gradients against the plain form's
+# autograd: x 2.6e-3, dt 1.8e-3, la 1.5e-3, B 3.2e-3, C 3.1e-3, h0 3.2e-7
+# at most
+SSD_TOL = {"Acs": 5e-7, "y": 1e-4, "h_final": 3e-7, "x": 1e-2, "dt": 7e-3,
+           "la": 6e-3, "B": 1e-2, "C": 1e-2, "h0": 1.5e-6}
+HBM_BW = 3.35e12                   # H100 SXM data sheet, bytes/s
+# (b, s, heads, state, chunk): zamba2-2.7b's Mamba2 layer at 17c's batch
+# (4 x 2,048 tokens, 80 heads of 64) and granite-4.0-h-small's at the
+# benchmark cell's (2 x 8,192 tokens, 128 heads of 64)
+SSD_SHAPES = {"zamba2-2.7b": (LM_BATCH, LM_SEQ, 80, 64, 64),
+              "granite-4.0-h-small": (2, 8192, 128, 128, 256)}
+
+
+def time_ssd(dev, seed: int, name: str) -> dict:
+    """Phase 20 at one shape: B14 through ``ssd_chunked``'s autograd
+    Function against the plain form and its autograd, then the kernels'
+    times beside their byte bound and the plain form's."""
+    import torch
+    from repro_torch.kernels import ssd
+    from repro_torch.models import mamba
+    b, s, h, n, chunk = SSD_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    bf = torch.bfloat16
+    x = randn(b, s, h, 64).to(bf)
+    dt = torch.nn.functional.softplus(randn(b, s, h) - 4.6)
+    ins = [x, dt, -8.0 * dt, randn(b, s, n).to(bf), randn(b, s, n).to(bf),
+           randn(b, h, 64, n)]
+    dy, dhT = randn(b, s, h, 64), randn(b, h, 64, n)
+
+    def route(fn):
+        xs = [t.clone().requires_grad_() for t in ins]
+        y, hT = fn(*xs)
+        torch.autograd.backward((y, hT), (dy, dhT))
+        return [y.detach(), hT.detach()] + [t.grad for t in xs]
+    n_f, n_b = ssd.ssd_fwd.launches, ssd.ssd_bwd.launches
+    got = route(lambda *z: mamba._SSDKernel.apply(*z, chunk))
+    again = route(lambda *z: mamba._SSDKernel.apply(*z, chunk))
+    torch.cuda.synchronize()
+    if (ssd.ssd_fwd.launches - n_f, ssd.ssd_bwd.launches - n_b) != (2, 2):
+        raise SystemExit(f"phase 20 ({name}): launches not counted")
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise SystemExit(f"phase 20 ({name}): two calls differ")
+    del again
+    want = route(lambda *z: ssd.ssd_fwd_plain(*z, chunk)[:2])
+
+    def gap(a, w):
+        return float(torch.linalg.vector_norm((a - w).double())
+                     / torch.linalg.vector_norm(w.double()))
+    names = ("x", "dt", "la", "B", "C", "h0")
+    gaps = {k: gap(a, w) for k, a, w in zip(names, got[2:], want[2:])}
+    bad = [k for k, a, w in zip(names, got[2:], want[2:])
+           if a.dtype != w.dtype or not bool(torch.isfinite(a).all())]
+    del got, want
+    with torch.no_grad():
+        y, hT, states, Acs = ssd.ssd_fwd(*ins, chunk)
+        p_y, p_hT, _states, p_Acs = ssd.ssd_fwd_plain(*ins, chunk)
+        q_y, q_hT = ssd.ssd_fwd_plain(*ins, chunk, Acs=Acs)[:2]
+    gaps.update(Acs=gap(Acs, p_Acs), y=gap(y, q_y), h_final=gap(hT, q_hT))
+    own = {"y": gap(y, p_y), "h_final": gap(hT, p_hT)}
+    del p_y, p_hT, _states, p_Acs, q_y, q_hT
+    log(f"phase 20 ({name}): gaps to the plain form {gaps} (y and h_final "
+        f"fed the kernels' Acs; against its own cumsum {own})")
+    bad += [k for k in SSD_TOL if not gaps[k] <= SSD_TOL[k]]
+    if bad:
+        raise SystemExit(f"phase 20 ({name}): {bad} off the plain form "
+                         f"(limits {SSD_TOL})")
+    grads = ssd.ssd_bwd(x, dt, ins[3], ins[4], states, Acs, dy, dhT)
+    fwd_bytes = sum(t.nbytes for t in (*ins, y, hT, states, Acs))
+    bwd_bytes = sum(t.nbytes for t in (x, dt, ins[3], ins[4], states, Acs,
+                                       dy, dhT, *grads))
+    del grads
+    fwd_ms = cuda_ms(lambda: ssd.ssd_fwd(*ins, chunk), 20, 2)
+    bwd_ms = cuda_ms(lambda: ssd.ssd_bwd(x, dt, ins[3], ins[4], states,
+                                         Acs, dy, dhT), 20, 2)
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: ssd.ssd_fwd_plain(*ins, chunk), 3)
+    plain_both_ms = cuda_ms(lambda: route(
+        lambda *z: ssd.ssd_fwd_plain(*z, chunk)[:2]), 3)
+    row = {"name": "ssd", "shape": name, "b_s_h_n_chunk": [b, s, h, n,
+                                                           chunk],
+           "ms": fwd_ms, "bwd_ms": bwd_ms,
+           "bound_ms": fwd_bytes / HBM_BW * 1e3,
+           "bwd_bound_ms": bwd_bytes / HBM_BW * 1e3, "bound_by": "bytes",
+           "bytes": fwd_bytes, "bwd_bytes": bwd_bytes,
+           "plain_ms": plain_ms, "plain_bwd_ms": plain_both_ms - plain_ms,
+           "gaps": gaps, "gaps_own_cumsum": own}
+    log(f"phase 20 ({name}): forward {fwd_ms:.4f} ms (bound "
+        f"{row['bound_ms']:.4f}, plain {plain_ms:.3f}), backward "
+        f"{bwd_ms:.4f} ms (bound {row['bwd_bound_ms']:.4f}, plain "
+        f"{row['plain_bwd_ms']:.3f})")
+    return row
+
+
+def phase_ssd(dev, seed: int) -> list:
+    """Phase 20: B14 at zamba2-2.7b's 17c shapes and granite-4.0-h-small's
+    cell shape.  Returns their rows for the kernels' line."""
+    import torch
+    rows = []
+    for name in SSD_SHAPES:
+        rows.append(time_ssd(dev, seed, name))
+        torch.cuda.empty_cache()
+    print(json.dumps({"ssd": rows}), flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6952,6 +7118,7 @@ def main(argv=None) -> int:
         ("17", lambda: phase_a14b_part4(dev, args.seed, release(out))),
         ("18", lambda: phase_slice17(dev, args.seed, release(out))),
         ("19", lambda: phase_flash(dev, args.seed)),
+        ("20", lambda: phase_ssd(dev, args.seed)),
     ]
     if args.phases:
         keep = args.phases.split(",")
@@ -7097,6 +7264,17 @@ def main(argv=None) -> int:
             row[f"launches_{path}_path"] = [counts.get(n, 0)
                                             for n in flash_names]
     kernels.extend(out["19"])
+    ssd_names = ("ssd_fwd", "ssd_bwd")
+    for row in out["20"]:
+        # phase 20's own calls are not counted here: the launches of the
+        # paths above (forward, backward), zamba2's in 17c-e alone
+        row["launches"], row["bwd_launches"] = (
+            sum(counts.get(n, 0) for counts in (a14b, part3, part4,
+                                                 slice17))
+            for n in ssd_names)
+        row["launches_a14b_part4_path"] = [part4.get(n, 0)
+                                           for n in ssd_names]
+    kernels.extend(out["20"])
     log(f"peak device memory of the whole run {max(peak, out['8'][4])} B")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

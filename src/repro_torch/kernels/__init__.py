@@ -8,6 +8,8 @@
                      (CUDA, ``csrc/cs_ema_tiled.cu``)
   cs_query.py      — B4, batch QUERY (CUDA, ``csrc/cs_query.cu``)
   cs_update.py     — B5, batch UPDATE (CUDA, ``csrc/cs_update.cu``)
+  ssd.py           — B14, the Mamba2 SSD's chunked scan forward and
+                     backward (CUDA, ``csrc/ssd.cuh``)
   build.py         — nvcc build at first use, ctypes loading
   dedup.py         — sort + segment-sum pre-pass
   ops.py           — the backends; ref.py — plain PyTorch forms

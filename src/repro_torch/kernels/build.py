@@ -30,8 +30,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "kernels"
 SOURCES = ("cs_adam_tiled.cu", "cs_adam.cu", "cs_csr.cu", "cs_ema_tiled.cu",
-           "cs_query.cu", "cs_update.cu", "flash_attn.cu")
-HEADERS = ("cs_common.cuh",)
+           "cs_query.cu", "cs_update.cu", "flash_attn.cu", "ssd.cu",
+           "ssd_bwd.cu")
+HEADERS = ("cs_common.cuh", "ssd.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -68,6 +69,11 @@ SIGNATURES = {
     # q, k, v, o, dout, lse, D, dq, dk, dv, b, sq, skv, hq, hkv, hd,
     # causal, q_offset, scale, bf16_out, stream
     "flash_attn_bwd_launch": [P] * 10 + [I] * 8 + [F, I, P],
+    # x, dt, la, B, C, h0, y, hT, states, Acs, b, s, h, chunk, n, stream
+    "ssd_fwd_launch": [P] * 10 + [I] * 5 + [P],
+    # x, dt, B, C, states, Acs, dy, dhT, dx, ddt, dla, dB, dC, dh0, and
+    # the scratch V, dAq, dTs, dCB, dA, dT; b, s, h, chunk, n, stream
+    "ssd_bwd_launch": [P] * 20 + [I] * 5 + [P],
 }
 
 

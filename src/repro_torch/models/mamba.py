@@ -20,7 +20,10 @@ log-decays sum below about −88.7 the exp overflows f32 and its backward
 is 0·inf = NaN (zamba2-2.7b from its init on 4 × 2,048 ZipfLM tokens:
 the loss NaN from the second step).  The port zeroes those exponents before
 the exp: every value of the forward is the reference's, and so is the
-gradient wherever the reference's is finite (ROADMAP C).
+gradient wherever the reference's is finite (ROADMAP C).  On the card,
+bf16 x at head dim 64 with chunk and ssm_state zamba2's (64, 64) or
+granite's (256, 128) takes the chunked-scan kernels (B14, ``kernels/ssd.py``) at the same precision
+(``takes_kernel``); every other input takes the plain form.
 
 Zamba2: Mamba2 layers with ONE weight-shared attention+MLP block (the
 transformer's layer under ``_shared_cfg``: family ``gqa``, head_dim
@@ -42,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ssd as ssd_kernels
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
@@ -71,48 +75,62 @@ def ssd_scan(x, dt, la, B, C, h0):
     return torch.stack(ys, dim=1), h
 
 
+class _SSDKernel(torch.autograd.Function):
+    """``ssd_chunked`` on the card's kernels (``kernels/ssd.py``): saves
+    x, dt, B, C, the states before each chunk and the in-chunk cumsum of
+    la; its backward runs in the span ``obs.ssd_bwd`` and gives each
+    gradient that ``needs_input_grad`` asks for."""
+
+    @staticmethod
+    def forward(ctx, x, dt, la, B, C, h0, chunk: int):
+        ctx.set_materialize_grads(False)
+        x, dt, la, B, C, h0 = (t.contiguous() for t in (x, dt, la, B, C, h0))
+        y, h_final, states, Acs = ssd_kernels.ssd_fwd(x, dt, la, B, C, h0,
+                                                      chunk)
+        ctx.save_for_backward(x, dt, B, C, states, Acs)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        with scope("obs.ssd_bwd"):
+            x, dt, B, C, states, Acs = ctx.saved_tensors
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device) \
+                if dy is None else dy.to(torch.float32).contiguous()
+            if dh_final is not None:
+                dh_final = dh_final.to(torch.float32).contiguous()
+            grads = ssd_kernels.ssd_bwd(x, dt, B, C, states, Acs, dy,
+                                        dh_final, ctx.needs_input_grad[:6])
+            return (*grads, None)
+
+
+def takes_kernel(x, B, chunk: int) -> bool:
+    """Whether ``ssd_chunked`` sends a call to the kernels: a CUDA x in
+    bf16 at head dim 64, ``chunk`` dividing the length, and ``chunk`` and
+    the state (B's last dim) a pair the kernels are built for
+    (``kernels.ssd.PAIRS``)."""
+    return (x.is_cuda and x.dtype == torch.bfloat16
+            and x.shape[-1] == ssd_kernels.HEAD_DIM
+            and (chunk, B.shape[-1]) in ssd_kernels.PAIRS
+            and x.shape[1] % chunk == 0)
+
+
 def ssd_chunked(x, dt, la, B, C, h0, chunk: int):
-    """Chunked form; shapes as in ``ssd_scan``.  Falls back to the scan
-    when ``chunk`` does not divide the length."""
-    b, s, h, p = x.shape
-    n = B.shape[-1]
-    if s % chunk != 0:
+    """Chunked form; shapes as in ``ssd_scan``.  Where ``takes_kernel``
+    holds, the kernels take the call; otherwise the plain form
+    (``kernels.ssd.ssd_fwd_plain``), or the scan when ``chunk`` does not
+    divide the length.  ``calls`` counts every call, ``kernel_calls``
+    those that took the kernels."""
+    ssd_chunked.calls += 1
+    if takes_kernel(x, B, chunk):
+        ssd_chunked.kernel_calls += 1
+        return _SSDKernel.apply(x, dt, la, B, C, h0, chunk)
+    if x.shape[1] % chunk != 0:
         return ssd_scan(x, dt, la, B, C, h0)
-    L, nc = chunk, s // chunk
-    f32 = torch.float32
-    xb = x.reshape(b, nc, L, h, p)
-    Bb = B.reshape(b, nc, L, n)
-    Cb = C.reshape(b, nc, L, n)
-    # heads ahead of the chunk's positions: (b, c, h, L) and the (L, L)
-    # matrices last, so the masks are ``tril`` and the products batched
-    # matmuls without a transposed copy
-    dtT = dt.reshape(b, nc, L, h).transpose(2, 3)
-    laI = torch.cumsum(la.reshape(b, nc, L, h).to(f32).transpose(2, 3),
-                       dim=3)                                   # (b,c,h,L)
-    # intra-chunk: M[i, j] = exp(laI_i − laI_j)·(C_i·B_j)·dt_j, j ≤ i.
-    # Above the diagonal the exponents are positive and may overflow:
-    # they are zeroed before the exp (see the module docstring)
-    dec = (laI[..., :, None] - laI[..., None, :]).tril()       # (b,c,h,i,j)
-    cb = torch.einsum("bcin,bcjn->bcij", Cb.to(f32), Bb.to(f32))
-    M = (torch.exp(dec) * (cb[:, :, None] * dtT[..., None, :])).tril()
-    # M rounded to x's dtype, then exact products summed in f32
-    xT = xb.transpose(2, 3).to(f32)                             # (b,c,h,L,p)
-    y = M.to(x.dtype).to(f32) @ xT                              # (b,c,h,i,p)
-    # the state update's terms: w rounded to x's dtype, w·x in x's dtype
-    la_tot = laI[..., -1:]                                      # (b,c,h,1)
-    w = torch.exp(la_tot - laI) * dtT                           # f32
-    wx = (w.to(x.dtype)[..., None] * xb.transpose(2, 3)).to(f32)
-    upd = wx.transpose(3, 4) @ Bb.to(f32)[:, :, None]          # (b,c,h,p,n)
-    decay = torch.exp(la_tot)[..., None]                        # (b,c,h,1,1)
-    hs, before = h0, []
-    for c in range(nc):
-        before.append(hs)
-        hs = decay[:, c] * hs + upd[:, c]
-    # inter-chunk: y_i += exp(laI_i)·C_i·h (the state before the chunk)
-    y = y + torch.exp(laI)[..., None] * (
-        Cb.to(f32)[:, :, None] @ torch.stack(before, dim=1).transpose(3, 4))
-    y = y.transpose(2, 3)                                       # (b,c,L,h,p)
-    return y.reshape(b, s, h, p), hs
+    return ssd_kernels.ssd_fwd_plain(x, dt, la, B, C, h0, chunk)[:2]
+
+
+ssd_chunked.calls = 0
+ssd_chunked.kernel_calls = 0
 
 
 # ---------------------------------------------------------------------------
